@@ -1,23 +1,29 @@
 """betacores_tpu_torch: the PyTorch/CUDA port of betacores_tpu.
 
-Slice 1 is ported: the beta-Cores incremental build on logistic regression
-with a Laplace posterior, whose refinement step runs as one hand-written
-Hopper kernel (csrc/logreg_adam_step.cu). Modules keep the JAX package's
-paths and names. This package imports torch and never jax.
+Ported so far: the beta-Cores incremental build (select over a subsample
+or every row, refinement on a subsample) for logistic regression, whose
+refinement step runs as one hand-written Hopper kernel
+(csrc/logreg_adam_step.cu), and for multiclass softmax regression, whose
+large projections run as another (csrc/multiclass_projection.cu) and whose
+refinement takes the composed route through ``utils.opt.nn_adam``. Modules
+keep the JAX package's paths and names. This package imports torch and
+never jax.
 """
 
 from . import coresets, data, inference, models, ops, utils
 from .coresets import (CoresetState, FixedDraws, GeneratorDraws,
                        IncrementalConfig, init_state, make_incremental_builder,
                        state_from_numpy, state_to_numpy)
-from .data import gen_synthetic_logreg, perturb_logreg
-from .inference import logreg_laplace_sampler
-from .models import logreg
+from .data import (flip_labels, gen_synthetic_logreg, gen_synthetic_multiclass,
+                   perturb_logreg)
+from .inference import logreg_laplace_sampler, multiclass_laplace_sampler
+from .models import logreg, multiclass
 
 __all__ = [
     "coresets", "data", "inference", "models", "ops", "utils",
     "CoresetState", "FixedDraws", "GeneratorDraws", "IncrementalConfig",
     "init_state", "make_incremental_builder", "state_from_numpy",
-    "state_to_numpy", "gen_synthetic_logreg", "perturb_logreg",
-    "logreg_laplace_sampler", "logreg",
+    "state_to_numpy", "flip_labels", "gen_synthetic_logreg",
+    "gen_synthetic_multiclass", "perturb_logreg", "logreg_laplace_sampler",
+    "multiclass_laplace_sampler", "logreg", "multiclass",
 ]

@@ -4,15 +4,22 @@ betacores_tpu/coresets/incremental.py).
 Each iteration runs
 
   select:   fit the Laplace posterior of the current coreset, draw S samples,
-            project a data subsample and the coreset buffer into the tangent
-            space, score candidates by correlation with the residual
-            resid = scaling * sum_n v_n - w . corevecs and install the best
-            (reference parity, or ``dedup_select``);
-  optimize: ``opt_itrs`` projected-Adam steps of the Monte-Carlo KL gradient,
-            each refitting the posterior (warm-started Newton, or every k-th
-            step with ``refit_every``) and running ONE fused step
+            project the data (every row, or a subsample) and the coreset
+            buffer into the tangent space, score candidates by correlation
+            with the residual resid = scaling * sum_n v_n - w . corevecs and
+            install the best (reference parity, or ``dedup_select``);
+  optimize: ``opt_itrs`` projected-Adam steps of the Monte-Carlo KL gradient
+            on pre-drawn noise and subsample rows, each refitting the
+            posterior (warm-started Newton, or every k-th step with
+            ``refit_every``). A model with a fused step (logistic
+            regression) runs each step as ONE launch
             (ops/kernels.py::logreg_adam_step: a CUDA kernel on the card,
-            its plain twin on the CPU).
+            its plain version on the CPU); any other model takes the
+            composed route through utils/opt.py::nn_adam.
+
+Projections of at least FUSED_MIN_ROWS rows go to the model's fused
+projection (ops/projection.py), e.g. the multiclass kernel K2 in
+full-candidate select.
 
 Random draws are separated from compute: ``build`` takes a draws provider
 (``GeneratorDraws`` draws from a ``torch.Generator``; ``FixedDraws``
@@ -29,9 +36,9 @@ from typing import Optional, Protocol, Sequence, Tuple
 import torch
 
 from ..ops.kernels import (adam_sclr_stack, make_refit_state, make_step_refit,
-                           pack_fused_step_rows, pad_fused_step_noise)
+                           maybe_fused, pack_fused_step_rows, pad_fused_step_noise)
 from ..ops.projection import draw_subsample, project_beta, project_ll
-from ..utils.opt import step_schedule
+from ..utils.opt import nn_adam, step_schedule
 from .state import CoresetState
 
 
@@ -66,8 +73,9 @@ class Draws(Protocol):
     """Source of a build's random draws. ``it`` counts selections from 0
     within one ``build`` call."""
 
-    def select(self, it: int, st: CoresetState) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(z_sel (S, d) standard normals, idx_sel (n_sel,) row indices)."""
+    def select(self, it: int, st: CoresetState) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(z_sel (S, d) standard normals, idx_sel (n_sel,) row indices, or
+        None when select scores every row)."""
 
     def optimize(self, it: int, st: CoresetState) -> Tuple[torch.Tensor, torch.Tensor]:
         """(z_all (T, S, d), idx_all (T, n_opt)) for a whole refinement pass."""
@@ -80,7 +88,7 @@ class GeneratorDraws:
     generator: torch.Generator
     sampler: object
     n_total: int
-    n_sel: int
+    n_sel: Optional[int]              # None: select scores every row
     n_opt: int
     n_steps: int
     n_samples: int
@@ -88,6 +96,8 @@ class GeneratorDraws:
     def select(self, it, st):
         z = self.sampler.draw_noise(self.generator, self.n_samples, st.wts,
                                     st.pts, st.sampler_aux)
+        if self.n_sel is None:
+            return z, None
         idx, _ = draw_subsample(self.generator, self.n_total, self.n_sel)
         return z, idx
 
@@ -101,15 +111,16 @@ class GeneratorDraws:
 
 @dataclasses.dataclass
 class FixedDraws:
-    """Replays given draws: ``sel[it] = (z_sel, idx_sel)`` and
+    """Replays given draws: ``sel[it] = (z_sel, idx_sel or None)`` and
     ``opt[it] = (z_all, idx_all)``, moved to the state's device."""
 
-    sel: Sequence[Tuple[torch.Tensor, torch.Tensor]]
+    sel: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]]
     opt: Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
     def select(self, it, st):
         z, idx = self.sel[it]
-        return z.to(st.wts.device), idx.to(st.wts.device)
+        dev = st.wts.device
+        return z.to(dev), None if idx is None else idx.to(dev)
 
     def optimize(self, it, st):
         z, idx = self.opt[it]
@@ -128,12 +139,14 @@ class IncrementalBuilder:
         self.sampler = sampler
         self.config = config
         self.step_sizes = step_sizes
-        self.sclr_all = adam_sclr_stack(step_sizes)   # (T, 3), fixed per build
         N = data.shape[0]
-        self.n_sel = min(N, config.n_subsample_select)
+        self.n_sel = (None if config.n_subsample_select is None
+                      else min(N, config.n_subsample_select))
         self.n_opt = min(N, config.n_subsample_opt)
         self.fstep = (model.fused_beta_grad_step if config.use_beta
                       else model.fused_ll_grad_step)
+        # (T, 3) per-step Adam scalars of the fused step, fixed per build
+        self.sclr_all = None if self.fstep is None else adam_sclr_stack(step_sizes)
 
     def generator_draws(self, generator: torch.Generator) -> GeneratorDraws:
         """The default draws provider for this build."""
@@ -146,37 +159,66 @@ class IncrementalBuilder:
             return project_beta(self.model, pts, samples, beta)
         return project_ll(self.model, pts, samples)
 
+    def _joint_rows_identical(self, n_rows_joint: int) -> bool:
+        """True when projecting [subsample; coreset buffer] as ONE block
+        equals two separate calls. Centring is per row, so only routing can
+        differ: a joint block may cross FUSED_MIN_ROWS where the buffer's
+        own call never would, and move the coreset rows onto the kernel."""
+        field = ("fused_beta_projection" if self.config.use_beta
+                 else "fused_ll_projection")
+        return getattr(self.model, field, None) is None or not maybe_fused(n_rows_joint)
+
+    def _tangent(self, rows, st: CoresetState, samples, joint: bool):
+        """(vecs, corevecs): the centred projections of ``rows`` and of the
+        coreset buffer, padding slots zeroed. With ``joint``, ``rows`` ends
+        with the buffer and is projected as one block."""
+        mask = st.slot_mask[:, None].to(self.data.dtype)
+        if joint:
+            n = rows.shape[0] - st.pts.shape[0]
+            allvecs = self._project(rows, samples, st.beta)
+            return allvecs[:n], allvecs[n:] * mask
+        return (self._project(rows, samples, st.beta),
+                self._project(st.pts, samples, st.beta) * mask)
+
     def select(self, st: CoresetState, draws: Draws, it: int = 0) -> CoresetState:
         """Reference bcores.py:74-90 / sparsevi.py:74-96."""
         data, S, n_sel = self.data, self.config.projection_dim, self.n_sel
         z, sub_idcs = draws.select(it, st)
         samples, aux = self.sampler.from_noise(z, st.wts, st.pts, st.sampler_aux)
-        scaling = data.shape[0] / n_sel
         slot_mask = st.slot_mask
-        # one projection of [subsample; coreset buffer]: centring is per row
-        allvecs = self._project(torch.cat([data[sub_idcs], st.pts]), samples, st.beta)
-        vecs = allvecs[:n_sel]
-        corevecs = allvecs[n_sel:] * slot_mask[:, None].to(data.dtype)
+        if n_sel is None:
+            # every row is a candidate: the data and the buffer project
+            # separately, so the data block alone decides the routing
+            scaling, rows, joint = 1.0, data, False
+        else:
+            scaling, rows = data.shape[0] / n_sel, data[sub_idcs]
+            joint = self._joint_rows_identical(n_sel + st.pts.shape[0])
+            if joint:
+                rows = torch.cat([rows, st.pts])
+        vecs, corevecs = self._tangent(rows, st, samples, joint)
         resid = scaling * vecs.sum(dim=0) - st.wts @ corevecs
         vn = torch.sqrt(torch.sum(vecs * vecs, dim=1))
         vn = torch.where(vn > 0, vn, torch.inf)  # zero projections score 0
         corrs = (vecs @ resid) / vn / S
         M_max = st.wts.shape[0]
         if self.config.dedup_select:
-            # candidates already in a live slot are masked out; padding slots
-            # (index -1, slot_mask False) match nothing
-            hit = (sub_idcs[:, None] == st.idcs[None, :]) & slot_mask[None, :]
-            corrs = torch.where(hit.any(dim=1), -torch.inf, corrs)
-            fcand = torch.argmax(corrs).reshape(1)
-            f = sub_idcs.index_select(0, fcand)
+            # scatter the live slots' rows into an (N,) hit count and mask
+            # them out of the candidates; a padding slot (index -1, mask 0)
+            # adds 0 at row 0
+            hits = torch.zeros(data.shape[0], dtype=torch.int32, device=data.device)
+            hits.scatter_add_(0, st.idcs.clamp_min(0).to(torch.int64),
+                              slot_mask.to(torch.int32))
+            cand_hit = hits if sub_idcs is None else hits[sub_idcs]
+            corrs = torch.where(cand_hit > 0, -torch.inf, corrs)
+        fcand = torch.argmax(corrs).reshape(1)
+        f = fcand if sub_idcs is None else sub_idcs.index_select(0, fcand)
+        if self.config.dedup_select:
             add = (st.m < M_max) & torch.isfinite(corrs.index_select(0, fcand)[0])
         else:
             cn = torch.sqrt(torch.sum(corevecs * corevecs, dim=1))
             cn = torch.where(cn > 0, cn, torch.inf)
             corecorrs = torch.where(slot_mask, torch.abs(corevecs @ resid) / cn / S,
                                     -torch.inf)
-            fcand = torch.argmax(corrs).reshape(1)
-            f = sub_idcs.index_select(0, fcand)
             take_new = (st.m == 0) | (corrs.index_select(0, fcand)[0] > corecorrs.max())
             already = torch.any((st.idcs == f) & slot_mask)
             add = take_new & ~already & (st.m < M_max)
@@ -189,9 +231,61 @@ class IncrementalBuilder:
             sampler_aux=aux)
 
     def optimize(self, st: CoresetState, draws: Draws, it: int = 0) -> CoresetState:
-        """Reference bcores.py:126-150 on the pre-drawn fused-step route:
-        the pass's noise and subsample rows are drawn and packed once, then
-        each step is one Newton refit plus one fused step."""
+        """Reference bcores.py:126-150 on pre-drawn noise and subsample rows:
+        through the model's fused step when it has one, else composed."""
+        if self.fstep is None:
+            return self._optimize_composed(st, draws, it)
+        return self._optimize_fused(st, draws, it)
+
+    def _optimize_composed(self, st: CoresetState, draws: Draws, it: int) -> CoresetState:
+        """The composed route (reference incremental.py:430-496): per step
+        the sampler turns the step's noise into samples (refitting the
+        posterior, or every k-th step with ``refit_every``), the subsample
+        and the buffer are projected, and nn_adam takes the gradient
+        -(corevecs @ resid) / S."""
+        cfg, data, smp = self.config, self.data, self.sampler
+        S, n_opt = cfg.projection_dim, self.n_opt
+        z_all, idx_all = draws.optimize(it, st)
+        T, M_buf = self.step_sizes.shape[0], st.pts.shape[0]
+        rows_all = data[idx_all]                                 # (T, n_opt, D)
+        scaling = data.shape[0] / n_opt
+        joint = self._joint_rows_identical(n_opt + M_buf)
+        if joint:
+            # the buffer is constant over the pass: append it to every
+            # step's rows once, outside the loop
+            rows_all = torch.cat([rows_all, st.pts.expand(T, *st.pts.shape)], dim=1)
+        lagged = cfg.refit_every > 1
+        if lagged:
+            k_refit = cfg.refit_every
+
+            def samples_at(w, lap, z, i):
+                if i % k_refit == 0 and i > 0:
+                    lap = smp.fit(w, st.pts, smp.fit_aux(lap))
+                return smp.from_fit(lap, z), lap
+
+            carry0 = smp.fit(st.wts, st.pts, st.sampler_aux)
+        else:
+            def samples_at(w, aux, z, i):
+                return smp.from_noise(z, w, st.pts, aux)
+
+            carry0 = st.sampler_aux
+
+        def grad_fn(w, carry, i, xs_i):
+            z, rows = xs_i
+            samples, carry = samples_at(w, carry, z, i)
+            vecs, corevecs = self._tangent(rows, st, samples, joint)
+            resid = scaling * vecs.sum(dim=0) - w @ corevecs
+            return -(corevecs @ resid) / S, carry
+
+        w_new, carry = nn_adam(st.wts, grad_fn, carry0, self.step_sizes,
+                               xs=(z_all, rows_all))
+        aux = smp.fit_aux(carry) if lagged else carry
+        return st._replace(wts=w_new, sampler_aux=aux)
+
+    def _optimize_fused(self, st: CoresetState, draws: Draws, it: int) -> CoresetState:
+        """The fused-step route: the pass's noise and subsample rows are
+        drawn and packed once, then each step is one Newton refit plus one
+        fused step."""
         cfg, data = self.config, self.data
         S, n_opt = cfg.projection_dim, self.n_opt
         f32 = torch.float32
@@ -245,25 +339,29 @@ def make_incremental_builder(
     step_sizes: Optional[torch.Tensor] = None,
     data_weights: Optional[torch.Tensor] = None,
 ) -> IncrementalBuilder:
-    """The builder over ``data`` (N, D). Only the main path is ported:
-    subsampled select and refinement, a Laplace-family sampler and a model
-    with the fused step. Anything else raises NotImplementedError rather
-    than taking another route."""
+    """The builder over ``data`` (N, D): select over every row or a
+    subsample, refinement on a subsample, a Laplace-family sampler. The
+    refinement takes the model's fused step when it has one (with the
+    sampler's ``fit_inv``), else the composed route (with ``fit``,
+    ``from_fit`` and ``fit_aux`` for lagged refits). Anything else raises
+    NotImplementedError rather than taking another route."""
     if config.learn_beta:
         raise NotImplementedError("learn_beta is not ported yet")
     if data_weights is not None:
         raise NotImplementedError("data_weights is not ported yet")
-    if config.n_subsample_select is None or config.n_subsample_opt is None:
-        raise NotImplementedError("full-data select/refinement is not ported "
-                                  "yet: set n_subsample_select and n_subsample_opt")
-    for name in ("draw_noise", "from_noise", "fit_inv", "fit_aux"):
+    if config.n_subsample_opt is None:
+        raise NotImplementedError("full-data refinement is not ported yet: set "
+                                  "n_subsample_opt")
+    field = "fused_beta_grad_step" if config.use_beta else "fused_ll_grad_step"
+    needs = ["draw_noise", "from_noise"]
+    if getattr(model, field, None) is not None:
+        needs += ["fit_inv", "fit_aux"]
+    elif config.refit_every > 1:
+        needs += ["fit", "from_fit", "fit_aux"]
+    for name in needs:
         if getattr(sampler, name, None) is None:
             raise NotImplementedError(f"sampler lacks {name}: only Laplace-family "
                                       "samplers are ported")
-    field = "fused_beta_grad_step" if config.use_beta else "fused_ll_grad_step"
-    if getattr(model, field, None) is None:
-        raise NotImplementedError(f"model has no {field}: the fused step is the "
-                                  "port's only refinement route")
     if step_sizes is None:
         step_sizes = step_schedule(config.i0, config.opt_itrs, dtype=data.dtype,
                                    device=data.device)

@@ -1,4 +1,5 @@
-from .perturb import perturb_logreg
-from .synthetic import gen_synthetic_logreg
+from .perturb import flip_labels, perturb_logreg
+from .synthetic import gen_synthetic_logreg, gen_synthetic_multiclass
 
-__all__ = ["perturb_logreg", "gen_synthetic_logreg"]
+__all__ = ["flip_labels", "perturb_logreg", "gen_synthetic_logreg",
+           "gen_synthetic_multiclass"]

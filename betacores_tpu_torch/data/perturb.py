@@ -1,7 +1,9 @@
 """Data corruption (counterpart of betacores_tpu/data/perturb.py).
 
-Only the unstructured branch is ported: feature noise on half the columns
-of one random row subset, and label flips on another.
+Only the unstructured branch of ``perturb_logreg`` is ported: feature noise
+on half the columns of one random row subset, and label flips on another.
+``flip_labels`` is the label-flip contamination of the multiclass driver
+(examples/multiclass.py).
 """
 
 from __future__ import annotations
@@ -37,3 +39,19 @@ def perturb_logreg(generator: torch.Generator, X: torch.Tensor, y: torch.Tensor,
     y[idxy] = -y[idxy]
     out_idx = torch.unique(torch.cat([idxx, idxy]))
     return X, y, y[:, None] * X, out_idx
+
+
+def flip_labels(generator: torch.Generator, Z: torch.Tensor, n_classes: int,
+                f_rate: float):
+    """Label-flip contamination of multiclass rows [x, y]: ``int(N f_rate)``
+    distinct rows, drawn without replacement, get the class
+    (y + randint(1, K)) % K, so every flipped label is wrong. Returns
+    (Z with the flipped labels, the flipped rows). Z is not modified in
+    place."""
+    N = Z.shape[0]
+    dev = generator.device
+    bad = torch.randperm(N, generator=generator, device=dev)[:int(N * f_rate)]
+    shift = torch.randint(1, n_classes, (bad.shape[0],), generator=generator, device=dev)
+    Z = Z.clone()
+    Z[bad, -1] = torch.remainder(Z[bad, -1] + shift.to(Z.dtype), n_classes)
+    return Z, bad

@@ -1,9 +1,9 @@
 """Posterior samplers (counterpart of betacores_tpu/inference/samplers.py).
 
-Only the logistic-regression Laplace sampler is ported. It keeps the
-reference's split between drawing noise and transforming it, so a builder
-can draw a whole refinement pass's noise up front (or replay another
-implementation's draws):
+The Laplace samplers of logistic and multiclass (softmax) regression are
+ported. They keep the reference's split between drawing noise and
+transforming it, so a builder can draw a whole refinement pass's noise up
+front (or replay another implementation's draws):
 
     sampler(gen, n, wts, pts, aux) == sampler.from_noise(
         sampler.draw_noise(gen, n, wts, pts, aux), wts, pts, aux)
@@ -17,7 +17,7 @@ import dataclasses
 
 import torch
 
-from ..models import logreg
+from ..models import logreg, multiclass
 from .laplace import LaplaceApprox, newton_laplace, sample_laplace_from_noise
 
 
@@ -34,26 +34,25 @@ def _laplace_noise(generator: torch.Generator, n: int, wts, pts, aux) -> torch.T
                        dtype=_fit_dtype(wts, pts, aux), device=aux.device)
 
 
-@dataclasses.dataclass(frozen=True)
-class LogregLaplaceSampler:
-    n_newton: int = 8
+class _LaplaceSampler:
+    """A Laplace-approximation sampler: the weighted log joint's mode by
+    damped Newton (``fit``), and theta = mu + L^-T z from its factor.
+    Subclasses give ``n_newton`` and ``_target(wts, pts)``, which returns
+    the (log_joint, grad, hess) closures of one coreset."""
+
+    n_newton: int
 
     draw_noise = staticmethod(_laplace_noise)
     from_fit = staticmethod(sample_laplace_from_noise)
 
+    def _target(self, wts, pts):
+        raise NotImplementedError
+
     def fit(self, wts, pts, aux, with_inverse: bool = False) -> LaplaceApprox:
         dt = _fit_dtype(wts, pts, aux)
         wts, pts, aux = wts.to(dt), pts.to(dt), aux.to(dt)
-        return newton_laplace(
-            lambda th: logreg.log_joint(pts, th, wts),
-            lambda th: logreg.grad_th_log_joint(pts, th, wts),
-            lambda th: logreg.hess_th_log_joint(pts, th, wts),
-            aux, n_iters=self.n_newton, with_inverse=with_inverse)
-
-    def fit_inv(self, wts, pts, aux) -> LaplaceApprox:
-        """Fit that also returns L^-1 (the fused refinement step consumes
-        it directly: theta = mu + z @ L^-1)."""
-        return self.fit(wts, pts, aux, with_inverse=True)
+        return newton_laplace(*self._target(wts, pts), aux, n_iters=self.n_newton,
+                              with_inverse=with_inverse)
 
     @staticmethod
     def fit_aux(lap: LaplaceApprox) -> torch.Tensor:
@@ -68,7 +67,46 @@ class LogregLaplaceSampler:
                                wts, pts, aux)
 
 
+@dataclasses.dataclass(frozen=True)
+class LogregLaplaceSampler(_LaplaceSampler):
+    n_newton: int = 8
+
+    def _target(self, wts, pts):
+        return (lambda th: logreg.log_joint(pts, th, wts),
+                lambda th: logreg.grad_th_log_joint(pts, th, wts),
+                lambda th: logreg.hess_th_log_joint(pts, th, wts))
+
+    def fit_inv(self, wts, pts, aux) -> LaplaceApprox:
+        """Fit that also returns L^-1 (the fused refinement step consumes
+        it directly: theta = mu + z @ L^-1)."""
+        return self.fit(wts, pts, aux, with_inverse=True)
+
+
 def logreg_laplace_sampler(n_newton: int = 8) -> LogregLaplaceSampler:
     """Laplace sampler for Bayesian logistic regression; pass zeros as the
     initial ``aux``."""
     return LogregLaplaceSampler(n_newton=n_newton)
+
+
+@dataclasses.dataclass(frozen=True)
+class MulticlassLaplaceSampler(_LaplaceSampler):
+    """Laplace sampler for K-class softmax regression over the packed
+    (K*d,) theta, with the analytic gradient and Hessian of
+    models/multiclass.py. It has no ``fit_inv``, as in the reference: the
+    multiclass build refines through the composed route."""
+
+    n_classes: int
+    n_newton: int = 12
+
+    def _target(self, wts, pts):
+        K = self.n_classes
+        lj, g, h = (multiclass.make_log_joint(K), multiclass.make_grad_th_log_joint(K),
+                    multiclass.make_hess_th_log_joint(K))
+        return (lambda th: lj(pts, th, wts), lambda th: g(pts, th, wts),
+                lambda th: h(pts, th, wts))
+
+
+def multiclass_laplace_sampler(n_classes: int, n_newton: int = 12) -> MulticlassLaplaceSampler:
+    """Laplace sampler for K-class softmax regression; pass zeros of dim
+    K*d as the initial ``aux``."""
+    return MulticlassLaplaceSampler(n_classes=n_classes, n_newton=n_newton)

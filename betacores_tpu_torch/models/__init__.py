@@ -1,4 +1,4 @@
-from . import logreg
+from . import logreg, multiclass
 from .base import ModelFns
 
-__all__ = ["logreg", "ModelFns"]
+__all__ = ["logreg", "multiclass", "ModelFns"]

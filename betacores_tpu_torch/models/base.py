@@ -28,3 +28,8 @@ class ModelFns(NamedTuple):
     # see ops/kernels.py::logreg_adam_step
     fused_ll_grad_step: Optional[Callable] = None
     fused_beta_grad_step: Optional[Callable] = None
+    # centred projection in one kernel, taken for row blocks of at least
+    # ops/kernels.py::FUSED_MIN_ROWS (ops/projection.py):
+    # (pts, th) -> (N, S) and (pts, th, beta) -> (N, S)
+    fused_ll_projection: Optional[Callable] = None
+    fused_beta_projection: Optional[Callable] = None

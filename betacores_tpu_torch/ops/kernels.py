@@ -1,12 +1,19 @@
 """The port's hand-written kernels and their operand packers (counterpart of
 betacores_tpu/ops/pallas_kernels.py).
 
-``logreg_adam_step`` is one whole projected-Adam refinement step of the
-incremental build in one launch (CUDA C++, csrc/logreg_adam_step.cu). On a
-CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
-``logreg_adam_step_plain``, the same function in plain PyTorch, which the
-CPU tests and the on-card comparison use. There is no fallback between the
-two. ``logreg_adam_step.launches`` counts kernel launches.
+Each wrapper launches its kernel on a CUDA tensor or raises; on a CPU
+tensor it runs the kernel's plain PyTorch version, which the CPU tests and
+the on-card comparison use. There is no fallback between the two. Each
+wrapper counts its kernel launches in ``<wrapper>.launches``.
+
+- ``logreg_adam_step`` (K1): one whole projected-Adam refinement step of
+  the incremental build in one launch (CUDA C++,
+  csrc/logreg_adam_step.cu); plain version ``logreg_adam_step_plain``.
+- ``multiclass_projection`` (K2): the centred (N, S) K-class softmax
+  (beta-)log-likelihood projection in one pass (CUDA C++,
+  csrc/multiclass_projection.cu); plain version
+  ``multiclass_projection_plain``. The projection engine routes row
+  blocks of at least ``FUSED_MIN_ROWS`` to it (``maybe_fused``).
 """
 
 from __future__ import annotations
@@ -14,10 +21,10 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
-from ..models import logreg
+from ..models import logreg, multiclass
+from ..utils.opt import adam_bias_corrections
 from .projection import center
 
 # MUST match utils/opt.py::nn_adam of the reference (b1, b2, eps); the
@@ -129,6 +136,108 @@ logreg_adam_step.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K2: the K-class softmax projection
+# ---------------------------------------------------------------------------
+
+# Row blocks of at least this many rows go to a model's fused projection
+# (ops/projection.py), and smaller ones to the plain composition: the
+# reference's value, so that the port routes the same rows to the kernel.
+FUSED_MIN_ROWS = 8192
+# the kernel's limits (csrc/multiclass_projection.cu repeats them)
+MC_MAX_CLASSES, MC_MAX_FEATURES = 16, 32
+
+
+def maybe_fused(n_rows: int) -> bool:
+    return n_rows >= FUSED_MIN_ROWS
+
+
+def multiclass_projection_plain(z, thetas, n_classes: int, beta=1.0,
+                                use_beta: bool = False):
+    """The centred (N, S) projection of ``multiclass_projection`` as the
+    plain composition of models/multiclass.py."""
+    if use_beta:
+        return center(multiclass.make_beta_likelihood(n_classes)(z, thetas, beta))
+    return center(multiclass.make_log_likelihood(n_classes)(z, thetas))
+
+
+@functools.cache
+def _mc_lib() -> ctypes.CDLL:
+    from ._build import load
+
+    lib = load("multiclass_projection")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.multiclass_projection.argtypes = [vp] * 4 + [ctypes.c_longlong] + [ci] * 4 + [vp]
+    lib.multiclass_projection.restype = ci
+    lib.multiclass_projection_smem_bytes.argtypes = [ci, ci, ci]
+    lib.multiclass_projection_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def _check_mc_operands(z, thetas, n_classes: int):
+    d = z.shape[1] - 1
+    for name, t in (("z", z), ("thetas", thetas)):
+        if t.device != z.device:
+            raise ValueError(f"{name} on {t.device}, z on {z.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if thetas.dim() != 2 or thetas.shape[1] != n_classes * d:
+        raise ValueError(f"thetas has shape {tuple(thetas.shape)}, "
+                         f"want (S, {n_classes * d})")
+    if not 2 <= n_classes <= MC_MAX_CLASSES:
+        raise ValueError(f"the kernel takes 2 <= K <= {MC_MAX_CLASSES}, got {n_classes}")
+    if not 1 <= d <= MC_MAX_FEATURES:
+        raise ValueError(f"the kernel takes 1 <= d <= {MC_MAX_FEATURES}, got {d}")
+
+
+def multiclass_projection(z, thetas, n_classes: int, beta=1.0,
+                          use_beta: bool = False):
+    """Centred (N, S) K-class softmax log-likelihood projection, or its
+    beta-likelihood with ``use_beta``, in ONE launch.
+
+    ``z`` (N, d+1) rows [x | y] with the class index as a float in the last
+    column; ``thetas`` (S, K*d) packed row-major (K, d); ``beta`` a float
+    or a tensor with one element on z's device (read by the kernel, never
+    on the host). On the card both operands are float32 and contiguous,
+    d <= 32 and 2 <= K <= 16."""
+    if z.device.type == "cpu":
+        return multiclass_projection_plain(z, thetas, n_classes, beta, use_beta)
+    if z.device.type != "cuda":
+        raise ValueError(f"no kernel for device {z.device}")
+    _check_mc_operands(z, thetas, n_classes)
+    N, D1 = z.shape
+    d, K, S = D1 - 1, n_classes, thetas.shape[0]
+    lib = _mc_lib()
+    smem = lib.multiclass_projection_smem_bytes(d, K, S)
+    limit = torch.cuda.get_device_properties(z.device).shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(f"projection needs {smem} B of shared memory, the card "
+                         f"allows {limit} B per block (d={d}, K={K}, S={S})")
+    if isinstance(beta, torch.Tensor):
+        if beta.numel() != 1 or beta.device != z.device:
+            raise ValueError(f"beta must be one element on {z.device}")
+        beta_t = beta.reshape(1).to(torch.float32)
+    else:
+        beta_t = torch.full((1,), float(beta), dtype=torch.float32, device=z.device)
+    out = torch.empty((N, S), dtype=torch.float32, device=z.device)
+    if N == 0 or S == 0:
+        return out
+    with torch.cuda.device(z.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.multiclass_projection(z.data_ptr(), thetas.data_ptr(),
+                                       beta_t.data_ptr(), out.data_ptr(), N, d, K,
+                                       S, int(use_beta), stream)
+    if rc != 0:
+        raise RuntimeError(f"multiclass_projection launch failed: cudaError {rc}")
+    multiclass_projection.launches += 1
+    return out
+
+
+multiclass_projection.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Operand packing for the fused step, done once per refinement pass, outside
 # the step loop. The layout is the reference's (subsample padded to 8 rows,
 # coreset buffer to 128 slots, samples to 128), so the packed operands equal
@@ -164,16 +273,12 @@ def pad_fused_step_noise(z_all, s_active: int):
 
 def adam_sclr_stack(step_sizes):
     """Per-step [lr, 1-b1^t, 1-b2^t] (t = 1..T) in float32, on the device of
-    ``step_sizes``. The reference raises the float32 constants to float32
-    powers with libm's powf; torch's float32 pow rounds differently in a
-    few steps, so the powers are formed on the host in float64 and rounded
-    once to float32, which reproduces the reference's values bit for bit
-    for t < 2958 (at t = 2958 and 3606 the two round 0.999^t apart by one
-    ulp). Builders call this once, not per refinement pass."""
-    t = np.arange(1, step_sizes.shape[0] + 1, dtype=np.float64)
-    bc = [np.float32(1.0) - (np.float64(np.float32(b)) ** t).astype(np.float32)
-          for b in (ADAM_B1, ADAM_B2)]
-    bc = torch.from_numpy(np.stack(bc, axis=1)).to(step_sizes.device)
+    ``step_sizes``, with the bias corrections of
+    utils/opt.py::adam_bias_corrections (the reference's float32 values bit
+    for bit for t < 2958). Builders call this once, not per refinement
+    pass."""
+    bc = adam_bias_corrections(step_sizes.shape[0], torch.float32,
+                               step_sizes.device, ADAM_B1, ADAM_B2)
     return torch.cat([step_sizes.to(torch.float32)[:, None], bc], dim=1)  # (T, 3)
 
 

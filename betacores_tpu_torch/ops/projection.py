@@ -15,13 +15,24 @@ def center(v: torch.Tensor, dim: int = 1) -> torch.Tensor:
     return v - v.mean(dim=dim, keepdim=True)
 
 
+def _use_fused(model, field: str, n_rows: int) -> bool:
+    from .kernels import maybe_fused
+
+    return getattr(model, field, None) is not None and maybe_fused(n_rows)
+
+
 def project_ll(model, pts, samples):
-    """Centered (N, S) log-likelihood projection."""
+    """Centered (N, S) log-likelihood projection. Row blocks of at least
+    FUSED_MIN_ROWS go to the model's fused projection when it has one."""
+    if _use_fused(model, "fused_ll_projection", pts.shape[0]):
+        return model.fused_ll_projection(pts, samples)
     return center(model.log_likelihood(pts, samples))
 
 
 def project_beta(model, pts, samples, beta):
-    """Centered (N, S) beta-likelihood projection."""
+    """Centered (N, S) beta-likelihood projection, routed as ``project_ll``."""
+    if _use_fused(model, "fused_beta_projection", pts.shape[0]):
+        return model.fused_beta_projection(pts, samples, beta)
     return center(model.beta_likelihood(pts, samples, beta))
 
 

@@ -1,25 +1,39 @@
 """Smoke test of the PyTorch/CUDA port (betacores_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--selections 5]
+    python3 chip_smoke.py [--seed 0] [--selections 5] [--mc-selections 3]
 
 Run from the root of a checkout, on a machine with a card and the CUDA
 toolkit. Phases, each of which raises on failure:
 
   0. device: requires CUDA; prints the card's name and power limit; turns
      TF32 off for float32 products;
-  1. build: compiles the hand-written kernels (betacores_tpu_torch/csrc/)
-     with nvcc for sm_90a;
-  2. kernel against its plain twin on the card, at the main path's shapes
-     and at one ragged shape, with and without the beta-likelihood, within
-     atol = rtol = 2e-4; times both with CUDA events;
-  3. the main path: the beta-Cores incremental build of bench.py
-     (N = 1M contaminated logistic-regression rows, d = 10, S = 100,
-     1000-row select subsample, 500 Adam steps on 200 rows per selection,
-     128-slot buffer, beta = 0.1) for --selections selections, with every
-     Adam step launched through the kernel;
-  4. the slice against itself: a small build through the kernel equals the
-     same build through the plain twin on the CPU under replayed draws, in
-     reference-parity select and in dedup select with lagged refits.
+  1. build: compiles the hand-written kernels (betacores_tpu_torch/csrc/),
+     one nvcc per source, all started together, for sm_90a;
+  2. K1 (the fused refinement step) against its plain version on the card,
+     at the main path's shapes and at one ragged shape, with and without
+     the beta-likelihood, within atol = rtol = 2e-4; times both with CUDA
+     events;
+  3. K2 (the multiclass projection) against its plain version on the card,
+     at the multiclass path's shape (N = 2^20, S = 100, K = 5, d = 10) and
+     at a ragged one, with and without the beta-likelihood (beta = 0.3),
+     within atol 2e-5; times both with CUDA events;
+  4. the logistic-regression main path: the beta-Cores incremental build of
+     bench.py (N = 1M contaminated rows, d = 10, S = 100, 1000-row select
+     subsample, 500 Adam steps on 200 rows per selection, 128-slot buffer,
+     beta = 0.1) for --selections selections, with every Adam step
+     launched through K1;
+  5. that slice against itself: a small build through K1 equals the same
+     build through the plain version on the CPU under replayed draws, in
+     reference-parity select and in dedup select with lagged refits;
+  6. the multiclass path: the beta-Cores build of examples/multiclass.py
+     (N = 2^20 rows, K = 5, d = 10, 20 % label flips, S = 100, 60-slot
+     buffer, beta = 0.3, 200 Adam steps on 200 rows per selection) with
+     full-candidate select, for --mc-selections selections after a warm-up
+     one, every select launching K2 once; prints the select and refinement
+     time per selection and the test accuracy of the coreset's posterior;
+  7. that slice against itself: a small full-select multiclass build
+     (N = 9000, so select launches K2) on the card equals the same build
+     on the CPU under replayed draws, in both select modes.
 
 The last two lines of standard output are a JSON object describing the
 kernels, then {"ok": true, "device": {...}}. Without a card the script
@@ -33,13 +47,19 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-TOL = 2e-4                      # kernel vs twin, float32 (the reference's own)
+TOL = 2e-4                      # K1 vs its plain version, float32 (the reference's own)
+MC_TOL = 2e-5                   # K2 vs its plain version (the reference's own)
 # the headline configuration of bench.py
 N_ROWS, N_FEAT, S, BETA = 1_000_000, 10, 100, 0.1
 N_SEL, N_OPT, OPT_ITRS, M_BUF = 1000, 200, 500, 128
+# the configuration of examples/multiclass.py, at 2^20 rows with full select
+MC_ROWS, MC_K, MC_D, MC_BETA, MC_F_RATE = 1 << 20, 5, 10, 0.3, 0.2
+MC_M, MC_N_OPT, MC_OPT_ITRS, MC_N_TEST = 60, 200, 200, 10_000
+KERNELS = ("logreg_adam_step", "multiclass_projection")
 
 
 def log(msg: str) -> None:
@@ -67,14 +87,18 @@ def phase_build() -> None:
     from betacores_tpu_torch.ops import _build, kernels
 
     t0 = time.perf_counter()
-    path = _build.library_path("logreg_adam_step")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc per source, together
+        paths = list(pool.map(_build.library_path, KERNELS))
     kernels._lib()
-    log(f"build: {path.name} in {time.perf_counter() - t0:.2f} s")
-    report = path.with_suffix(".log")
-    if report.exists():
-        for line in report.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+    kernels._mc_lib()
+    log(f"build: {', '.join(p.name for p in paths)} in {time.perf_counter() - t0:.2f} s")
+    for path in paths:
+        report = path.with_suffix(".log")
+        if report.exists():   # one line per distinct report (K2 has one per K)
+            lines = {ln.strip() for ln in report.read_text().splitlines()
+                     if "registers" in ln or "spill" in ln}
+            for line in sorted(lines):
+                log(f"  ptxas {path.name.split('-')[0]}: {line}")
 
 
 def step_operands(gen, dev, n_sub, M_buf, n_live, d, S_true, packed: bool):
@@ -144,6 +168,7 @@ def _compare(got, want, exact, n_live: int, where: str) -> float:
 
 
 def phase_kernel(seed: int) -> dict:
+    """K1 against its plain version on the card (see ``_compare``)."""
     from betacores_tpu_torch.ops import kernels
 
     dev = torch.device("cuda")
@@ -177,6 +202,126 @@ def phase_kernel(seed: int) -> dict:
                 f"{t[1] * 1e3:.2f} / {t[2] * 1e3:.2f} us, plain twin "
                 f"{t[0] * 1e3:.2f} / {t[3] * 1e3:.2f} us")
     return {"max_abs_err": err_main, **times}
+
+
+def mc_operands(gen, dev, N, S_true, K, d):
+    """Random operands of one K2 launch: rows [x | y] with x ~ N(0, I) and
+    a float class index y, and packed thetas ~ N(0, I)."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    x = torch.randn((N, d), generator=gen, **f32)
+    y = torch.randint(0, K, (N, 1), generator=gen, device=dev).to(torch.float32)
+    th = torch.randn((S_true, K * d), generator=gen, **f32)
+    return torch.cat([x, y], dim=1).contiguous(), th
+
+
+def phase_mc_kernel(seed: int) -> dict:
+    """K2 against its plain version on the card: max |kernel - plain| within
+    atol 2e-5 at both shapes, beta off and on. Both are also held against
+    the plain version in float64 (by row chunks, to bound its (N, S, K)
+    intermediates), printed for scale."""
+    from betacores_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    beta = torch.full((), MC_BETA, dtype=torch.float32, device=dev)
+    shapes = {"main": dict(N=MC_ROWS, S_true=S, K=MC_K, d=MC_D),
+              "ragged": dict(N=700, S_true=50, K=4, d=6)}
+    err_main, times = 0.0, {}
+    for label, shp in shapes.items():
+        z, th = mc_operands(gen, dev, **shp)
+        for use_beta in (False, True):
+            where = f"[{label}: N={shp['N']}, S={shp['S_true']}, K={shp['K']}, d={shp['d']}, beta={use_beta}]"
+            got = kernels.multiclass_projection(z, th, shp["K"], beta, use_beta)
+            want = kernels.multiclass_projection_plain(z, th, shp["K"], beta, use_beta)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            e_k = e_p = 0.0
+            for r in range(0, shp["N"], 1 << 18):
+                ex = kernels.multiclass_projection_plain(
+                    z[r:r + (1 << 18)].double(), th.double(), shp["K"], beta.double(), use_beta)
+                e_k = max(e_k, float((got[r:r + (1 << 18)].double() - ex).abs().max()))
+                e_p = max(e_p, float((want[r:r + (1 << 18)].double() - ex).abs().max()))
+            log(f"  K2 {where}: max|kernel-plain| {err:.3e} (max|plain| "
+                f"{float(want.abs().max()):.3e}); vs float64 plain: kernel {e_k:.3e}, "
+                f"plain {e_p:.3e}")
+            if not err <= MC_TOL or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"K2 vs plain {where}: off by {err:.3e} > {MC_TOL}")
+            if label == "main":
+                err_main = max(err_main, err)
+        if label == "main":
+            call = lambda f: (lambda: f(z, th, MC_K, beta, True))
+            # turns: plain, kernel, kernel, plain
+            t = [_time_ms(call(kernels.multiclass_projection_plain), 20),
+                 _time_ms(call(kernels.multiclass_projection), 200),
+                 _time_ms(call(kernels.multiclass_projection), 200),
+                 _time_ms(call(kernels.multiclass_projection_plain), 20)]
+            times = {"ms": (t[1] + t[2]) / 2, "plain_ms": (t[0] + t[3]) / 2}
+            log(f"K2 time per projection at N={MC_ROWS}, S={S}, K={MC_K}, d={MC_D}, beta "
+                f"(CUDA events): kernel {t[1]:.4f} / {t[2]:.4f} ms, plain "
+                f"{t[0]:.4f} / {t[3]:.4f} ms")
+        del z, th
+    torch.cuda.empty_cache()
+    # where the kernel overtakes the plain version, against the projection
+    # engine's FUSED_MIN_ROWS (taken over from the TPU)
+    for n in (260, 1024, 4096, 8192, 65536):
+        z, th = mc_operands(gen, dev, n, S, MC_K, MC_D)
+        call = lambda f: (lambda: f(z, th, MC_K, beta, True))
+        t = [_time_ms(call(f), 50) for f in (kernels.multiclass_projection_plain,
+                                              kernels.multiclass_projection,
+                                              kernels.multiclass_projection,
+                                              kernels.multiclass_projection_plain)]
+        log(f"K2 crossover at N={n}: kernel {(t[1] + t[2]) / 2:.4f} ms, plain "
+            f"{(t[0] + t[3]) / 2:.4f} ms (FUSED_MIN_ROWS = {kernels.FUSED_MIN_ROWS})")
+    return {"max_abs_err": err_main, **times}
+
+
+def check_state(st):
+    """(weights, m) of a built state, which must hold finite, non-negative
+    weights with a positive sum, at least one point, and padding (weight 0,
+    index -1) in every slot beyond m."""
+    w, m = st.wts, int(st.m)
+    if not bool(torch.isfinite(w).all()) or not bool((w >= 0).all()) or float(w.sum()) <= 0:
+        raise AssertionError(f"bad weights: {w.tolist()}")
+    if m < 1:
+        raise AssertionError("no point selected")
+    if bool((w[m:] != 0).any()) or bool((st.idcs[m:] != -1).any()):
+        raise AssertionError("slots beyond m are not padding")
+    return w, m
+
+
+def same_build_on_cpu(tag: str, make, Z, st_at, cfg, itrs: int, gen, dev: str,
+                      kernel=None) -> None:
+    """Runs one build on the CPU (plain versions) and on ``dev`` (kernels)
+    under one set of draws recorded from ``gen``, and raises unless both
+    select the same indices and m, with weights within
+    5e-3 * max(1, max|w|). ``make(Z, cfg)`` makes the builder, ``st_at(dev)``
+    the initial state. ``kernel`` (a wrapper with a launch count), when
+    given, must launch once per selection on the card."""
+    from betacores_tpu_torch import FixedDraws
+
+    rec = make(Z, cfg).generator_draws(gen)
+    st0 = st_at("cpu")
+    draws = FixedDraws([rec.select(i, st0) for i in range(itrs)],
+                       [rec.optimize(i, st0) for i in range(itrs)])
+    out = {}
+    for where in ("cpu", dev):
+        before = kernel.launches if kernel else 0
+        st = make(Z.to(where), cfg).build(st_at(where), itrs, draws)
+        out[where] = (st.wts.cpu(), st.idcs.cpu(), int(st.m),
+                      kernel.launches - before if kernel else 0)
+    (w0, i0, m0, _), (w1, i1, m1, n_k) = out["cpu"], out[dev]
+    where = f"dedup_select={cfg.dedup_select}, refit_every={cfg.refit_every}"
+    if kernel and dev != "cpu" and n_k != itrs:
+        raise AssertionError(f"{tag}: kernel launched {n_k} times in the build, want {itrs}")
+    if m0 != m1 or not torch.equal(i0, i1):
+        raise AssertionError(f"{tag}: selections differ ({where}): cpu m={m0} "
+                             f"{i0.tolist()}, {dev} m={m1} {i1.tolist()}")
+    tol = 5e-3 * max(1.0, float(w0.abs().max()))
+    err = float((w1 - w0).abs().max())
+    if err > tol:
+        raise AssertionError(f"{tag}: weights differ ({where}) by {err:.3e} > {tol:.3e}")
+    log(f"{tag} [{where}]: build on the card == build on the CPU (m={m1}, same "
+        f"indices, max |dw| {err:.2e} <= {tol:.2e})")
 
 
 def phase_main_path(seed: int, n: int, selections: int, dev: str = "cuda") -> dict:
@@ -216,13 +361,7 @@ def phase_main_path(seed: int, n: int, selections: int, dev: str = "cuda") -> di
     want = selections * OPT_ITRS
     if launches != want:
         raise AssertionError(f"kernel launched {launches} times, want {want}")
-    w, m = st.wts, int(st.m)
-    if not bool(torch.isfinite(w).all()) or not bool((w >= 0).all()) or float(w.sum()) <= 0:
-        raise AssertionError(f"bad weights: {w.tolist()}")
-    if m < 1:
-        raise AssertionError("no point selected")
-    if bool((w[m:] != 0).any()) or bool((st.idcs[m:] != -1).any()):
-        raise AssertionError("slots beyond m are not padding")
+    w, m = check_state(st)
     secs = start.elapsed_time(end) / 1e3
     log(f"main path: {selections} selections x {OPT_ITRS} steps, m={m} "
         f"(fill {m / selections:.2f}), {launches} kernel launches, sum(w)={float(w.sum()):.1f}")
@@ -233,11 +372,11 @@ def phase_main_path(seed: int, n: int, selections: int, dev: str = "cuda") -> di
 
 
 def phase_self_check(seed: int, dev: str = "cuda") -> None:
-    """The small build of tests/test_torch_incremental.py, through the kernel
-    on the card and through the plain twin on the CPU, on one set of draws:
+    """The small build of tests/test_torch_incremental.py, through K1 on the
+    card and through its plain version on the CPU, on one set of draws:
     reference-parity select with a refit every step, and dedup select with
     a refit every 4th step."""
-    from betacores_tpu_torch import (FixedDraws, IncrementalConfig, init_state, logreg,
+    from betacores_tpu_torch import (IncrementalConfig, init_state, logreg,
                                      logreg_laplace_sampler, make_incremental_builder)
 
     N, D, M, S_s, itrs = 1500, 5, 15, 40, 8
@@ -245,52 +384,146 @@ def phase_self_check(seed: int, dev: str = "cuda") -> None:
     th = torch.randn(D, generator=gen)
     X = torch.randn((N, D), generator=gen)
     y = torch.where(X @ th + 0.3 * torch.randn(N, generator=gen) > 0, 1.0, -1.0)
-    Z = y[:, None] * X
+    make = lambda Z, cfg: make_incremental_builder(Z, logreg.bundle(),
+                                                   logreg_laplace_sampler(), cfg)
     for dedup, refit_every in ((False, 1), (True, 4)):
         cfg = IncrementalConfig(projection_dim=S_s, n_subsample_select=150,
                                 n_subsample_opt=150, opt_itrs=25, i0=0.5, use_beta=True,
                                 dedup_select=dedup, refit_every=refit_every)
-        st0 = init_state(M, D, beta=0.2)
-        rec = make_incremental_builder(Z, logreg.bundle(), logreg_laplace_sampler(),
-                                       cfg).generator_draws(gen)
-        draws = FixedDraws([rec.select(i, st0) for i in range(itrs)],
-                           [rec.optimize(i, st0) for i in range(itrs)])
-        out = {}
-        for where in ("cpu", dev):
-            b = make_incremental_builder(Z.to(where), logreg.bundle(),
-                                         logreg_laplace_sampler(), cfg)
-            st = b.build(init_state(M, D, beta=0.2, device=where), itrs, draws)
-            out[where] = (st.wts.cpu(), st.idcs.cpu(), int(st.m))
-        (w0, i0, m0), (w1, i1, m1) = out["cpu"], out[dev]
-        where = f"dedup_select={dedup}, refit_every={refit_every}"
-        if m0 != m1 or not torch.equal(i0, i1):
-            raise AssertionError(f"selections differ ({where}): cpu m={m0} {i0.tolist()}, "
-                                 f"{dev} m={m1} {i1.tolist()}")
-        tol = 5e-3 * max(1.0, float(w0.abs().max()))
-        err = float((w1 - w0).abs().max())
-        if err > tol:
-            raise AssertionError(f"weights differ ({where}) by {err:.3e} > {tol:.3e}")
-        log(f"self-check [{where}]: kernel build == twin build (m={m1}, same indices, "
-            f"max |dw| {err:.2e} <= {tol:.2e})")
+        same_build_on_cpu("self-check", make, y[:, None] * X,
+                          lambda where: init_state(M, D, beta=0.2, device=where),
+                          cfg, itrs, gen, dev)
+
+
+def phase_mc_path(seed: int, n: int, selections: int, dev: str = "cuda") -> dict:
+    """The multiclass build of examples/multiclass.py with full-candidate
+    select, on data made on the card. Runs build's loop (select, then
+    optimize) with CUDA events between the halves."""
+    from betacores_tpu_torch import (IncrementalConfig, flip_labels,
+                                     gen_synthetic_multiclass, init_state,
+                                     make_incremental_builder, multiclass,
+                                     multiclass_laplace_sampler)
+    from betacores_tpu_torch.inference import newton_laplace, sample_laplace_from_noise
+    from betacores_tpu_torch.ops import kernels
+
+    K, d = MC_K, MC_D
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    X, y, Z = gen_synthetic_multiclass(gen, n + MC_N_TEST, d=d, n_classes=K)
+    Zc, bad = flip_labels(gen, Z[:n], K, MC_F_RATE)
+    Xt, yt = X[n:], y[n:]
+    torch.cuda.synchronize()
+    log(f"multiclass data: N={n} x d={d}, K={K} on {Zc.device}, {len(bad)} flipped "
+        f"labels, {MC_N_TEST} held-out rows, made in {time.perf_counter() - t0:.2f} s")
+    cfg = IncrementalConfig(projection_dim=S, n_subsample_select=None,
+                            n_subsample_opt=MC_N_OPT, opt_itrs=MC_OPT_ITRS, i0=1.0,
+                            use_beta=True)
+    builder = make_incremental_builder(Zc, multiclass.bundle(K),
+                                       multiclass_laplace_sampler(K), cfg)
+    draws = builder.generator_draws(gen)
+    st0 = init_state(MC_M, d + 1, beta=MC_BETA, device=dev,
+                     sampler_aux=torch.zeros(K * d, device=dev))
+    t0 = time.perf_counter()
+    builder.build(st0, 1, draws)                     # warm-up selection
+    torch.cuda.synchronize()
+    log(f"multiclass warm-up selection: {time.perf_counter() - t0:.2f} s")
+
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] for _ in range(selections)]
+    kernels.multiclass_projection.launches = 0
+    kernels.logreg_adam_step.launches = 0
+    st = st0
+    for it in range(selections):
+        ev[it][0].record()
+        st = builder.select(st, draws, it)
+        ev[it][1].record()
+        st = builder.optimize(st, draws, it)
+        ev[it][2].record()
+    ev[-1][2].synchronize()
+    launches = kernels.multiclass_projection.launches
+    if launches != selections or kernels.logreg_adam_step.launches != 0:
+        raise AssertionError(f"K2 launched {launches} times, want {selections} "
+                             f"(one per select); K1 {kernels.logreg_adam_step.launches}")
+    sel_ms = [e[0].elapsed_time(e[1]) for e in ev]
+    opt_ms = [e[1].elapsed_time(e[2]) for e in ev]
+    w, m = check_state(st)
+    # test accuracy of the coreset's Laplace posterior (examples/multiclass.py)
+    lj, g, h = (multiclass.make_log_joint(K), multiclass.make_grad_th_log_joint(K),
+                multiclass.make_hess_th_log_joint(K))
+    lap = newton_laplace(lambda th: lj(st.pts, th, w), lambda th: g(st.pts, th, w),
+                         lambda th: h(st.pts, th, w), torch.zeros(K * d, device=dev),
+                         n_iters=25)
+    ths = sample_laplace_from_noise(lap, torch.randn((256, K * d), generator=gen,
+                                                      device=dev))
+    acc = float(multiclass.compute_accuracy(Xt, yt, ths, K))
+    base = float(torch.bincount(yt.long(), minlength=K).max()) / MC_N_TEST
+    if not 0.0 <= acc <= 1.0:
+        raise AssertionError(f"accuracy {acc} outside [0, 1]")
+    total = sum(sel_ms) + sum(opt_ms)
+    log(f"multiclass path: {selections} selections, m={m} (fill {m / selections:.2f}), "
+        f"{launches} K2 launches, sum(w)={float(w.sum()):.1f}")
+    log(f"multiclass build: {total / 1e3:.3f} s (CUDA events), "
+        f"{total / selections:.1f} ms per selection: select (K2 over {n} rows) "
+        f"{', '.join(f'{x:.2f}' for x in sel_ms)} ms; refinement ({MC_OPT_ITRS} steps, "
+        f"Newton refit at K*d={K * d}) {', '.join(f'{x:.1f}' for x in opt_ms)} ms")
+    log(f"multiclass test accuracy of the coreset's Laplace posterior: {acc:.4f} "
+        f"(majority class {base:.4f}, {MC_N_TEST} held-out rows)")
+    return {"launches": launches}
+
+
+def phase_mc_self_check(seed: int, dev: str = "cuda") -> None:
+    """The small full-select multiclass build of
+    tests/test_torch_multiclass_build.py (N = 9000 > FUSED_MIN_ROWS, so each
+    select goes through K2 on the card and its plain version on the CPU),
+    on one set of draws: reference-parity select with a refit every step,
+    and dedup select with a refit every 4th step."""
+    from betacores_tpu_torch import (IncrementalConfig, flip_labels,
+                                     gen_synthetic_multiclass, init_state,
+                                     make_incremental_builder, multiclass,
+                                     multiclass_laplace_sampler)
+    from betacores_tpu_torch.ops import kernels
+
+    N, K, d, S_s, M, itrs = 9000, 3, 4, 32, 10, 5
+    gen = torch.Generator().manual_seed(seed)
+    _, _, Z = gen_synthetic_multiclass(gen, N, d=d, n_classes=K)
+    Z, _ = flip_labels(gen, Z, K, MC_F_RATE)
+    make = lambda Z, cfg: make_incremental_builder(Z, multiclass.bundle(K),
+                                                   multiclass_laplace_sampler(K), cfg)
+    st_at = lambda where: init_state(M, d + 1, beta=MC_BETA, device=where,
+                                     sampler_aux=torch.zeros(K * d, device=where))
+    for dedup, refit_every in ((False, 1), (True, 4)):
+        cfg = IncrementalConfig(projection_dim=S_s, n_subsample_select=None,
+                                n_subsample_opt=100, opt_itrs=20, i0=0.5, use_beta=True,
+                                dedup_select=dedup, refit_every=refit_every)
+        same_build_on_cpu("multiclass self-check", make, Z, st_at, cfg, itrs, gen, dev,
+                          kernel=kernels.multiclass_projection)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--selections", type=int, default=5)
+    ap.add_argument("--mc-selections", type=int, default=3)
     args = ap.parse_args()
 
     name = phase_device()
     phase_build()
-    kern = phase_kernel(args.seed)
+    k1 = phase_kernel(args.seed)
+    k2 = phase_mc_kernel(args.seed)
     main_path = phase_main_path(args.seed, N_ROWS, args.selections)
     phase_self_check(args.seed)
-    print(json.dumps({"kernels": [{
-        "name": "logreg_adam_step", "route": "cuda",
-        "source": "betacores_tpu_torch/csrc/logreg_adam_step.cu",
-        "replaces": "betacores_tpu/ops/pallas_kernels.py:96",
-        "launches": main_path["launches"], "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"], "plain_ms": kern["plain_ms"]}]}))
+    mc_path = phase_mc_path(args.seed, MC_ROWS, args.mc_selections)
+    phase_mc_self_check(args.seed)
+    print(json.dumps({"kernels": [
+        {"name": "logreg_adam_step", "route": "cuda",
+         "source": "betacores_tpu_torch/csrc/logreg_adam_step.cu",
+         "replaces": "betacores_tpu/ops/pallas_kernels.py:96",
+         "launches": main_path["launches"], "max_abs_err": k1["max_abs_err"],
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
+        {"name": "multiclass_projection", "route": "cuda",
+         "source": "betacores_tpu_torch/csrc/multiclass_projection.cu",
+         "replaces": "betacores_tpu/ops/pallas_kernels.py:273",
+         "launches": mc_path["launches"], "max_abs_err": k2["max_abs_err"],
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

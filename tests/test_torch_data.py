@@ -8,7 +8,8 @@ import numpy as np
 import pytest
 import torch
 
-from betacores_tpu_torch.data import gen_synthetic_logreg, perturb_logreg
+from betacores_tpu_torch.data import (flip_labels, gen_synthetic_logreg,
+                                     gen_synthetic_multiclass, perturb_logreg)
 
 torch.set_num_threads(1)
 
@@ -70,3 +71,39 @@ def test_generators_follow_the_generator_device():
     X, y, Z = gen_synthetic_logreg(gen, 10, d=2, dtype=torch.float64)
     assert X.device.type == "cpu" and Z.dtype == torch.float64
     assert np.isfinite(Z.numpy()).all()
+
+
+def test_gen_synthetic_multiclass_shapes_and_labels():
+    """Rows [X, y] with y a float class index drawn from the softmax model:
+    each class's share matches the mean softmax probability under the
+    generating parameters."""
+    N, d, K = 40000, 5, 4
+    X, y, Z = gen_synthetic_multiclass(torch.Generator().manual_seed(0), N, d=d,
+                                       n_classes=K)
+    assert X.shape == (N, d) and y.shape == (N,) and Z.shape == (N, d + 1)
+    assert X.dtype == y.dtype == Z.dtype == torch.float32
+    assert torch.equal(Z[:, :d], X) and torch.equal(Z[:, d], y)
+    assert set(y.unique().tolist()) == set(range(K))
+    assert abs(float(X.mean())) < 0.02 and abs(float(X.std()) - 1.0) < 0.02
+    # the generating parameters are the first draw of the same stream
+    Th = 2.0 * torch.randn((K, d), generator=torch.Generator().manual_seed(0))
+    p = torch.softmax(X @ Th.T, dim=1)
+    share = torch.bincount(y.long(), minlength=K).float() / N
+    assert torch.allclose(share, p.mean(dim=0), atol=0.01)
+    a = gen_synthetic_multiclass(torch.Generator().manual_seed(3), 50, d=3)[2]
+    b = gen_synthetic_multiclass(torch.Generator().manual_seed(3), 50, d=3)[2]
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("f_rate", [0.0, 0.2])
+def test_flip_labels_moves_f_rate_of_rows_to_a_wrong_class(f_rate):
+    N, K = 5000, 5
+    _, _, Z = gen_synthetic_multiclass(torch.Generator().manual_seed(1), N, d=3, n_classes=K)
+    Z0 = Z.clone()
+    Zc, bad = flip_labels(torch.Generator().manual_seed(2), Z, K, f_rate)
+    assert torch.equal(Z, Z0)                            # not modified in place
+    assert bad.shape == (int(N * f_rate),) and len(set(bad.tolist())) == len(bad)
+    changed = torch.nonzero(Zc[:, -1] != Z[:, -1])[:, 0]
+    assert set(changed.tolist()) == set(bad.tolist())   # every flip is wrong
+    assert torch.equal(Zc[:, :-1], Z[:, :-1])            # features untouched
+    assert set(Zc[:, -1].unique().tolist()) <= set(range(K))

@@ -7,9 +7,11 @@ rebuilt from its key with the JAX package's own ``draw_noise`` and
 betacores_tpu/coresets/incremental.py (per iteration: fold_in, split into
 select and optimize keys; select splits into (noise, subsample); optimize
 splits into T step keys, each split into (noise, subsample)), and replayed
-into the port through ``FixedDraws``. The JAX build routes its refinement
-through the fused Pallas step (interpret mode on the CPU); the port through
-its fused step's plain twin. Both compute in float32; the problem is well
+into the port through ``FixedDraws`` (with no select subsample under
+full-candidate select). The JAX build routes its refinement through the
+fused Pallas step (interpret mode on the CPU) and the port through its fused
+step's plain version; or, for a model without the fused step, both through
+the composed route. Both compute in float32; the problem is well
 separated, so selections are compared exactly and weights within
 5e-3 * max(1, max|w|), the tolerance of the JAX package's own fused-vs-XLA
 test (tests/test_pallas_kernels.py)."""
@@ -49,38 +51,57 @@ def problem():
     return (y[:, None] * X).astype(np.float32)
 
 
-def _cfgs(dedup, refit_every):
+def _cfgs(dedup, refit_every, fused_grad_step=True, **change):
     kw = dict(projection_dim=S, n_subsample_select=N_SEL, n_subsample_opt=N_OPT,
               opt_itrs=T, i0=I0, use_beta=True, dedup_select=dedup,
               refit_every=refit_every)
-    return JConfig(fused_grad_step=True, **kw), IncrementalConfig(**kw)
+    kw.update(change)
+    return JConfig(fused_grad_step=fused_grad_step, **kw), IncrementalConfig(**kw)
 
 
 def _jax_state():
     return jinit_state(M, D, beta=BETA, sampler_aux=jnp.zeros(D, jnp.float32))
 
 
-def jax_draws(key, st, itrs):
-    """The draws ``build(key, st, itrs)`` of the JAX package makes, as
-    torch tensors: per iteration (z_sel, idx_sel) and (z_all, idx_all)."""
-    smp = jsampler()
-    noise = lambda k: smp.draw_noise(k, S, st.wts, st.pts, st.sampler_aux)
+def replay_jax_draws(key, st, itrs, smp, n_rows, n_samples, n_steps, n_sel, n_opt):
+    """The draws ``build(key, st, itrs)`` of the JAX package makes with
+    sampler ``smp``, as torch tensors: per iteration (z_sel, idx_sel) and
+    (z_all, idx_all). ``n_sel=None`` is full-candidate select, which draws
+    no subsample (idx_sel None)."""
+    noise = lambda k: smp.draw_noise(k, n_samples, st.wts, st.pts, st.sampler_aux)
     sel, opt = [], []
     for i in range(itrs):
         k1, k2 = jax.random.split(jax.random.fold_in(key, i))
         k_samp, k_sub = jax.random.split(k1)
-        sel.append((noise(k_samp), jdraw_subsample(k_sub, N, N_SEL)[0]))
-        pair = jax.vmap(jax.random.split)(jax.random.split(k2, T))
+        sel.append((noise(k_samp), None if n_sel is None
+                    else jdraw_subsample(k_sub, n_rows, n_sel)[0]))
+        pair = jax.vmap(jax.random.split)(jax.random.split(k2, n_steps))
         z_all = jax.vmap(noise)(pair[:, 0])
-        idx_all, _ = jax.vmap(lambda k: jdraw_subsample(k, N, N_OPT))(pair[:, 1])
+        idx_all, _ = jax.vmap(lambda k: jdraw_subsample(k, n_rows, n_opt))(pair[:, 1])
         opt.append((z_all, idx_all))
-    conv = lambda z, idx: (torch.from_numpy(np.array(z)),
-                           torch.from_numpy(np.array(idx)).long())
+    conv = lambda z, idx: (torch.from_numpy(np.array(z)), None if idx is None
+                           else torch.from_numpy(np.array(idx)).long())
     return FixedDraws([conv(*p) for p in sel], [conv(*p) for p in opt])
+
+
+def jax_draws(key, st, itrs, n_sel=N_SEL):
+    """The draws of the JAX logreg build of this file's configuration."""
+    return replay_jax_draws(key, st, itrs, jsampler(), N, S, T, n_sel, N_OPT)
 
 
 def _np_state(st):
     return {k: np.asarray(v) for k, v in st._asdict().items()}
+
+
+def _assert_same_build(got, want):
+    """Same m (at least 2), indices and rows; weights within
+    5e-3 * max(1, max|w|); padding slots hold weight 0."""
+    assert int(got["m"]) == int(want["m"]) >= 2
+    np.testing.assert_array_equal(got["idcs"], want["idcs"])
+    np.testing.assert_array_equal(got["pts"], want["pts"])
+    w0 = want["wts"]
+    np.testing.assert_allclose(got["wts"], w0, atol=5e-3 * max(1.0, np.abs(w0).max()))
+    assert np.all(got["wts"][int(want["m"]):] == 0.0)
 
 
 @pytest.mark.parametrize("refit_every", [1, 4])
@@ -95,13 +116,7 @@ def test_build_matches_jax_under_replayed_draws(problem, dedup, refit_every):
                                        logreg_laplace_sampler(), tcfg)
     tst = builder.build(state_from_numpy(_np_state(st0)), ITRS,
                         jax_draws(key, st0, ITRS))
-    got, want = state_to_numpy(tst), _np_state(jst)
-    assert int(got["m"]) == int(want["m"]) >= 2
-    np.testing.assert_array_equal(got["idcs"], want["idcs"])
-    np.testing.assert_array_equal(got["pts"], want["pts"])
-    w0 = want["wts"]
-    np.testing.assert_allclose(got["wts"], w0, atol=5e-3 * max(1.0, np.abs(w0).max()))
-    assert np.all(got["wts"][int(want["m"]):] == 0.0)
+    _assert_same_build(state_to_numpy(tst), _np_state(jst))
 
 
 @pytest.mark.parametrize("dedup", [False, True])
@@ -139,8 +154,45 @@ def test_generator_draws_build_runs(problem):
     assert len(set(st.idcs[:4].tolist())) == 4
 
 
+@pytest.mark.parametrize("dedup", [False, True])
+def test_full_select_build_matches_jax(problem, dedup):
+    """Full-candidate select (every row scored, no subsample) with the
+    fused step's plain version, against the JAX build with its Pallas step
+    (interpret mode)."""
+    jcfg, tcfg = _cfgs(dedup, 1, n_subsample_select=None)
+    key = jax.random.PRNGKey(7)
+    st0 = _jax_state()
+    jst = jbuilder(jnp.asarray(problem), jlogreg.bundle(), jsampler(), jcfg).build(
+        key, st0, ITRS)
+    builder = make_incremental_builder(torch.from_numpy(problem), logreg.bundle(),
+                                       logreg_laplace_sampler(), tcfg)
+    tst = builder.build(state_from_numpy(_np_state(st0)), ITRS,
+                        jax_draws(key, st0, ITRS, n_sel=None))
+    _assert_same_build(state_to_numpy(tst), _np_state(jst))
+
+
+@pytest.mark.parametrize("refit_every", [1, 4])
+def test_composed_route_matches_jax(problem, refit_every):
+    """A model without the fused step refines through the composed route
+    (utils/opt.py::nn_adam): against the JAX build's composed route
+    (fused_grad_step=False) under the same draws."""
+    jcfg, tcfg = _cfgs(False, refit_every, fused_grad_step=False)
+    key = jax.random.PRNGKey(9)
+    st0 = _jax_state()
+    jst = jbuilder(jnp.asarray(problem), jlogreg.bundle(), jsampler(), jcfg).build(
+        key, st0, ITRS)
+    plain = logreg.bundle()._replace(fused_ll_grad_step=None, fused_beta_grad_step=None)
+    builder = make_incremental_builder(torch.from_numpy(problem), plain,
+                                       logreg_laplace_sampler(), tcfg)
+    assert builder.fstep is None
+    tst = builder.build(state_from_numpy(_np_state(st0)), ITRS,
+                        jax_draws(key, st0, ITRS))
+    _assert_same_build(state_to_numpy(tst), _np_state(jst))
+
+
 @pytest.mark.parametrize("change", [
-    dict(learn_beta=True), dict(n_subsample_select=None), dict(n_subsample_opt=None)])
+    dict(learn_beta=True), dict(n_subsample_select=None, n_subsample_opt=None),
+    dict(n_subsample_opt=None)])
 def test_outside_the_slice_raises(problem, change):
     kw = dict(projection_dim=S, n_subsample_select=N_SEL, n_subsample_opt=N_OPT,
               opt_itrs=T, use_beta=True)
@@ -151,11 +203,26 @@ def test_outside_the_slice_raises(problem, change):
 
 
 def test_data_weights_and_plain_model_raise(problem):
+    """Data weights are not ported. A model without the fused step takes
+    the composed route, which needs the sampler's noise split: a sampler
+    without ``from_noise`` (or, with lagged refits, without ``fit``)
+    raises."""
     cfg = _cfgs(False, 1)[1]
     Z = torch.from_numpy(problem)
     with pytest.raises(NotImplementedError):
         make_incremental_builder(Z, logreg.bundle(), logreg_laplace_sampler(), cfg,
                                  data_weights=torch.ones(N))
     plain = logreg.bundle()._replace(fused_beta_grad_step=None)
+
+    class NoSplit:
+        draw_noise = staticmethod(logreg_laplace_sampler().draw_noise)
+
     with pytest.raises(NotImplementedError):
-        make_incremental_builder(Z, plain, logreg_laplace_sampler(), cfg)
+        make_incremental_builder(Z, plain, NoSplit(), cfg)
+
+    class NoFit(NoSplit):
+        from_noise = logreg_laplace_sampler().from_noise
+
+    make_incremental_builder(Z, plain, NoFit(), cfg)
+    with pytest.raises(NotImplementedError):
+        make_incremental_builder(Z, plain, NoFit(), _cfgs(False, 4)[1])

@@ -1,12 +1,14 @@
-"""The port's CUDA kernel for the fused refinement step
-(betacores_tpu_torch/csrc/logreg_adam_step.cu) against its plain twin, on
-the card. This file imports no JAX, so it runs where the card is:
+"""The port's CUDA kernels against their plain versions, on the card: K1,
+the fused refinement step (betacores_tpu_torch/csrc/logreg_adam_step.cu),
+and K2, the multiclass projection (csrc/multiclass_projection.cu). This
+file imports no JAX, so it runs where the card is:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
-Without a card its tests skip. Tolerance atol = rtol = 2e-4 in float32, the
-JAX package's own for this kernel against its composition
-(tests/test_pallas_kernels.py): the kernel sums in another order.
+Without a card its tests skip. Tolerances are the JAX package's own for
+each kernel against its composition (tests/test_pallas_kernels.py): atol =
+rtol = 2e-4 for K1, atol 2e-5 for K2, in float32; the kernels sum in
+another order.
 
 ``step_operands`` builds the padded operands of tests/test_pallas_kernels.py
 and is shared with test_torch_kernels.py."""
@@ -74,3 +76,25 @@ def test_cuda_kernel_matches_plain_twin(cuda_device, use_beta, shape):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **TOL)
         assert (g[0, shape["n_live"]:] == 0.0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_beta", [True, False])
+@pytest.mark.parametrize("shape", [dict(N=1 << 20, S=100, K=5, d=10),
+                                   dict(N=700, S=50, K=4, d=6)])
+def test_cuda_multiclass_projection_matches_plain(cuda_device, use_beta, shape):
+    """K2 at the multiclass path's shape and at the ragged shape of
+    tests/test_pallas_kernels.py, beta = 0.3."""
+    rng = np.random.default_rng(42)
+    N, S, K, d = shape["N"], shape["S"], shape["K"], shape["d"]
+    z = np.c_[rng.normal(size=(N, d)), rng.integers(0, K, N)].astype(np.float32)
+    th = rng.normal(size=(S, K * d)).astype(np.float32)
+    z, th = torch.from_numpy(z).to(cuda_device), torch.from_numpy(th).to(cuda_device)
+    beta = torch.full((), 0.3, device=cuda_device)
+    want = kernels.multiclass_projection_plain(z, th, K, beta, use_beta)
+    before = kernels.multiclass_projection.launches
+    got = kernels.multiclass_projection(z, th, K, beta, use_beta)
+    torch.cuda.synchronize()
+    assert kernels.multiclass_projection.launches == before + 1
+    assert got.shape == (N, S) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-5, rtol=0)
