@@ -5,12 +5,16 @@ or every row, refinement on a subsample) for logistic regression, whose
 refinement step runs as one hand-written Hopper kernel
 (csrc/logreg_adam_step.cu), and for multiclass softmax regression, whose
 large projections run as another (csrc/multiclass_projection.cu) and whose
-refinement takes the composed route through ``utils.opt.nn_adam``. Modules
-keep the JAX package's paths and names. This package imports torch and
-never jax.
+refinement takes the composed route through ``utils.opt.nn_adam``; full-data
+refinement and base-data weights; and the sharded build on
+``torch.distributed`` (``parallel``: one process per mesh rank, the data
+rows over the ``data`` axis and the samples over ``samp``), whose logistic
+refinement step runs its shard-local half as a third kernel
+(csrc/logreg_shard_partials.cu). Modules keep the JAX package's paths and
+names. This package imports torch and never jax.
 """
 
-from . import coresets, data, inference, models, ops, utils
+from . import coresets, data, inference, models, ops, parallel, utils
 from .coresets import (CoresetState, FixedDraws, GeneratorDraws,
                        IncrementalConfig, init_state, make_incremental_builder,
                        state_from_numpy, state_to_numpy)
@@ -18,12 +22,15 @@ from .data import (flip_labels, gen_synthetic_logreg, gen_synthetic_multiclass,
                    perturb_logreg)
 from .inference import logreg_laplace_sampler, multiclass_laplace_sampler
 from .models import logreg, multiclass
+from .parallel import (make_mesh, make_sharded_incremental_builder, shard_data,
+                       shard_weights)
 
 __all__ = [
-    "coresets", "data", "inference", "models", "ops", "utils",
+    "coresets", "data", "inference", "models", "ops", "parallel", "utils",
     "CoresetState", "FixedDraws", "GeneratorDraws", "IncrementalConfig",
     "init_state", "make_incremental_builder", "state_from_numpy",
     "state_to_numpy", "flip_labels", "gen_synthetic_logreg",
     "gen_synthetic_multiclass", "perturb_logreg", "logreg_laplace_sampler",
-    "multiclass_laplace_sampler", "logreg", "multiclass",
+    "multiclass_laplace_sampler", "logreg", "multiclass", "make_mesh",
+    "make_sharded_incremental_builder", "shard_data", "shard_weights",
 ]

@@ -12,10 +12,15 @@ Each iteration runs
             on pre-drawn noise and subsample rows, each refitting the
             posterior (warm-started Newton, or every k-th step with
             ``refit_every``). A model with a fused step (logistic
-            regression) runs each step as ONE launch
-            (ops/kernels.py::logreg_adam_step: a CUDA kernel on the card,
-            its plain version on the CPU); any other model takes the
-            composed route through utils/opt.py::nn_adam.
+            regression) on an unweighted build runs each step as ONE
+            launch (ops/kernels.py::logreg_adam_step: a CUDA kernel on the
+            card, its plain version on the CPU); any other model, or a
+            weighted build, takes the composed route through
+            utils/opt.py::nn_adam. Full-data refinement
+            (``n_subsample_opt=None``) projects every row at each step.
+
+``data_weights`` (N,) makes row n count u_n times in the residual target
+scaling * sum_n u_n v_n; zero-weight rows are never selected.
 
 Projections of at least FUSED_MIN_ROWS rows go to the model's fused
 projection (ops/projection.py), e.g. the multiclass kernel K2 in
@@ -69,6 +74,11 @@ class IncrementalConfig:
             raise ValueError("refit_every must be >= 1")
 
 
+def _target_sum(vecs, usub):
+    """sum_n u_n v_n over already-gathered rows (u None: the plain sum)."""
+    return vecs.sum(dim=0) if usub is None else usub @ vecs
+
+
 class Draws(Protocol):
     """Source of a build's random draws. ``it`` counts selections from 0
     within one ``build`` call."""
@@ -77,8 +87,9 @@ class Draws(Protocol):
         """(z_sel (S, d) standard normals, idx_sel (n_sel,) row indices, or
         None when select scores every row)."""
 
-    def optimize(self, it: int, st: CoresetState) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(z_all (T, S, d), idx_all (T, n_opt)) for a whole refinement pass."""
+    def optimize(self, it: int, st: CoresetState) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(z_all (T, S, d), idx_all (T, n_opt), or None when the refinement
+        projects every row) for a whole refinement pass."""
 
 
 @dataclasses.dataclass
@@ -89,7 +100,7 @@ class GeneratorDraws:
     sampler: object
     n_total: int
     n_sel: Optional[int]              # None: select scores every row
-    n_opt: int
+    n_opt: Optional[int]              # None: refinement projects every row
     n_steps: int
     n_samples: int
 
@@ -104,15 +115,17 @@ class GeneratorDraws:
     def optimize(self, it, st):
         T, S = self.n_steps, self.n_samples
         z = self.sampler.draw_noise(self.generator, T * S, st.wts, st.pts,
-                                    st.sampler_aux)
+                                    st.sampler_aux).reshape(T, S, -1)
+        if self.n_opt is None:
+            return z, None
         idx, _ = draw_subsample(self.generator, self.n_total, T * self.n_opt)
-        return z.reshape(T, S, -1), idx.reshape(T, self.n_opt)
+        return z, idx.reshape(T, self.n_opt)
 
 
 @dataclasses.dataclass
 class FixedDraws:
     """Replays given draws: ``sel[it] = (z_sel, idx_sel or None)`` and
-    ``opt[it] = (z_all, idx_all)``, moved to the state's device."""
+    ``opt[it] = (z_all, idx_all or None)``, moved to the state's device."""
 
     sel: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]]
     opt: Sequence[Tuple[torch.Tensor, torch.Tensor]]
@@ -124,7 +137,8 @@ class FixedDraws:
 
     def optimize(self, it, st):
         z, idx = self.opt[it]
-        return z.to(st.wts.device), idx.to(st.wts.device)
+        dev = st.wts.device
+        return z.to(dev), None if idx is None else idx.to(dev)
 
 
 class IncrementalBuilder:
@@ -133,18 +147,22 @@ class IncrementalBuilder:
     ``select`` / ``optimize`` run one half-iteration."""
 
     def __init__(self, data, model, sampler, config: IncrementalConfig,
-                 step_sizes: torch.Tensor):
+                 step_sizes: torch.Tensor, data_weights: Optional[torch.Tensor] = None):
         self.data = data
         self.model = model
         self.sampler = sampler
         self.config = config
         self.step_sizes = step_sizes
+        self.u = data_weights
         N = data.shape[0]
         self.n_sel = (None if config.n_subsample_select is None
                       else min(N, config.n_subsample_select))
-        self.n_opt = min(N, config.n_subsample_opt)
-        self.fstep = (model.fused_beta_grad_step if config.use_beta
-                      else model.fused_ll_grad_step)
+        self.n_opt = (None if config.n_subsample_opt is None
+                      else min(N, config.n_subsample_opt))
+        # the fused step serves a subsampled, unweighted refinement
+        self.fstep = (None if self.n_opt is None or data_weights is not None
+                      else getattr(model, "fused_beta_grad_step" if config.use_beta
+                                   else "fused_ll_grad_step", None))
         # (T, 3) per-step Adam scalars of the fused step, fixed per build
         self.sclr_all = None if self.fstep is None else adam_sclr_stack(step_sizes)
 
@@ -196,10 +214,14 @@ class IncrementalBuilder:
             if joint:
                 rows = torch.cat([rows, st.pts])
         vecs, corevecs = self._tangent(rows, st, samples, joint)
-        resid = scaling * vecs.sum(dim=0) - st.wts @ corevecs
+        usub = None if self.u is None else (self.u if sub_idcs is None else self.u[sub_idcs])
+        resid = scaling * _target_sum(vecs, usub) - st.wts @ corevecs
         vn = torch.sqrt(torch.sum(vecs * vecs, dim=1))
         vn = torch.where(vn > 0, vn, torch.inf)  # zero projections score 0
         corrs = (vecs @ resid) / vn / S
+        if usub is not None:
+            # zero-weight rows add nothing to the target: never selectable
+            corrs = torch.where(usub > 0, corrs, -torch.inf)
         M_max = st.wts.shape[0]
         if self.config.dedup_select:
             # scatter the live slots' rows into an (N,) hit count and mask
@@ -222,6 +244,10 @@ class IncrementalBuilder:
             take_new = (st.m == 0) | (corrs.index_select(0, fcand)[0] > corecorrs.max())
             already = torch.any((st.idcs == f) & slot_mask)
             add = take_new & ~already & (st.m < M_max)
+            if self.u is not None:
+                # the m == 0 arm bypasses the -inf mask: never install a
+                # zero-weight row
+                add = add & torch.isfinite(corrs.index_select(0, fcand)[0])
         slot = torch.clamp(st.m, max=M_max - 1)
         put = (torch.arange(M_max, device=st.m.device) == slot) & add
         return st._replace(
@@ -232,10 +258,29 @@ class IncrementalBuilder:
 
     def optimize(self, st: CoresetState, draws: Draws, it: int = 0) -> CoresetState:
         """Reference bcores.py:126-150 on pre-drawn noise and subsample rows:
-        through the model's fused step when it has one, else composed."""
+        through the model's fused step when it serves the build, else
+        composed; full-data refinement projects every row per step."""
+        if self.n_opt is None:
+            return self._optimize_full(st, draws, it)
         if self.fstep is None:
             return self._optimize_composed(st, draws, it)
         return self._optimize_fused(st, draws, it)
+
+    def _optimize_full(self, st: CoresetState, draws: Draws, it: int) -> CoresetState:
+        """Full-data refinement (reference incremental.py:498-505): each step
+        refits the posterior, projects every row and the buffer separately,
+        and takes the exact target sum_n u_n v_n."""
+        smp, S = self.sampler, self.config.projection_dim
+        z_all, _ = draws.optimize(it, st)
+
+        def grad_fn(w, aux, i, xs_i):
+            samples, aux = smp.from_noise(xs_i[0], w, st.pts, aux)
+            vecs, corevecs = self._tangent(self.data, st, samples, joint=False)
+            resid = _target_sum(vecs, self.u) - w @ corevecs
+            return -(corevecs @ resid) / S, aux
+
+        w_new, aux = nn_adam(st.wts, grad_fn, st.sampler_aux, self.step_sizes, xs=(z_all,))
+        return st._replace(wts=w_new, sampler_aux=aux)
 
     def _optimize_composed(self, st: CoresetState, draws: Draws, it: int) -> CoresetState:
         """The composed route (reference incremental.py:430-496): per step
@@ -248,6 +293,7 @@ class IncrementalBuilder:
         z_all, idx_all = draws.optimize(it, st)
         T, M_buf = self.step_sizes.shape[0], st.pts.shape[0]
         rows_all = data[idx_all]                                 # (T, n_opt, D)
+        u_all = None if self.u is None else self.u[idx_all]      # (T, n_opt)
         scaling = data.shape[0] / n_opt
         joint = self._joint_rows_identical(n_opt + M_buf)
         if joint:
@@ -271,14 +317,15 @@ class IncrementalBuilder:
             carry0 = st.sampler_aux
 
         def grad_fn(w, carry, i, xs_i):
-            z, rows = xs_i
+            z, rows = xs_i[:2]
             samples, carry = samples_at(w, carry, z, i)
             vecs, corevecs = self._tangent(rows, st, samples, joint)
-            resid = scaling * vecs.sum(dim=0) - w @ corevecs
+            usub = xs_i[2] if len(xs_i) > 2 else None
+            resid = scaling * _target_sum(vecs, usub) - w @ corevecs
             return -(corevecs @ resid) / S, carry
 
-        w_new, carry = nn_adam(st.wts, grad_fn, carry0, self.step_sizes,
-                               xs=(z_all, rows_all))
+        xs = (z_all, rows_all) if u_all is None else (z_all, rows_all, u_all)
+        w_new, carry = nn_adam(st.wts, grad_fn, carry0, self.step_sizes, xs=xs)
         aux = smp.fit_aux(carry) if lagged else carry
         return st._replace(wts=w_new, sampler_aux=aux)
 
@@ -340,24 +387,29 @@ def make_incremental_builder(
     data_weights: Optional[torch.Tensor] = None,
 ) -> IncrementalBuilder:
     """The builder over ``data`` (N, D): select over every row or a
-    subsample, refinement on a subsample, a Laplace-family sampler. The
-    refinement takes the model's fused step when it has one (with the
-    sampler's ``fit_inv``), else the composed route (with ``fit``,
-    ``from_fit`` and ``fit_aux`` for lagged refits). Anything else raises
-    NotImplementedError rather than taking another route."""
+    subsample, refinement on a subsample or every row, a Laplace-family
+    sampler, optional (N,) base-data weights ``data_weights``. A subsampled,
+    unweighted refinement takes the model's fused step when it has one
+    (with the sampler's ``fit`` and ``fit_aux``; ``fit_inv`` when present),
+    else the composed route (with ``fit``, ``from_fit`` and ``fit_aux`` for
+    lagged refits). ``learn_beta``, or a sampler the route cannot use,
+    raises NotImplementedError rather than taking another route."""
     if config.learn_beta:
         raise NotImplementedError("learn_beta is not ported yet")
+    N = data.shape[0]
     if data_weights is not None:
-        raise NotImplementedError("data_weights is not ported yet")
-    if config.n_subsample_opt is None:
-        raise NotImplementedError("full-data refinement is not ported yet: set "
-                                  "n_subsample_opt")
+        if tuple(data_weights.shape) != (N,):
+            raise ValueError(f"data_weights must be ({N},), got "
+                             f"{tuple(data_weights.shape)}")
+        data_weights = data_weights.to(dtype=data.dtype, device=data.device)
     field = "fused_beta_grad_step" if config.use_beta else "fused_ll_grad_step"
+    # full-data refinement refits every step through from_noise
     needs = ["draw_noise", "from_noise"]
-    if getattr(model, field, None) is not None:
-        needs += ["fit_inv", "fit_aux"]
-    elif config.refit_every > 1:
-        needs += ["fit", "from_fit", "fit_aux"]
+    if config.n_subsample_opt is not None:
+        if getattr(model, field, None) is not None and data_weights is None:
+            needs += ["fit", "fit_aux"]
+        elif config.refit_every > 1:
+            needs += ["fit", "from_fit", "fit_aux"]
     for name in needs:
         if getattr(sampler, name, None) is None:
             raise NotImplementedError(f"sampler lacks {name}: only Laplace-family "
@@ -366,4 +418,4 @@ def make_incremental_builder(
         step_sizes = step_schedule(config.i0, config.opt_itrs, dtype=data.dtype,
                                    device=data.device)
     step_sizes = torch.as_tensor(step_sizes, dtype=data.dtype, device=data.device)
-    return IncrementalBuilder(data, model, sampler, config, step_sizes)
+    return IncrementalBuilder(data, model, sampler, config, step_sizes, data_weights)

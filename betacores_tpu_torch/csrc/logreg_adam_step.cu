@@ -35,7 +35,12 @@
 
 #include <cuda_runtime.h>
 
+#include "logreg_common.cuh"
+
 namespace {
+
+using bcores::logreg_val;
+using bcores::warp_sum;
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
@@ -44,23 +49,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr float kB1 = 0.9f, kB2 = 0.999f, kEps = 1e-8f;
 constexpr float kOneMinusB1 = (float)(1.0 - 0.9);
 constexpr float kOneMinusB2 = (float)(1.0 - 0.999);
-
-__device__ __forceinline__ float softplus(float m) {
-  return fmaxf(m, 0.f) + log1pf(expf(-fabsf(m)));
-}
-
-__device__ __forceinline__ float logreg_val(float m, float beta, int use_beta) {
-  if (!use_beta) return -softplus(m);
-  const float sp = softplus(m), sn = softplus(-m);
-  return (beta + 1.f) / beta * expf(-beta * sp)
-         - expf(-(beta + 1.f) * sp) - expf(-(beta + 1.f) * sn);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 size_t smem_floats(int d, int S, int M_pad) {
   // thT + per-warp column sums + per-warp value row + resid + per-warp x row
@@ -187,20 +175,9 @@ int logreg_adam_step(const void* xin, const void* z, const void* mu,
                      int R, int d, int S, int M_pad, int use_beta,
                      void* stream) {
   const size_t smem = smem_floats(d, S, M_pad) * sizeof(float);
-  // the opt-in above 48 KB is a per-device attribute of the kernel
-  constexpr int kMaxDevices = 64;
-  static size_t smem_opted[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static size_t smem_opted[bcores::kMaxDevices] = {};
+  const cudaError_t err = bcores::ensure_smem(logreg_adam_step_kernel, smem, smem_opted);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (smem > 48 * 1024 && smem > smem_opted[dev]) {
-    err = cudaFuncSetAttribute(logreg_adam_step_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_opted[dev] = smem;
-  }
   logreg_adam_step_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)xin, (const float*)z, (const float*)mu,
       (const float*)linv, (const float*)w, (const float*)m1,

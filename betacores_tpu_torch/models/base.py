@@ -33,3 +33,9 @@ class ModelFns(NamedTuple):
     # (pts, th) -> (N, S) and (pts, th, beta) -> (N, S)
     fused_ll_projection: Optional[Callable] = None
     fused_beta_projection: Optional[Callable] = None
+    # shard-local partials of one sharded refinement step in one kernel
+    # (parallel/sharded.py): (xin, z, mu, linv, w, sc, s_true) ->
+    # (colsum, core, corerow, wcore), see
+    # ops/kernels.py::logreg_shard_step_partials
+    fused_ll_shard_partials: Optional[Callable] = None
+    fused_beta_shard_partials: Optional[Callable] = None

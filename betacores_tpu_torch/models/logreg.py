@@ -72,8 +72,9 @@ def hess_th_log_joint(z, th, wts):
 
 def bundle() -> ModelFns:
     """The logistic-regression bundle with the fused refinement step
-    (ops/kernels.py::logreg_adam_step) attached."""
-    from ..ops.kernels import logreg_adam_step
+    (ops/kernels.py::logreg_adam_step) and the sharded step's partials
+    (ops/kernels.py::logreg_shard_step_partials) attached."""
+    from ..ops.kernels import logreg_adam_step, logreg_shard_step_partials
 
     def fused_ll_step(xin, z, mu, linv, w, m1, m2, sc, sclr, s_true):
         return logreg_adam_step(xin, z, mu, linv, w, m1, m2, sc, sclr, s_true,
@@ -83,7 +84,17 @@ def bundle() -> ModelFns:
         return logreg_adam_step(xin, z, mu, linv, w, m1, m2, sc, sclr, s_true,
                                 use_beta=True)
 
+    def fused_ll_shard(xin, z, mu, linv, w, sc, s_true):
+        return logreg_shard_step_partials(xin, z, mu, linv, w, sc, s_true,
+                                          use_beta=False)
+
+    def fused_beta_shard(xin, z, mu, linv, w, sc, s_true):
+        return logreg_shard_step_partials(xin, z, mu, linv, w, sc, s_true,
+                                          use_beta=True)
+
     return ModelFns(log_likelihood=log_likelihood,
                     beta_likelihood=beta_likelihood,
                     fused_ll_grad_step=fused_ll_step,
-                    fused_beta_grad_step=fused_beta_step)
+                    fused_beta_grad_step=fused_beta_step,
+                    fused_ll_shard_partials=fused_ll_shard,
+                    fused_beta_shard_partials=fused_beta_shard)

@@ -4,8 +4,9 @@ first use and loads them with ctypes.
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, for Hopper (``sm_90a``), into ``build/kernels/`` at the root of
 the checkout (listed in .gitignore). The library's file name carries a hash
-of the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded. ``nvcc``'s report (``-Xptxas -v``: registers,
+of the source, of every header in ``csrc/`` (sources share device code
+through them) and of the flags, so an edited source or header is rebuilt
+and a stale library is never loaded. ``nvcc``'s report (``-Xptxas -v``: registers,
 shared memory, spills) is kept beside the library as ``.log``.
 """
 
@@ -36,11 +37,20 @@ def _nvcc() -> str:
                        "or set CUDA_HOME")
 
 
+def source_digest(name: str, csrc: Path = CSRC) -> str:
+    """Hash of ``<csrc>/<name>.cu``, of every ``.cuh`` header beside it (by
+    name and content) and of the flags: what the built library depends on."""
+    digest = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return digest.hexdigest()[:16]
+
+
 def library_path(name: str) -> Path:
     """Path of the built library for ``csrc/<name>.cu`` (built if absent)."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"lib{name}-{source_digest(name)}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -14,6 +14,11 @@ wrapper counts its kernel launches in ``<wrapper>.launches``.
   csrc/multiclass_projection.cu); plain version
   ``multiclass_projection_plain``. The projection engine routes row
   blocks of at least ``FUSED_MIN_ROWS`` to it (``maybe_fused``).
+- ``logreg_shard_step_partials`` (K3): the shard-local, uncentred half of
+  one sharded refinement step in one launch (CUDA C++,
+  csrc/logreg_shard_partials.cu); plain version
+  ``logreg_shard_step_partials_plain``. The sharded builder
+  (parallel/sharded.py) combines its partials across ranks.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from ..models import logreg, multiclass
 from ..utils.opt import adam_bias_corrections
@@ -72,26 +78,43 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_operands(xin, z, mu, linv, w, m1, m2, sc, sclr, s_true):
-    R, D1 = xin.shape
-    d, M_pad = D1 - 1, w.shape[-1]
-    want = {"xin": (R, D1), "z": (z.shape[0], d), "mu": (1, d), "linv": (d, d),
-            "w": (1, M_pad), "m1": (1, M_pad), "m2": (1, M_pad), "sc": (2,),
-            "sclr": (3,)}
-    ops = dict(xin=xin, z=z, mu=mu, linv=linv, w=w, m1=m1, m2=m2, sc=sc, sclr=sclr)
+def _check_tensors(want: dict, **ops):
+    """Every operand float32, contiguous, on the first operand's device and
+    of the shape ``want[name]``."""
+    dev = next(iter(ops.values())).device
     for name, t in ops.items():
-        if t.device != xin.device:
-            raise ValueError(f"{name} on {t.device}, xin on {xin.device}")
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, the first operand on {dev}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, want {want[name]}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if not 1 <= s_true <= z.shape[0]:
-        raise ValueError(f"s_true={s_true} outside [1, {z.shape[0]}]")
+
+
+def _check_step_layout(R: int, s_rows: int, M_pad: int, s_true: int):
+    if not 1 <= s_true <= s_rows:
+        raise ValueError(f"s_true={s_true} outside [1, {s_rows}]")
     if not 1 <= M_pad <= R:
         raise ValueError(f"M_pad={M_pad} outside [1, R={R}]")
+
+
+def _check_smem(what: str, smem: int, device, shape: str):
+    limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(f"{what} needs {smem} B of shared memory, the card "
+                         f"allows {limit} B per block ({shape})")
+
+
+def _check_operands(xin, z, mu, linv, w, m1, m2, sc, sclr, s_true):
+    R, D1 = xin.shape
+    d, M_pad = D1 - 1, w.shape[-1]
+    _check_tensors({"xin": (R, D1), "z": (z.shape[0], d), "mu": (1, d),
+                    "linv": (d, d), "w": (1, M_pad), "m1": (1, M_pad),
+                    "m2": (1, M_pad), "sc": (2,), "sclr": (3,)},
+                   xin=xin, z=z, mu=mu, linv=linv, w=w, m1=m1, m2=m2, sc=sc, sclr=sclr)
+    _check_step_layout(R, z.shape[0], M_pad, s_true)
 
 
 def logreg_adam_step(xin, z, mu, linv, w, m1, m2, sc, sclr, s_true: int,
@@ -112,12 +135,8 @@ def logreg_adam_step(xin, z, mu, linv, w, m1, m2, sc, sclr, s_true: int,
     R, D1 = xin.shape
     M_pad = w.shape[1]
     lib = _lib()
-    smem = lib.logreg_adam_step_smem_bytes(D1 - 1, s_true, M_pad)
-    limit = torch.cuda.get_device_properties(xin.device).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"step needs {smem} B of shared memory, the card "
-                         f"allows {limit} B per block (M_pad={M_pad}, "
-                         f"S={s_true}, d={D1 - 1})")
+    _check_smem("step", lib.logreg_adam_step_smem_bytes(D1 - 1, s_true, M_pad),
+                xin.device, f"M_pad={M_pad}, S={s_true}, d={D1 - 1}")
     w_out, m1_out, m2_out = (torch.empty_like(w) for _ in range(3))
     with torch.cuda.device(xin.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -209,11 +228,8 @@ def multiclass_projection(z, thetas, n_classes: int, beta=1.0,
     N, D1 = z.shape
     d, K, S = D1 - 1, n_classes, thetas.shape[0]
     lib = _mc_lib()
-    smem = lib.multiclass_projection_smem_bytes(d, K, S)
-    limit = torch.cuda.get_device_properties(z.device).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"projection needs {smem} B of shared memory, the card "
-                         f"allows {limit} B per block (d={d}, K={K}, S={S})")
+    _check_smem("projection", lib.multiclass_projection_smem_bytes(d, K, S), z.device,
+                f"d={d}, K={K}, S={S}")
     if isinstance(beta, torch.Tensor):
         if beta.numel() != 1 or beta.device != z.device:
             raise ValueError(f"beta must be one element on {z.device}")
@@ -238,16 +254,106 @@ multiclass_projection.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K3: the shard-local partials of one sharded refinement step
+# ---------------------------------------------------------------------------
+
+def logreg_shard_step_partials_plain(xin, z, mu, linv, w_row, sc, s_true: int,
+                                     use_beta: bool = False):
+    """(colsum, core, corerow, wcore) of ``logreg_shard_step_partials`` in
+    plain PyTorch: theta = z[:s_true] @ L^-1 + mu, the uncentred
+    (beta-)log-likelihoods of the packed rows times the row mask, the
+    sample columns from s_true to z's row count zero."""
+    d = xin.shape[1] - 1
+    M_pad = w_row.shape[1]
+    n_sub_pad = xin.shape[0] - M_pad
+    th = z[:s_true] @ linv + mu                                   # (s_true, d)
+    x, msk = xin[:, :d], xin[:, d:]
+    ll = (logreg.beta_likelihood(x, th, sc[0]) if use_beta
+          else logreg.log_likelihood(x, th))
+    vals = F.pad(ll * msk, (0, z.shape[0] - s_true))              # (R, s_pad)
+    sub, core = vals[:n_sub_pad], vals[n_sub_pad:]
+    return (sub.sum(dim=0, keepdim=True), core, core.sum(dim=1)[None, :],
+            w_row @ core)
+
+
+@functools.cache
+def _shard_lib() -> ctypes.CDLL:
+    from ._build import load
+
+    lib = load("logreg_shard_partials")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.logreg_shard_partials.argtypes = [vp] * 10 + [ci] * 6 + [vp]
+    lib.logreg_shard_partials.restype = ci
+    lib.logreg_shard_partials_smem_bytes.argtypes = [ci, ci]
+    lib.logreg_shard_partials_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def _check_shard_operands(xin, z, mu, linv, w_row, sc, s_true):
+    R, D1 = xin.shape
+    d, M_pad = D1 - 1, w_row.shape[-1]
+    _check_tensors({"xin": (R, D1), "z": (z.shape[0], d), "mu": (1, d),
+                    "linv": (d, d), "w_row": (1, M_pad), "sc": (1,)},
+                   xin=xin, z=z, mu=mu, linv=linv, w_row=w_row, sc=sc)
+    _check_step_layout(R, z.shape[0], M_pad, s_true)
+
+
+def logreg_shard_step_partials(xin, z, mu, linv, w_row, sc, s_true: int,
+                               use_beta: bool = False):
+    """(colsum (1, s_pad), core (M_pad, s_pad), corerow (1, M_pad),
+    wcore (1, s_pad)) of one sharded refinement step's shard-local work in
+    ONE launch.
+
+    Operands (float32, contiguous, on one device): xin (n_sub_pad + M_pad,
+    d+1) rows [x | mask], subsample rows first; z (s_pad >= s_true, d) this
+    shard's pre-drawn noise columns (rows from s_true on are ignored);
+    mu (1, d) and linv (d, d) of the current Laplace fit; w_row (1, M_pad);
+    sc = [beta]. colsum sums the subsample rows, core is the uncentred
+    buffer block, corerow its row sums and wcore = w_row @ core; columns
+    from s_true on are 0."""
+    if xin.device.type == "cpu":
+        return logreg_shard_step_partials_plain(xin, z, mu, linv, w_row, sc,
+                                                s_true, use_beta)
+    if xin.device.type != "cuda":
+        raise ValueError(f"no kernel for device {xin.device}")
+    _check_shard_operands(xin, z, mu, linv, w_row, sc, s_true)
+    R, D1 = xin.shape
+    s_pad, M_pad = z.shape[0], w_row.shape[1]
+    lib = _shard_lib()
+    _check_smem("shard step", lib.logreg_shard_partials_smem_bytes(D1 - 1, s_true),
+                xin.device, f"S={s_true}, d={D1 - 1}")
+    f32 = dict(dtype=torch.float32, device=xin.device)
+    colsum, wcore = torch.empty((1, s_pad), **f32), torch.empty((1, s_pad), **f32)
+    core, corerow = torch.empty((M_pad, s_pad), **f32), torch.empty((1, M_pad), **f32)
+    with torch.cuda.device(xin.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.logreg_shard_partials(
+            xin.data_ptr(), z.data_ptr(), mu.data_ptr(), linv.data_ptr(),
+            w_row.data_ptr(), sc.data_ptr(), colsum.data_ptr(), core.data_ptr(),
+            corerow.data_ptr(), wcore.data_ptr(), R, D1 - 1, s_true, s_pad, M_pad,
+            int(use_beta), stream)
+    if rc != 0:
+        raise RuntimeError(f"logreg_shard_partials launch failed: cudaError {rc}")
+    logreg_shard_step_partials.launches += 1
+    return colsum, core, corerow, wcore
+
+
+logreg_shard_step_partials.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Operand packing for the fused step, done once per refinement pass, outside
 # the step loop. The layout is the reference's (subsample padded to 8 rows,
 # coreset buffer to 128 slots, samples to 128), so the packed operands equal
 # the reference's exactly; the kernel skips the padding.
 # ---------------------------------------------------------------------------
 
-def pack_fused_step_rows(rows_all, core_pts, slot_mask, n_sub: int):
+def pack_fused_step_rows(rows_all, core_pts, slot_mask, n_sub: int, sub_mask=None):
     """The (T, R, D+1) xin block: [subsample rows; zero pad to 8; coreset
-    buffer; zero pad to 128] with the row mask as the last column (1 for
-    subsample rows, slot_mask for buffer rows, 0 for padding).
+    buffer; zero pad to 128] with the row mask as the last column
+    (``sub_mask`` for subsample rows, slot_mask for buffer rows, 0 for
+    padding). ``sub_mask`` is 1 by default; the sharded build passes a 0-d
+    tensor that is 0 when its shard has no valid rows.
 
     Returns (xin_all, M_pad, R)."""
     T, _, D = rows_all.shape
@@ -256,7 +362,7 @@ def pack_fused_step_rows(rows_all, core_pts, slot_mask, n_sub: int):
     R = n_sub_pad + M_pad
     xin = torch.zeros((T, R, D + 1), dtype=torch.float32, device=rows_all.device)
     xin[:, :n_sub, :D] = rows_all
-    xin[:, :n_sub, D] = 1.0
+    xin[:, :n_sub, D] = 1.0 if sub_mask is None else sub_mask
     xin[:, n_sub_pad:n_sub_pad + M_buf, :D] = core_pts
     xin[:, n_sub_pad:n_sub_pad + M_buf, D] = slot_mask.to(torch.float32)
     return xin, M_pad, R
@@ -284,11 +390,19 @@ def adam_sclr_stack(step_sizes):
 
 def make_refit_state(smp, pts):
     """refit_state(w, lap_aux) -> (lap, L^-1 as float32), through the
-    sampler's fit_inv (the Newton direction is computed through L^-1, so
-    the step gets it without a separate inversion)."""
+    sampler's fit_inv when it has one (the Newton direction is computed
+    through L^-1, so the step gets it without a separate inversion), else
+    through ``fit`` and a triangular solve of the float32 factor."""
+    fit_inv = getattr(smp, "fit_inv", None)
+
     def refit_state(w, lap_aux):
-        lap = smp.fit_inv(w, pts, lap_aux)
-        return lap, lap.prec_chol_inv.to(torch.float32).contiguous()
+        if fit_inv is not None:
+            lap = fit_inv(w, pts, lap_aux)
+            return lap, lap.prec_chol_inv.to(torch.float32).contiguous()
+        lap = smp.fit(w, pts, lap_aux)
+        L = lap.prec_chol.to(torch.float32)
+        eye = torch.eye(L.shape[0], dtype=torch.float32, device=L.device)
+        return lap, torch.linalg.solve_triangular(L, eye, upper=False).contiguous()
 
     return refit_state
 

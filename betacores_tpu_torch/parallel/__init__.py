@@ -1,0 +1,8 @@
+from .mesh import (DATA_AXIS, SAMP_AXIS, Mesh, auto_mesh_shape, make_mesh,
+                   require_axes, shard_data, shard_weights)
+from .sharded import (ShardedGeneratorDraws, ShardedIncrementalBuilder,
+                      make_sharded_incremental_builder)
+
+__all__ = ["DATA_AXIS", "SAMP_AXIS", "Mesh", "auto_mesh_shape", "make_mesh",
+           "require_axes", "shard_data", "shard_weights", "ShardedGeneratorDraws",
+           "ShardedIncrementalBuilder", "make_sharded_incremental_builder"]

@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch/CUDA port (betacores_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--selections 5] [--mc-selections 3]
+                          [--sharded-selections 3]
 
 Run from the root of a checkout, on a machine with a card and the CUDA
 toolkit. Phases, each of which raises on failure:
@@ -33,7 +34,23 @@ toolkit. Phases, each of which raises on failure:
      time per selection and the test accuracy of the coreset's posterior;
   7. that slice against itself: a small full-select multiclass build
      (N = 9000, so select launches K2) on the card equals the same build
-     on the CPU under replayed draws, in both select modes.
+     on the CPU under replayed draws, in both select modes;
+  8. K3 (the sharded step's shard-local partials) against its plain
+     version on the card, at the (1, 1) mesh's full width, at a (., 2)
+     mesh's shape and at a ragged unpadded shape, with and without the
+     beta-likelihood: each output within 2e-4 of its largest magnitude,
+     padding exactly 0, and the gradient assembled from the partials
+     within 3e-4 of the centred gradient's largest magnitude; times both
+     with CUDA events;
+  9. the sharded headline build: the bench.py configuration on a (1, 1)
+     mesh, one process in an NCCL process group of one rank (met through
+     a FileStore in a temporary directory), for --sharded-selections
+     selections after a warm-up one, every Adam step launching K3 and no
+     step K1; prints the collective counts;
+ 10. that slice against itself: a small sharded build through K3 on the
+     card equals the same build through K3's plain version on the CPU (a
+     gloo group of one rank) and the single-device build through K1 on the
+     card, under one set of draws, in both select modes.
 
 The last two lines of standard output are a JSON object describing the
 kernels, then {"ok": true, "device": {...}}. Without a card the script
@@ -43,9 +60,13 @@ exits nonzero and prints neither.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import datetime
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -53,13 +74,14 @@ import torch
 
 TOL = 2e-4                      # K1 vs its plain version, float32 (the reference's own)
 MC_TOL = 2e-5                   # K2 vs its plain version (the reference's own)
+GRAD_TOL = 3e-4                 # K3's assembled gradient vs the centred one (the reference's own)
 # the headline configuration of bench.py
 N_ROWS, N_FEAT, S, BETA = 1_000_000, 10, 100, 0.1
 N_SEL, N_OPT, OPT_ITRS, M_BUF = 1000, 200, 500, 128
 # the configuration of examples/multiclass.py, at 2^20 rows with full select
 MC_ROWS, MC_K, MC_D, MC_BETA, MC_F_RATE = 1 << 20, 5, 10, 0.3, 0.2
 MC_M, MC_N_OPT, MC_OPT_ITRS, MC_N_TEST = 60, 200, 200, 10_000
-KERNELS = ("logreg_adam_step", "multiclass_projection")
+KERNELS = ("logreg_adam_step", "multiclass_projection", "logreg_shard_partials")
 
 
 def log(msg: str) -> None:
@@ -91,6 +113,7 @@ def phase_build() -> None:
         paths = list(pool.map(_build.library_path, KERNELS))
     kernels._lib()
     kernels._mc_lib()
+    kernels._shard_lib()
     log(f"build: {', '.join(p.name for p in paths)} in {time.perf_counter() - t0:.2f} s")
     for path in paths:
         report = path.with_suffix(".log")
@@ -289,6 +312,21 @@ def check_state(st):
     return w, m
 
 
+def check_same_build(what: str, got, ref) -> str:
+    """Raises unless two built states select the same indices and m, with
+    weights within 5e-3 * max(1, max|w_ref|); returns a summary."""
+    w1, i1, m1 = got.wts.cpu(), got.idcs.cpu(), int(got.m)
+    w0, i0, m0 = ref.wts.cpu(), ref.idcs.cpu(), int(ref.m)
+    if m0 != m1 or not torch.equal(i0, i1):
+        raise AssertionError(f"{what}: selections differ: m={m1} {i1.tolist()} against "
+                             f"m={m0} {i0.tolist()}")
+    tol = 5e-3 * max(1.0, float(w0.abs().max()))
+    err = float((w1 - w0).abs().max())
+    if err > tol:
+        raise AssertionError(f"{what}: weights differ by {err:.3e} > {tol:.3e}")
+    return f"m={m1}, same indices, max |dw| {err:.2e} <= {tol:.2e}"
+
+
 def same_build_on_cpu(tag: str, make, Z, st_at, cfg, itrs: int, gen, dev: str,
                       kernel=None) -> None:
     """Runs one build on the CPU (plain versions) and on ``dev`` (kernels)
@@ -307,21 +345,13 @@ def same_build_on_cpu(tag: str, make, Z, st_at, cfg, itrs: int, gen, dev: str,
     for where in ("cpu", dev):
         before = kernel.launches if kernel else 0
         st = make(Z.to(where), cfg).build(st_at(where), itrs, draws)
-        out[where] = (st.wts.cpu(), st.idcs.cpu(), int(st.m),
-                      kernel.launches - before if kernel else 0)
-    (w0, i0, m0, _), (w1, i1, m1, n_k) = out["cpu"], out[dev]
-    where = f"dedup_select={cfg.dedup_select}, refit_every={cfg.refit_every}"
+        out[where] = (st, kernel.launches - before if kernel else 0)
+    where = f"{tag} [dedup_select={cfg.dedup_select}, refit_every={cfg.refit_every}]"
+    n_k = out[dev][1]
     if kernel and dev != "cpu" and n_k != itrs:
-        raise AssertionError(f"{tag}: kernel launched {n_k} times in the build, want {itrs}")
-    if m0 != m1 or not torch.equal(i0, i1):
-        raise AssertionError(f"{tag}: selections differ ({where}): cpu m={m0} "
-                             f"{i0.tolist()}, {dev} m={m1} {i1.tolist()}")
-    tol = 5e-3 * max(1.0, float(w0.abs().max()))
-    err = float((w1 - w0).abs().max())
-    if err > tol:
-        raise AssertionError(f"{tag}: weights differ ({where}) by {err:.3e} > {tol:.3e}")
-    log(f"{tag} [{where}]: build on the card == build on the CPU (m={m1}, same "
-        f"indices, max |dw| {err:.2e} <= {tol:.2e})")
+        raise AssertionError(f"{where}: kernel launched {n_k} times in the build, want {itrs}")
+    summary = check_same_build(where, out[dev][0], out["cpu"][0])
+    log(f"{where}: build on the card == build on the CPU ({summary})")
 
 
 def phase_main_path(seed: int, n: int, selections: int, dev: str = "cuda") -> dict:
@@ -498,21 +528,257 @@ def phase_mc_self_check(seed: int, dev: str = "cuda") -> None:
                           kernel=kernels.multiclass_projection)
 
 
+def shard_operands(gen, dev, n_sub, M_buf, n_live, d, S_loc, packed: bool):
+    """Random operands of one K3 launch: those of one fused step
+    (``step_operands``, laid out alike) without the Adam state, with
+    sc = [beta]."""
+    (xin, z, mu, linv, w, _, _, sc, _), _ = step_operands(gen, dev, n_sub, M_buf, n_live,
+                                                          d, S_loc, packed)
+    return (xin, z, mu, linv, w, sc[:1]), S_loc
+
+
+def centred_gradient_check(ops, partials, S_loc: int, use_beta: bool, where: str) -> float:
+    """The sharded builder's gradient identity on one sample block,
+    g = -(a - (r / S) * b) / S from the kernel's partials (assembled in
+    float64), against the centred gradient of the plain composition in
+    float64, with the reference's target scaling 17.3: within 3e-4 of the
+    gradient's largest magnitude (at least 1). The identity cancels the
+    uncentred sums, so the float32 rounding of the partials shows in g in
+    proportion to its size. Returns max |g - g_centred|."""
+    from betacores_tpu_torch.models import logreg
+    from betacores_tpu_torch.ops.projection import center
+
+    xin, z, mu, linv, w, sc = (o.double() for o in ops)
+    d, M_pad = xin.shape[1] - 1, w.shape[1]
+    n_sub_pad, scaling = xin.shape[0] - M_pad, 17.3
+    th = z[:S_loc] @ linv + mu
+    x, msk = xin[:, :d], xin[:, d:]
+    ll = logreg.beta_likelihood(x, th, sc[0]) if use_beta else logreg.log_likelihood(x, th)
+    vals = center(ll) * msk
+    sub, core = vals[:n_sub_pad], vals[n_sub_pad:]
+    g_ref = -(core @ (scaling * sub.sum(dim=0) - w[0] @ core)) / S_loc
+    colsum, core_k, corerow, wcore = (o.double() for o in partials)
+    r_unc = scaling * colsum - wcore
+    a, b = r_unc @ core_k.T, r_unc.sum()
+    g = (-(a - (corerow / S_loc) * b) / S_loc)[0]
+    err = float((g - g_ref).abs().max())
+    log(f"  K3 {where} gradient from the partials vs centred: max|dg| {err:.3e} "
+        f"(max|g| {float(g_ref.abs().max()):.3e})")
+    if not err <= GRAD_TOL * max(1.0, float(g_ref.abs().max())):
+        raise AssertionError(f"K3 {where}: assembled gradient off by {err:.3e}")
+    return err
+
+
+def phase_shard_kernel(seed: int, dev: str = "cuda") -> dict:
+    """K3 against its plain version on the card: each output within
+    2e-4 * max(1, its largest magnitude), padded rows and columns exactly 0,
+    and the gradient assembled from the partials within 3e-4 of the
+    centred one (``centred_gradient_check``)."""
+    from betacores_tpu_torch.ops import kernels
+
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    shapes = {"(1, 1) mesh": dict(n_sub=N_OPT, M_buf=M_BUF, n_live=60, d=N_FEAT, S_loc=S,
+                                  packed=True),
+              "(., 2) mesh": dict(n_sub=N_OPT // 2, M_buf=M_BUF, n_live=60, d=N_FEAT,
+                                  S_loc=S // 2, packed=True),
+              "ragged": dict(n_sub=37, M_buf=19, n_live=11, d=7, S_loc=45, packed=False)}
+    names = ("colsum", "core", "corerow", "wcore")
+    err_main, times = 0.0, {}
+    for label, shp in shapes.items():
+        ops, S_loc = shard_operands(gen, dev, **shp)
+        n_live = shp["n_live"]
+        for use_beta in (True, False):
+            where = (f"[{label}: R={ops[0].shape[0]}, d={shp['d']}, S_loc={S_loc}, "
+                     f"s_pad={ops[1].shape[0]}, M_pad={ops[4].shape[1]}, beta={use_beta}]")
+            got = kernels.logreg_shard_step_partials(*ops, S_loc, use_beta=use_beta)
+            want = kernels.logreg_shard_step_partials_plain(*ops, S_loc, use_beta)
+            torch.cuda.synchronize()
+            for name, g, w in zip(names, got, want):
+                err, scale = float((g - w).abs().max()), float(w.abs().max())
+                log(f"  K3 {where} {name}: max|kernel-plain| {err:.3e} (max|plain| {scale:.3e})")
+                if g.shape != w.shape or not err <= TOL * max(1.0, scale):
+                    raise AssertionError(f"K3 vs plain {where}: {name} off by {err:.3e}")
+                if label.startswith("(1, 1)"):
+                    err_main = max(err_main, err)
+            colsum, core, corerow, wcore = got
+            if not (bool((core[:, S_loc:] == 0).all()) and bool((core[n_live:] == 0).all())
+                    and bool((corerow[0, n_live:] == 0).all())
+                    and bool((colsum[:, S_loc:] == 0).all())
+                    and bool((wcore[:, S_loc:] == 0).all())):
+                raise AssertionError(f"K3 {where}: padded slots not 0")
+            centred_gradient_check(ops, got, S_loc, use_beta, where)
+        if label.startswith("(1, 1)"):
+            call = lambda f: (lambda: f(*ops, S_loc, use_beta=True))
+            # turns: plain, kernel, kernel, plain
+            t = [_time_ms(call(kernels.logreg_shard_step_partials_plain), 200),
+                 _time_ms(call(kernels.logreg_shard_step_partials), 2000),
+                 _time_ms(call(kernels.logreg_shard_step_partials), 2000),
+                 _time_ms(call(kernels.logreg_shard_step_partials_plain), 200)]
+            times = {"ms": (t[1] + t[2]) / 2, "plain_ms": (t[0] + t[3]) / 2}
+            log(f"K3 time per launch at the (1, 1) full width (CUDA events): kernel "
+                f"{t[1] * 1e3:.2f} / {t[2] * 1e3:.2f} us, plain "
+                f"{t[0] * 1e3:.2f} / {t[3] * 1e3:.2f} us")
+    return {"max_abs_err": err_main, **times}
+
+
+@contextlib.contextmanager
+def world_of_one(backend: str):
+    """This process as the only rank of a ``backend`` process group, met
+    through a FileStore in a temporary directory; destroyed on exit."""
+    import torch.distributed as dist
+
+    if backend == "nccl":
+        # one rank still bootstraps over a socket: keep it on the loopback
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def phase_sharded_path(seed: int, n: int, selections: int, dev: str = "cuda") -> dict:
+    """The headline build of bench.py through the sharded builder on a
+    (1, 1) mesh (what bench.py runs on more than one device), in an NCCL
+    group of one rank: every Adam step one Newton refit, one K3 launch and
+    two psums; the select three psums and one all_gather."""
+    from betacores_tpu_torch import (IncrementalConfig, gen_synthetic_logreg, init_state,
+                                     logreg, logreg_laplace_sampler, make_mesh,
+                                     make_sharded_incremental_builder, perturb_logreg,
+                                     shard_data)
+    from betacores_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    X, y, _ = gen_synthetic_logreg(gen, n, d=N_FEAT)
+    X, y, Z, _ = perturb_logreg(gen, X, y, f_rate=0.1)
+    del X, y
+    cfg = IncrementalConfig(projection_dim=S, n_subsample_select=N_SEL,
+                            n_subsample_opt=N_OPT, opt_itrs=OPT_ITRS, i0=1.0,
+                            use_beta=True)
+    with world_of_one("nccl" if dev == "cuda" else "gloo"):
+        mesh = make_mesh(1, 1)
+        Zs, n_true = shard_data(Z, mesh)
+        del Z
+        builder = make_sharded_incremental_builder(Zs, n_true, logreg.bundle(),
+                                                   logreg_laplace_sampler(), cfg, mesh)
+        if builder.route != "fused":
+            raise AssertionError(f"sharded refinement took the {builder.route} route")
+        draws = builder.generator_draws(seed)
+        st0 = init_state(M_BUF, N_FEAT, beta=BETA, device=dev)
+        t0 = time.perf_counter()
+        builder.build(st0, 1, draws)                     # warm-up selection
+        torch.cuda.synchronize()
+        log(f"sharded warm-up selection on a {mesh.shape} mesh ({mesh.device}): "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        kernels.logreg_shard_step_partials.launches = 0
+        kernels.logreg_adam_step.launches = 0
+        mesh.calls.clear()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        st = builder.build(st0, selections, draws)
+        end.record()
+        end.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.logreg_shard_step_partials.launches
+        calls = dict(mesh.calls)
+    want = selections * OPT_ITRS
+    if launches != want or kernels.logreg_adam_step.launches != 0:
+        raise AssertionError(f"K3 launched {launches} times, want {want}; K1 "
+                             f"{kernels.logreg_adam_step.launches}, want 0")
+    want_calls = {"psum": selections * (3 + 2 * OPT_ITRS), "all_gather": selections}
+    if calls != want_calls:
+        raise AssertionError(f"collectives {calls}, want {want_calls}")
+    w, m = check_state(st)
+    secs = start.elapsed_time(end) / 1e3
+    log(f"sharded path: {selections} selections x {OPT_ITRS} steps, m={m} "
+        f"(fill {m / selections:.2f}), {launches} K3 launches, 0 K1 launches, "
+        f"collectives {calls}, sum(w)={float(w.sum()):.1f}")
+    log(f"sharded build: {secs:.3f} s (CUDA events), {wall:.3f} s host clock, "
+        f"{secs / selections * 1e3:.1f} ms per selection, "
+        f"{secs / want * 1e6:.1f} us per Adam step")
+    return {"launches": launches}
+
+
+def phase_sharded_self_check(seed: int, dev: str = "cuda") -> None:
+    """The small build of phase 5 on a (1, 1) mesh, three ways under one set
+    of draws: the sharded builder through K3 on the card (NCCL), through
+    K3's plain version on the CPU (gloo), and the single-device builder
+    through K1 on the card. On a (1, 1) mesh the local subsample indices
+    are the global ones, so one FixedDraws serves all three."""
+    from betacores_tpu_torch import (FixedDraws, IncrementalConfig, init_state, logreg,
+                                     logreg_laplace_sampler, make_incremental_builder,
+                                     make_mesh, make_sharded_incremental_builder,
+                                     shard_data)
+    from betacores_tpu_torch.ops import kernels
+
+    N, D, M, S_s, itrs, T = 1500, 5, 15, 40, 8, 25
+    gen = torch.Generator().manual_seed(seed)
+    th = torch.randn(D, generator=gen)
+    X = torch.randn((N, D), generator=gen)
+    y = torch.where(X @ th + 0.3 * torch.randn(N, generator=gen) > 0, 1.0, -1.0)
+    Z = y[:, None] * X
+    for dedup, refit_every in ((False, 1), (True, 4)):
+        cfg = IncrementalConfig(projection_dim=S_s, n_subsample_select=150,
+                                n_subsample_opt=150, opt_itrs=T, i0=0.5, use_beta=True,
+                                dedup_select=dedup, refit_every=refit_every)
+        single = lambda where: make_incremental_builder(
+            Z.to(where), logreg.bundle(), logreg_laplace_sampler(), cfg)
+        rec = single("cpu").generator_draws(gen)
+        st0 = init_state(M, D, beta=0.2)
+        draws = FixedDraws([rec.select(i, st0) for i in range(itrs)],
+                           [rec.optimize(i, st0) for i in range(itrs)])
+        out = {}
+        for tag, where, backend in (("K3 on the card", dev, "nccl" if dev == "cuda" else "gloo"),
+                                    ("K3 plain on the CPU", "cpu", "gloo")):
+            with world_of_one(backend):
+                mesh = make_mesh(1, 1, device=where)
+                Zs, n_true = shard_data(Z, mesh)
+                b = make_sharded_incremental_builder(Zs, n_true, logreg.bundle(),
+                                                     logreg_laplace_sampler(), cfg, mesh)
+                before = kernels.logreg_shard_step_partials.launches
+                st = b.build(init_state(M, D, beta=0.2, device=where), itrs, draws)
+                out[tag] = (st, kernels.logreg_shard_step_partials.launches - before)
+        before = kernels.logreg_adam_step.launches
+        st = single(dev).build(init_state(M, D, beta=0.2, device=dev), itrs, draws)
+        out["K1 single-device on the card"] = (st, kernels.logreg_adam_step.launches - before)
+        mode = f"dedup_select={dedup}, refit_every={refit_every}"
+        if dev != "cpu":
+            for tag in ("K3 on the card", "K1 single-device on the card"):
+                if out[tag][1] != itrs * T:
+                    raise AssertionError(f"sharded self-check ({mode}): {tag} launched its "
+                                         f"kernel {out[tag][1]} times, want {itrs * T}")
+        ref_tag = "K3 plain on the CPU"
+        for tag in ("K3 on the card", "K1 single-device on the card"):
+            summary = check_same_build(f"sharded self-check [{mode}]: {tag}", out[tag][0],
+                                       out[ref_tag][0])
+            log(f"sharded self-check [{mode}]: {tag} == {ref_tag} ({summary})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--selections", type=int, default=5)
     ap.add_argument("--mc-selections", type=int, default=3)
+    ap.add_argument("--sharded-selections", type=int, default=3)
     args = ap.parse_args()
 
     name = phase_device()
     phase_build()
     k1 = phase_kernel(args.seed)
     k2 = phase_mc_kernel(args.seed)
+    k3 = phase_shard_kernel(args.seed)
     main_path = phase_main_path(args.seed, N_ROWS, args.selections)
     phase_self_check(args.seed)
     mc_path = phase_mc_path(args.seed, MC_ROWS, args.mc_selections)
     phase_mc_self_check(args.seed)
+    sharded = phase_sharded_path(args.seed, N_ROWS, args.sharded_selections)
+    phase_sharded_self_check(args.seed)
     print(json.dumps({"kernels": [
         {"name": "logreg_adam_step", "route": "cuda",
          "source": "betacores_tpu_torch/csrc/logreg_adam_step.cu",
@@ -523,7 +789,12 @@ def main() -> int:
          "source": "betacores_tpu_torch/csrc/multiclass_projection.cu",
          "replaces": "betacores_tpu/ops/pallas_kernels.py:273",
          "launches": mc_path["launches"], "max_abs_err": k2["max_abs_err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"]}]}))
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
+        {"name": "logreg_shard_step_partials", "route": "cuda",
+         "source": "betacores_tpu_torch/csrc/logreg_shard_partials.cu",
+         "replaces": "betacores_tpu/ops/pallas_kernels.py:185",
+         "launches": sharded["launches"], "max_abs_err": k3["max_abs_err"],
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -18,7 +18,7 @@ def _run(args, cwd=ROOT):
 
 def test_import_loads_no_jax():
     r = _run(["-c", "import sys, betacores_tpu_torch, betacores_tpu_torch.ops.kernels, "
-                    "betacores_tpu_torch.ops._build\n"
+                    "betacores_tpu_torch.ops._build, betacores_tpu_torch.parallel\n"
                     "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
                     " or m == 'betacores_tpu' or m.startswith('betacores_tpu.')]\n"
                     "assert not bad, bad\n"

@@ -67,7 +67,8 @@ def replay_jax_draws(key, st, itrs, smp, n_rows, n_samples, n_steps, n_sel, n_op
     """The draws ``build(key, st, itrs)`` of the JAX package makes with
     sampler ``smp``, as torch tensors: per iteration (z_sel, idx_sel) and
     (z_all, idx_all). ``n_sel=None`` is full-candidate select, which draws
-    no subsample (idx_sel None)."""
+    no subsample (idx_sel None); ``n_opt=None`` is full-data refinement,
+    whose steps draw their noise from the same keys (idx_all None)."""
     noise = lambda k: smp.draw_noise(k, n_samples, st.wts, st.pts, st.sampler_aux)
     sel, opt = [], []
     for i in range(itrs):
@@ -77,7 +78,8 @@ def replay_jax_draws(key, st, itrs, smp, n_rows, n_samples, n_steps, n_sel, n_op
                     else jdraw_subsample(k_sub, n_rows, n_sel)[0]))
         pair = jax.vmap(jax.random.split)(jax.random.split(k2, n_steps))
         z_all = jax.vmap(noise)(pair[:, 0])
-        idx_all, _ = jax.vmap(lambda k: jdraw_subsample(k, n_rows, n_opt))(pair[:, 1])
+        idx_all = None if n_opt is None else jax.vmap(
+            lambda k: jdraw_subsample(k, n_rows, n_opt)[0])(pair[:, 1])
         opt.append((z_all, idx_all))
     conv = lambda z, idx: (torch.from_numpy(np.array(z)), None if idx is None
                            else torch.from_numpy(np.array(idx)).long())
@@ -191,11 +193,13 @@ def test_composed_route_matches_jax(problem, refit_every):
 
 
 @pytest.mark.parametrize("change", [
-    dict(learn_beta=True), dict(n_subsample_select=None, n_subsample_opt=None),
+    dict(), dict(n_subsample_select=None, n_subsample_opt=None),
     dict(n_subsample_opt=None)])
 def test_outside_the_slice_raises(problem, change):
+    """learn_beta is not ported: it raises in every select and refinement
+    mode."""
     kw = dict(projection_dim=S, n_subsample_select=N_SEL, n_subsample_opt=N_OPT,
-              opt_itrs=T, use_beta=True)
+              opt_itrs=T, use_beta=True, learn_beta=True)
     kw.update(change)
     with pytest.raises(NotImplementedError):
         make_incremental_builder(torch.from_numpy(problem), logreg.bundle(),
@@ -203,15 +207,15 @@ def test_outside_the_slice_raises(problem, change):
 
 
 def test_data_weights_and_plain_model_raise(problem):
-    """Data weights are not ported. A model without the fused step takes
-    the composed route, which needs the sampler's noise split: a sampler
-    without ``from_noise`` (or, with lagged refits, without ``fit``)
-    raises."""
+    """Data weights of the wrong shape raise. A model without the fused step
+    takes the composed route, which needs the sampler's noise split: a
+    sampler without ``from_noise`` (or, with lagged refits, without
+    ``fit``) raises."""
     cfg = _cfgs(False, 1)[1]
     Z = torch.from_numpy(problem)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         make_incremental_builder(Z, logreg.bundle(), logreg_laplace_sampler(), cfg,
-                                 data_weights=torch.ones(N))
+                                 data_weights=torch.ones(N - 1))
     plain = logreg.bundle()._replace(fused_beta_grad_step=None)
 
     class NoSplit:

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card: K1,
 the fused refinement step (betacores_tpu_torch/csrc/logreg_adam_step.cu),
-and K2, the multiclass projection (csrc/multiclass_projection.cu). This
+K2, the multiclass projection (csrc/multiclass_projection.cu), and K3, the
+sharded step's shard-local partials (csrc/logreg_shard_partials.cu). This
 file imports no JAX, so it runs where the card is:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
@@ -8,10 +9,12 @@ file imports no JAX, so it runs where the card is:
 Without a card its tests skip. Tolerances are the JAX package's own for
 each kernel against its composition (tests/test_pallas_kernels.py): atol =
 rtol = 2e-4 for K1, atol 2e-5 for K2, in float32; the kernels sum in
-another order.
+another order. K3's outputs are held within 2e-4 of each output's largest
+magnitude (atol = rtol = 2e-4 relative to it), as chip_smoke.py holds them.
 
 ``step_operands`` builds the padded operands of tests/test_pallas_kernels.py
-and is shared with test_torch_kernels.py."""
+and is shared with test_torch_kernels.py; ``shard_operands`` those of K3,
+shared with test_torch_shard_kernel.py."""
 
 import numpy as np
 import pytest
@@ -47,6 +50,16 @@ def step_operands(rng, d=6, S=50, n_sub=24, M=5, s_pad=128, M_pad=128, n_live=3)
     sc = np.asarray([beta, scaling], np.float32)
     sclr = np.asarray([lr, 1 - ADAM_B1**t, 1 - ADAM_B2**t], np.float32)
     return (xin, z, mu, linv, w, m1, m2, sc, sclr), S
+
+
+def shard_operands(rng, S=32, has_rows=1.0, **shape):
+    """Operands of one K3 launch (the shard-local partials): those of
+    ``step_operands`` without the Adam state, with sc = [beta] and the
+    subsample rows' mask set to ``has_rows`` (0: a shard without valid
+    rows). Returns (ops, S)."""
+    (xin, z, mu, linv, w, _, _, sc, _), S = step_operands(rng, S=S, **shape)
+    xin[:xin.shape[0] - w.shape[1], -1] *= has_rows
+    return (xin, z, mu, linv, w, sc[:1].copy()), S
 
 
 def _torch(ops, device):
@@ -98,3 +111,31 @@ def test_cuda_multiclass_projection_matches_plain(cuda_device, use_beta, shape):
     assert kernels.multiclass_projection.launches == before + 1
     assert got.shape == (N, S) and got.dtype == torch.float32
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_beta", [True, False])
+@pytest.mark.parametrize("shape", [
+    dict(d=10, S=100, n_sub=200, M=128, n_live=60),
+    dict(d=10, S=50, n_sub=100, M=128, n_live=60),
+    dict(d=7, S=45, n_sub=37, M=19, s_pad=45, M_pad=19, n_live=11),
+    dict(d=6, S=50, n_sub=100, M=20, n_live=7, has_rows=0.0)])
+def test_cuda_shard_partials_match_plain(cuda_device, use_beta, shape):
+    """K3 at the shapes of chip_smoke.py's K3 phase: the (1, 1) full width,
+    the (., 2) shape, a ragged one (buffer and sample axes unpadded), and a
+    shard without rows."""
+    ops, S = shard_operands(np.random.default_rng(42), **shape)
+    t = _torch(ops, cuda_device)
+    want = kernels.logreg_shard_step_partials_plain(*t, S, use_beta)
+    before = kernels.logreg_shard_step_partials.launches
+    got = kernels.logreg_shard_step_partials(*t, S, use_beta=use_beta)
+    torch.cuda.synchronize()
+    assert kernels.logreg_shard_step_partials.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= 2e-4 * scale
+    colsum, core, corerow, wcore = got
+    n_live = shape["n_live"]
+    assert (core[:, S:] == 0).all() and (colsum[:, S:] == 0).all() and (wcore[:, S:] == 0).all()
+    assert (core[n_live:] == 0).all() and (corerow[0, n_live:] == 0).all()
