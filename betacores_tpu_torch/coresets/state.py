@@ -31,7 +31,7 @@ class CoresetState(NamedTuple):
 def init_state(max_size: int, dim: int, beta: float = 0.5,
                sampler_aux: torch.Tensor | None = None,
                dtype: torch.dtype = torch.float32,
-               device: torch.device | str = "cpu") -> CoresetState:
+               device: torch.device | str = "cuda") -> CoresetState:
     if sampler_aux is None:
         sampler_aux = torch.zeros(dim, dtype=dtype, device=device)
     return CoresetState(
@@ -54,7 +54,7 @@ def get(state: CoresetState):
 
 
 def state_from_numpy(arrays: Mapping[str, np.ndarray],
-                     device: torch.device | str = "cpu") -> CoresetState:
+                     device: torch.device | str = "cuda") -> CoresetState:
     """A state from numpy arrays keyed by the field names (e.g. a JAX
     ``CoresetState._asdict()`` passed through ``np.asarray``). Dtypes are
     kept, except that ``idcs`` and ``m`` are int32. The arrays are copied."""

@@ -7,18 +7,22 @@ the on-card comparison use. There is no fallback between the two. Each
 wrapper counts its kernel launches in ``<wrapper>.launches``.
 
 - ``logreg_adam_step`` (K1): one whole projected-Adam refinement step of
-  the incremental build in one launch (CUDA C++,
-  csrc/logreg_adam_step.cu); plain version ``logreg_adam_step_plain``.
+  the incremental build in one launch of one thread-block cluster (CUDA
+  C++, csrc/logreg_adam_step.cu); plain version ``logreg_adam_step_plain``.
 - ``multiclass_projection`` (K2): the centred (N, S) K-class softmax
   (beta-)log-likelihood projection in one pass (CUDA C++,
   csrc/multiclass_projection.cu); plain version
   ``multiclass_projection_plain``. The projection engine routes row
   blocks of at least ``FUSED_MIN_ROWS`` to it (``maybe_fused``).
 - ``logreg_shard_step_partials`` (K3): the shard-local, uncentred half of
-  one sharded refinement step in one launch (CUDA C++,
-  csrc/logreg_shard_partials.cu); plain version
+  one sharded refinement step in one launch of one thread-block cluster
+  (CUDA C++, csrc/logreg_shard_partials.cu); plain version
   ``logreg_shard_step_partials_plain``. The sharded builder
   (parallel/sharded.py) combines its partials across ranks.
+
+K1 and K3 split the packed rows over the C CTAs of their cluster
+(``cluster_rows``, C from ``cluster_size``) and sum across the cluster
+through distributed shared memory (csrc/logreg_common.cuh).
 """
 
 from __future__ import annotations
@@ -40,6 +44,41 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+# CTAs of one cluster the card takes (9..16 with the non-portable opt-in);
+# csrc/logreg_common.cuh repeats it
+MAX_CLUSTER = 16
+
+
+def cluster_size(R: int) -> int:
+    """CTAs in K1's and K3's cluster for R packed rows: the smallest power
+    of two in [2, 16] that leaves each CTA at most 24 rows (1.5 per warp of
+    16). At the main path's 328 rows that is 16, the fastest of 1..16
+    measured on an H100 (PERF.md)."""
+    C = 2
+    while C < MAX_CLUSTER and -(-R // C) > 24:
+        C *= 2
+    return C
+
+
+def cluster_rows(R: int, n_sub_pad: int, M_pad: int, C: int) -> list[tuple[list, list]]:
+    """For each CTA of a C-CTA cluster, (rows, slots): the packed rows it
+    walks, in its order, and the buffer slots whose centred core row and
+    Adam update it keeps, as the kernels split them
+    (csrc/logreg_common.cuh::RowSplit, the same closed forms): subsample
+    row r to CTA r mod C, buffer slot m (packed row n_sub_pad + m) to CTA
+    m mod C; a CTA walks its subsample rows, then its slots' rows. The
+    sample axis is never split."""
+    if R != n_sub_pad + M_pad:
+        raise ValueError(f"R={R} is not n_sub_pad + M_pad = {n_sub_pad + M_pad}")
+    out = []
+    for c in range(C):
+        n_sub = -(-(n_sub_pad - c) // C) if c < n_sub_pad else 0
+        n_core = -(-(M_pad - c) // C) if c < M_pad else 0
+        slots = [c + j * C for j in range(n_core)]
+        out.append(([c + i * C for i in range(n_sub)] + [n_sub_pad + m for m in slots], slots))
+    return out
 
 
 def logreg_adam_step_plain(xin, z, mu, linv, w, m1, m2, sc, sclr, s_true: int,
@@ -71,10 +110,12 @@ def _lib() -> ctypes.CDLL:
 
     lib = load("logreg_adam_step")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.logreg_adam_step.argtypes = [vp] * 12 + [ci] * 5 + [vp]
+    lib.logreg_adam_step.argtypes = [vp] * 12 + [ci] * 6 + [vp]
     lib.logreg_adam_step.restype = ci
-    lib.logreg_adam_step_smem_bytes.argtypes = [ci, ci, ci]
+    lib.logreg_adam_step_smem_bytes.argtypes = [ci] * 5
     lib.logreg_adam_step_smem_bytes.restype = ctypes.c_longlong
+    lib.logreg_adam_step_floor.argtypes = [ci] * 5 + [vp]
+    lib.logreg_adam_step_floor.restype = ci
     return lib
 
 
@@ -131,12 +172,23 @@ def logreg_adam_step(xin, z, mu, linv, w, m1, m2, sc, sclr, s_true: int,
                                       s_true, use_beta)
     if xin.device.type != "cuda":
         raise ValueError(f"no kernel for device {xin.device}")
+    out = launch_adam_step(xin, z, mu, linv, w, m1, m2, sc, sclr, s_true, use_beta,
+                           cluster_size(xin.shape[0]))
+    logreg_adam_step.launches += 1
+    return out
+
+
+def launch_adam_step(xin, z, mu, linv, w, m1, m2, sc, sclr, s_true: int,
+                     use_beta: bool, cluster: int):
+    """K1's launch as one cluster of ``cluster`` CTAs on CUDA operands,
+    uncounted: ``logreg_adam_step`` with the cluster size given, for
+    measuring each size on the card."""
     _check_operands(xin, z, mu, linv, w, m1, m2, sc, sclr, s_true)
     R, D1 = xin.shape
     M_pad = w.shape[1]
     lib = _lib()
-    _check_smem("step", lib.logreg_adam_step_smem_bytes(D1 - 1, s_true, M_pad),
-                xin.device, f"M_pad={M_pad}, S={s_true}, d={D1 - 1}")
+    _check_smem("step", lib.logreg_adam_step_smem_bytes(R, D1 - 1, s_true, M_pad, cluster),
+                xin.device, f"R={R}, M_pad={M_pad}, S={s_true}, d={D1 - 1}, C={cluster}")
     w_out, m1_out, m2_out = (torch.empty_like(w) for _ in range(3))
     with torch.cuda.device(xin.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -144,10 +196,10 @@ def logreg_adam_step(xin, z, mu, linv, w, m1, m2, sc, sclr, s_true: int,
             xin.data_ptr(), z.data_ptr(), mu.data_ptr(), linv.data_ptr(),
             w.data_ptr(), m1.data_ptr(), m2.data_ptr(), sc.data_ptr(),
             sclr.data_ptr(), w_out.data_ptr(), m1_out.data_ptr(),
-            m2_out.data_ptr(), R, D1 - 1, s_true, M_pad, int(use_beta), stream)
+            m2_out.data_ptr(), R, D1 - 1, s_true, M_pad, int(use_beta), cluster, stream)
     if rc != 0:
-        raise RuntimeError(f"logreg_adam_step launch failed: cudaError {rc}")
-    logreg_adam_step.launches += 1
+        raise RuntimeError(f"logreg_adam_step launch of a {cluster}-CTA cluster failed: "
+                           f"cudaError {rc}")
     return w_out, m1_out, m2_out
 
 
@@ -282,10 +334,12 @@ def _shard_lib() -> ctypes.CDLL:
 
     lib = load("logreg_shard_partials")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.logreg_shard_partials.argtypes = [vp] * 10 + [ci] * 6 + [vp]
+    lib.logreg_shard_partials.argtypes = [vp] * 10 + [ci] * 7 + [vp]
     lib.logreg_shard_partials.restype = ci
-    lib.logreg_shard_partials_smem_bytes.argtypes = [ci, ci]
+    lib.logreg_shard_partials_smem_bytes.argtypes = [ci] * 5
     lib.logreg_shard_partials_smem_bytes.restype = ctypes.c_longlong
+    lib.logreg_shard_partials_floor.argtypes = [ci] * 5 + [vp]
+    lib.logreg_shard_partials_floor.restype = ci
     return lib
 
 
@@ -316,12 +370,24 @@ def logreg_shard_step_partials(xin, z, mu, linv, w_row, sc, s_true: int,
                                                 s_true, use_beta)
     if xin.device.type != "cuda":
         raise ValueError(f"no kernel for device {xin.device}")
+    out = launch_shard_partials(xin, z, mu, linv, w_row, sc, s_true, use_beta,
+                                cluster_size(xin.shape[0]))
+    logreg_shard_step_partials.launches += 1
+    return out
+
+
+def launch_shard_partials(xin, z, mu, linv, w_row, sc, s_true: int, use_beta: bool,
+                          cluster: int):
+    """K3's launch as one cluster of ``cluster`` CTAs on CUDA operands,
+    uncounted: ``logreg_shard_step_partials`` with the cluster size given,
+    for measuring each size on the card."""
     _check_shard_operands(xin, z, mu, linv, w_row, sc, s_true)
     R, D1 = xin.shape
     s_pad, M_pad = z.shape[0], w_row.shape[1]
     lib = _shard_lib()
-    _check_smem("shard step", lib.logreg_shard_partials_smem_bytes(D1 - 1, s_true),
-                xin.device, f"S={s_true}, d={D1 - 1}")
+    _check_smem("shard step",
+                lib.logreg_shard_partials_smem_bytes(R, D1 - 1, s_true, M_pad, cluster),
+                xin.device, f"R={R}, M_pad={M_pad}, S={s_true}, d={D1 - 1}, C={cluster}")
     f32 = dict(dtype=torch.float32, device=xin.device)
     colsum, wcore = torch.empty((1, s_pad), **f32), torch.empty((1, s_pad), **f32)
     core, corerow = torch.empty((M_pad, s_pad), **f32), torch.empty((1, M_pad), **f32)
@@ -331,10 +397,10 @@ def logreg_shard_step_partials(xin, z, mu, linv, w_row, sc, s_true: int,
             xin.data_ptr(), z.data_ptr(), mu.data_ptr(), linv.data_ptr(),
             w_row.data_ptr(), sc.data_ptr(), colsum.data_ptr(), core.data_ptr(),
             corerow.data_ptr(), wcore.data_ptr(), R, D1 - 1, s_true, s_pad, M_pad,
-            int(use_beta), stream)
+            int(use_beta), cluster, stream)
     if rc != 0:
-        raise RuntimeError(f"logreg_shard_partials launch failed: cudaError {rc}")
-    logreg_shard_step_partials.launches += 1
+        raise RuntimeError(f"logreg_shard_partials launch of a {cluster}-CTA cluster "
+                           f"failed: cudaError {rc}")
     return colsum, core, corerow, wcore
 
 

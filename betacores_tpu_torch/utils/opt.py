@@ -24,13 +24,13 @@ import torch
 
 
 def step_schedule(i0: float, n_steps: int, dtype: torch.dtype = torch.float32,
-                  device: torch.device | str = "cpu") -> torch.Tensor:
+                  device: torch.device | str = "cuda") -> torch.Tensor:
     """The reference's default learning-rate schedule lr_i = i0 / (1 + i)."""
     return i0 / (1.0 + torch.arange(n_steps, dtype=dtype, device=device))
 
 
 def adam_bias_corrections(n_steps: int, dtype: torch.dtype,
-                          device: torch.device | str = "cpu",
+                          device: torch.device | str = "cuda",
                           b1: float = 0.9, b2: float = 0.999) -> torch.Tensor:
     """(n_steps, 2) [1-b1^t, 1-b2^t] for t = 1..n_steps in ``dtype``.
 

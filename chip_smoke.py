@@ -10,10 +10,14 @@ toolkit. Phases, each of which raises on failure:
      TF32 off for float32 products;
   1. build: compiles the hand-written kernels (betacores_tpu_torch/csrc/),
      one nvcc per source, all started together, for sm_90a;
-  2. K1 (the fused refinement step) against its plain version on the card,
-     at the main path's shapes and at one ragged shape, with and without
-     the beta-likelihood, within atol = rtol = 2e-4; times both with CUDA
-     events;
+  2. K1 (the fused refinement step, one thread-block cluster per launch)
+     against its plain version on the card, at the main path's shapes and
+     at one ragged shape, with and without the beta-likelihood, within
+     atol = rtol = 2e-4, printing the cluster size C the wrapper chose; at
+     the main path's shape times the kernel at every C of 1..16 beside the
+     empty-cluster floor, the interleaved row split against the contiguous
+     one, and the kernel (graph-captured) against its plain version (CUDA
+     events) and its roofline bound (``step_kernel_times``);
   3. K2 (the multiclass projection) against its plain version on the card,
      at the multiclass path's shape (N = 2^20, S = 100, K = 5, d = 10) and
      at a ragged one, with and without the beta-likelihood (beta = 0.3),
@@ -40,8 +44,8 @@ toolkit. Phases, each of which raises on failure:
      mesh's shape and at a ragged unpadded shape, with and without the
      beta-likelihood: each output within 2e-4 of its largest magnitude,
      padding exactly 0, and the gradient assembled from the partials
-     within 3e-4 of the centred gradient's largest magnitude; times both
-     with CUDA events;
+     within 3e-4 of the centred gradient's largest magnitude; times it as
+     phase 2 times K1;
   9. the sharded headline build: the bench.py configuration on a (1, 1)
      mesh, one process in an NCCL process group of one rank (met through
      a FileStore in a temporary directory), for --sharded-selections
@@ -53,8 +57,9 @@ toolkit. Phases, each of which raises on failure:
      card, under one set of draws, in both select modes.
 
 The last two lines of standard output are a JSON object describing the
-kernels, then {"ok": true, "device": {...}}. Without a card the script
-exits nonzero and prints neither.
+kernels (K1 and K3 add ``bound_us`` and ``floor_us``), then
+{"ok": true, "device": {...}}. Without a card the script exits nonzero and
+prints neither.
 """
 
 from __future__ import annotations
@@ -82,6 +87,12 @@ N_SEL, N_OPT, OPT_ITRS, M_BUF = 1000, 200, 500, 128
 MC_ROWS, MC_K, MC_D, MC_BETA, MC_F_RATE = 1 << 20, 5, 10, 0.3, 0.2
 MC_M, MC_N_OPT, MC_OPT_ITRS, MC_N_TEST = 60, 200, 200, 10_000
 KERNELS = ("logreg_adam_step", "multiclass_projection", "logreg_shard_partials")
+# H100 SXM peaks at its 700 W limit: float32 outside the tensor cores, HBM3
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+CLUSTERS = (1, 2, 4, 8, 16)     # K1's and K3's cluster sizes, timed in phases 2 and 8
+# operations per likelihood value (csrc/logreg_common.cuh::Likelihood),
+# each arithmetic or transcendental operation counted once: beta, log
+TRANSFORM_OPS = {True: 17, False: 6}
 
 
 def log(msg: str) -> None:
@@ -167,6 +178,151 @@ def _time_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+def _graph_us(fn, n: int = 200) -> float:
+    """Device time per call of ``fn`` in us: ``n`` calls captured in one
+    CUDA graph, replayed five times, the median replay over ``n``. ``fn``
+    runs once before the capture, so a kernel's shared-memory and cluster
+    attributes are set outside it. The wrapper's host time is not in the
+    reading: at a few us a kernel is shorter than its own Python wrapper."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) * 1e3 / n)
+    return sorted(times)[2]
+
+
+def step_bound(ops, s_true: int, use_beta: bool, adam: bool) -> dict:
+    """The least time the card could take for one K1 (``adam``) or K3
+    launch on these operands: the larger of the bytes it must move (each
+    input read once, each output written once) over 3.35 TB/s and its
+    float32 operations over 67 TFLOP/s. Operations count what these
+    operands need: theta (2 S d^2), and for each live row's values the dot
+    product, the transform, the mask and the sums; K1 adds the centred
+    gradient and the Adam update."""
+    xin, z, w = ops[0], ops[1], ops[4]
+    R, D1 = xin.shape
+    d, M_pad, s_pad = D1 - 1, w.shape[1], z.shape[0]
+    live = xin[:, d] != 0
+    n_live, n_core_live = int(live.sum()), int(live[R - M_pad:].sum())
+    flops = (2 * s_true * d * d + n_live * s_true * (2 * d + TRANSFORM_OPS[use_beta] + 2)
+             + n_core_live * s_true * 4)
+    nbytes = 4 * (R * D1 + s_true * d + d + d * d)
+    if adam:   # w, m1, m2, sc, sclr in; w', m1', m2' out
+        flops += 12 * M_pad
+        nbytes += 4 * (3 * M_pad + 5 + 3 * M_pad)
+    else:      # w, sc in; colsum, core, corerow, wcore out
+        nbytes += 4 * (M_pad + 1 + 2 * s_pad + M_pad * s_pad + M_pad)
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def contiguous_split(xin, slots, n_sub_pad: int, C: int):
+    """Operands on which the kernels' interleaved split
+    (ops/kernels.py::cluster_rows) hands each CTA the rows a contiguous
+    split would: CTA c gets subsample rows [c a, (c+1) a) and buffer slots
+    [c b, (c+1) b), a = ceil(n_sub_pad / C), b = M_pad / C. The subsample
+    is padded to C a rows with masked ones. ``slots`` are (1, M_pad)
+    per-slot operands. Returns (xin', slots', old): new slot p holds old
+    slot old[p]."""
+    M_pad = slots[0].shape[1]
+    if M_pad % C:
+        raise ValueError(f"M_pad={M_pad} is not a multiple of C={C}")
+    a, b = -(-n_sub_pad // C), M_pad // C
+    p = torch.arange(C * a, device=xin.device)
+    old_r = (p % C) * a + p // C
+    keep = old_r < n_sub_pad
+    sub = torch.zeros((C * a, xin.shape[1]), dtype=xin.dtype, device=xin.device)
+    sub[keep] = xin[old_r[keep]]
+    q = torch.arange(M_pad, device=xin.device)
+    old = (q % C) * b + q // C
+    return (torch.cat([sub, xin[n_sub_pad + old]]).contiguous(),
+            [t[:, old].contiguous() for t in slots], old)
+
+
+def step_kernel_times(tag: str, wrapper, plain, launch, floor, ops, s_true: int,
+                      slot_args: tuple, adam: bool) -> dict:
+    """Times K1 or K3 at the main path's shape, beta on:
+    - the kernel at each cluster size in CLUSTERS, graph-captured
+      (``_graph_us``), beside the floor: an empty kernel of the same
+      cluster geometry and shared memory with both cluster barriers;
+    - at the chosen size, the interleaved split against the contiguous one
+      (``contiguous_split``), K1's result checked on the permuted rows;
+    - in turns plain, kernel, kernel, plain: the plain version in a loop
+      of CUDA events (as it runs, paced by the host) and the wrapper
+      graph-captured;
+    - the wrapper in a loop of CUDA events, the reading of earlier PRs,
+      which counts the wrapper's host time.
+    Returns the kernel's entries of the kernels line."""
+    from betacores_tpu_torch.ops import kernels
+
+    xin = ops[0]
+    R, D1 = xin.shape
+    M_pad = ops[4].shape[1]
+    C = kernels.cluster_size(R)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+
+    def floor_at(c):
+        def run():
+            rc = floor(R, D1 - 1, s_true, M_pad, c, stream())
+            if rc != 0:
+                raise RuntimeError(f"{tag} floor launch of a {c}-CTA cluster failed: cudaError {rc}")
+        return run
+
+    floor_us = None
+    for c in CLUSTERS:
+        t = _graph_us(lambda: launch(*ops, s_true, True, c))
+        f = _graph_us(floor_at(c))
+        log(f"{tag} at C={c}{' (chosen)' if c == C else ''}: {t:.2f} us per launch, "
+            f"floor {f:.2f} us (graph-captured)")
+        if c == C:
+            floor_us = f
+    xin_c, slots_c, old = contiguous_split(xin, [ops[i] for i in slot_args], R - M_pad, C)
+    ops_c = list(ops)
+    ops_c[0] = xin_c
+    for i, t in zip(slot_args, slots_c):
+        ops_c[i] = t
+    if adam:
+        got = launch(*ops_c, s_true, True, C)[0]
+        want = plain(*ops, s_true, True)[0][:, old]
+        if not torch.allclose(got, want, atol=TOL, rtol=TOL):
+            raise AssertionError(f"{tag} on contiguously split rows: w' off by "
+                                 f"{float((got - want).abs().max()):.3e}")
+    t_int = [_graph_us(lambda: launch(*ops, s_true, True, C)),
+             _graph_us(lambda: launch(*ops_c, s_true, True, C))]
+    t_int += [_graph_us(lambda: launch(*ops_c, s_true, True, C)),
+              _graph_us(lambda: launch(*ops, s_true, True, C))]
+    log(f"{tag} row split at C={C} (graph-captured): interleaved {t_int[0]:.2f} / "
+        f"{t_int[3]:.2f} us, contiguous {t_int[1]:.2f} / {t_int[2]:.2f} us")
+    call = lambda f: (lambda: f(*ops, s_true, use_beta=True))
+    # turns: plain, kernel, kernel, plain
+    t = [_time_ms(call(plain), 200) * 1e3, _graph_us(call(wrapper)),
+         _graph_us(call(wrapper)), _time_ms(call(plain), 200) * 1e3]
+    loop_us = _time_ms(call(wrapper), 2000) * 1e3
+    bound = step_bound(ops, s_true, True, adam)
+    log(f"{tag} per launch at the main path's shape, C={C}: kernel {t[1]:.2f} / {t[2]:.2f} us "
+        f"(graph-captured), floor {floor_us:.2f} us, bound {bound['bound_ms'] * 1e3:.4f} us "
+        f"by {bound['bound_by']} ({bound['flops']} float32 operations, {bound['bytes']} B); "
+        f"plain {t[0]:.2f} / {t[3]:.2f} us (CUDA events); the wrapper in a CUDA-event "
+        f"loop {loop_us:.2f} us")
+    return {"ms": (t[1] + t[2]) / 2e3, "plain_ms": (t[0] + t[3]) / 2e3,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "library_ms": None,
+            "bound_us": bound["bound_ms"] * 1e3, "floor_us": floor_us}
+
+
 def _compare(got, want, exact, n_live: int, where: str) -> float:
     """Holds the kernel's (w', m1', m2') against the plain twin's. w' within
     atol = rtol = 2e-4. The Adam moments grow with the squared residual,
@@ -204,7 +360,8 @@ def phase_kernel(seed: int) -> dict:
         ops, s_true = step_operands(gen, dev, **shp)
         for use_beta in (True, False):
             where = (f"[{label}: R={ops[0].shape[0]}, d={shp['d']}, S={s_true}, "
-                     f"M_pad={ops[4].shape[1]}, beta={use_beta}]")
+                     f"M_pad={ops[4].shape[1]}, C={kernels.cluster_size(ops[0].shape[0])}, "
+                     f"beta={use_beta}]")
             got = kernels.logreg_adam_step(*ops, s_true, use_beta=use_beta)
             want = kernels.logreg_adam_step_plain(*ops, s_true, use_beta)
             exact = kernels.logreg_adam_step_plain(*(o.double() for o in ops), s_true,
@@ -214,16 +371,10 @@ def phase_kernel(seed: int) -> dict:
             if label == "main":
                 err_main = max(err_main, err)
         if label == "main":
-            step = lambda f: (lambda: f(*ops, s_true, use_beta=True))
-            # turns: plain, kernel, kernel, plain
-            t = [_time_ms(step(kernels.logreg_adam_step_plain), 200),
-                 _time_ms(step(kernels.logreg_adam_step), 2000),
-                 _time_ms(step(kernels.logreg_adam_step), 2000),
-                 _time_ms(step(kernels.logreg_adam_step_plain), 200)]
-            times = {"ms": (t[1] + t[2]) / 2, "plain_ms": (t[0] + t[3]) / 2}
-            log(f"time per step at the main path's shapes (CUDA events): kernel "
-                f"{t[1] * 1e3:.2f} / {t[2] * 1e3:.2f} us, plain twin "
-                f"{t[0] * 1e3:.2f} / {t[3] * 1e3:.2f} us")
+            times = step_kernel_times("K1", kernels.logreg_adam_step,
+                                      kernels.logreg_adam_step_plain, kernels.launch_adam_step,
+                                      kernels._lib().logreg_adam_step_floor, ops, s_true,
+                                      (4, 5, 6), adam=True)
     return {"max_abs_err": err_main, **times}
 
 
@@ -278,7 +429,15 @@ def phase_mc_kernel(seed: int) -> dict:
                  _time_ms(call(kernels.multiclass_projection), 200),
                  _time_ms(call(kernels.multiclass_projection), 200),
                  _time_ms(call(kernels.multiclass_projection_plain), 20)]
-            times = {"ms": (t[1] + t[2]) / 2, "plain_ms": (t[0] + t[3]) / 2}
+            # bound: the logits (2 d per class) and the softmax's max, exp and
+            # sum per class; z and thetas read once, the (N, S) block written once
+            t_ops = MC_ROWS * S * MC_K * (2 * MC_D + 3) / PEAK_FLOPS
+            t_bytes = 4 * (MC_ROWS * (MC_D + 1) + S * MC_K * MC_D + MC_ROWS * S) / PEAK_BYTES
+            times = {"ms": (t[1] + t[2]) / 2, "plain_ms": (t[0] + t[3]) / 2,
+                     "bound_ms": max(t_ops, t_bytes) * 1e3,
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "library_ms": None}
+            log(f"K2 bound {times['bound_ms']:.4f} ms by {times['bound_by']}")
             log(f"K2 time per projection at N={MC_ROWS}, S={S}, K={MC_K}, d={MC_D}, beta "
                 f"(CUDA events): kernel {t[1]:.4f} / {t[2]:.4f} ms, plain "
                 f"{t[0]:.4f} / {t[3]:.4f} ms")
@@ -590,7 +749,8 @@ def phase_shard_kernel(seed: int, dev: str = "cuda") -> dict:
         n_live = shp["n_live"]
         for use_beta in (True, False):
             where = (f"[{label}: R={ops[0].shape[0]}, d={shp['d']}, S_loc={S_loc}, "
-                     f"s_pad={ops[1].shape[0]}, M_pad={ops[4].shape[1]}, beta={use_beta}]")
+                     f"s_pad={ops[1].shape[0]}, M_pad={ops[4].shape[1]}, "
+                     f"C={kernels.cluster_size(ops[0].shape[0])}, beta={use_beta}]")
             got = kernels.logreg_shard_step_partials(*ops, S_loc, use_beta=use_beta)
             want = kernels.logreg_shard_step_partials_plain(*ops, S_loc, use_beta)
             torch.cuda.synchronize()
@@ -609,16 +769,11 @@ def phase_shard_kernel(seed: int, dev: str = "cuda") -> dict:
                 raise AssertionError(f"K3 {where}: padded slots not 0")
             centred_gradient_check(ops, got, S_loc, use_beta, where)
         if label.startswith("(1, 1)"):
-            call = lambda f: (lambda: f(*ops, S_loc, use_beta=True))
-            # turns: plain, kernel, kernel, plain
-            t = [_time_ms(call(kernels.logreg_shard_step_partials_plain), 200),
-                 _time_ms(call(kernels.logreg_shard_step_partials), 2000),
-                 _time_ms(call(kernels.logreg_shard_step_partials), 2000),
-                 _time_ms(call(kernels.logreg_shard_step_partials_plain), 200)]
-            times = {"ms": (t[1] + t[2]) / 2, "plain_ms": (t[0] + t[3]) / 2}
-            log(f"K3 time per launch at the (1, 1) full width (CUDA events): kernel "
-                f"{t[1] * 1e3:.2f} / {t[2] * 1e3:.2f} us, plain "
-                f"{t[0] * 1e3:.2f} / {t[3] * 1e3:.2f} us")
+            times = step_kernel_times("K3", kernels.logreg_shard_step_partials,
+                                      kernels.logreg_shard_step_partials_plain,
+                                      kernels.launch_shard_partials,
+                                      kernels._shard_lib().logreg_shard_partials_floor, ops,
+                                      S_loc, (4,), adam=False)
     return {"max_abs_err": err_main, **times}
 
 
@@ -730,7 +885,7 @@ def phase_sharded_self_check(seed: int, dev: str = "cuda") -> None:
         single = lambda where: make_incremental_builder(
             Z.to(where), logreg.bundle(), logreg_laplace_sampler(), cfg)
         rec = single("cpu").generator_draws(gen)
-        st0 = init_state(M, D, beta=0.2)
+        st0 = init_state(M, D, beta=0.2, device="cpu")
         draws = FixedDraws([rec.select(i, st0) for i in range(itrs)],
                            [rec.optimize(i, st0) for i in range(itrs)])
         out = {}
@@ -779,22 +934,15 @@ def main() -> int:
     phase_mc_self_check(args.seed)
     sharded = phase_sharded_path(args.seed, N_ROWS, args.sharded_selections)
     phase_sharded_self_check(args.seed)
+    entries = [("logreg_adam_step", "logreg_adam_step.cu", "pallas_kernels.py:173", main_path, k1),
+               ("multiclass_projection", "multiclass_projection.cu", "pallas_kernels.py:330",
+                mc_path, k2),
+               ("logreg_shard_step_partials", "logreg_shard_partials.cu", "pallas_kernels.py:249",
+                sharded, k3)]
     print(json.dumps({"kernels": [
-        {"name": "logreg_adam_step", "route": "cuda",
-         "source": "betacores_tpu_torch/csrc/logreg_adam_step.cu",
-         "replaces": "betacores_tpu/ops/pallas_kernels.py:96",
-         "launches": main_path["launches"], "max_abs_err": k1["max_abs_err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
-        {"name": "multiclass_projection", "route": "cuda",
-         "source": "betacores_tpu_torch/csrc/multiclass_projection.cu",
-         "replaces": "betacores_tpu/ops/pallas_kernels.py:273",
-         "launches": mc_path["launches"], "max_abs_err": k2["max_abs_err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
-        {"name": "logreg_shard_step_partials", "route": "cuda",
-         "source": "betacores_tpu_torch/csrc/logreg_shard_partials.cu",
-         "replaces": "betacores_tpu/ops/pallas_kernels.py:185",
-         "launches": sharded["launches"], "max_abs_err": k3["max_abs_err"],
-         "ms": k3["ms"], "plain_ms": k3["plain_ms"]}]}))
+        {"name": name, "route": "cuda", "source": f"betacores_tpu_torch/csrc/{src}",
+         "replaces": f"betacores_tpu/ops/{tpu}", "launches": path["launches"], **k}
+        for name, src, tpu, path, k in entries]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -116,7 +116,7 @@ def test_build_matches_jax_under_replayed_draws(problem, dedup, refit_every):
         key, st0, ITRS)
     builder = make_incremental_builder(torch.from_numpy(problem), logreg.bundle(),
                                        logreg_laplace_sampler(), tcfg)
-    tst = builder.build(state_from_numpy(_np_state(st0)), ITRS,
+    tst = builder.build(state_from_numpy(_np_state(st0), device="cpu"), ITRS,
                         jax_draws(key, st0, ITRS))
     _assert_same_build(state_to_numpy(tst), _np_state(jst))
 
@@ -133,7 +133,7 @@ def test_select_step_alone_matches_jax(problem, dedup):
     st4 = jb.build(key, st3, 1)
     builder = make_incremental_builder(torch.from_numpy(problem), logreg.bundle(),
                                        logreg_laplace_sampler(), tcfg)
-    tst = builder.select(state_from_numpy(_np_state(st3)), jax_draws(key, st3, 1), 0)
+    tst = builder.select(state_from_numpy(_np_state(st3), device="cpu"), jax_draws(key, st3, 1), 0)
     got, want = state_to_numpy(tst), _np_state(st4)
     assert int(got["m"]) == int(want["m"])
     np.testing.assert_array_equal(got["idcs"], want["idcs"])
@@ -148,7 +148,7 @@ def test_generator_draws_build_runs(problem):
     _, tcfg = _cfgs(True, 1)
     builder = make_incremental_builder(torch.from_numpy(problem), logreg.bundle(),
                                        logreg_laplace_sampler(), tcfg)
-    st = state_from_numpy(_np_state(_jax_state()))
+    st = state_from_numpy(_np_state(_jax_state()), device="cpu")
     gen = torch.Generator().manual_seed(0)
     st, (wts, idcs, betas) = builder.build_trace(st, 4, builder.generator_draws(gen))
     assert int(st.m) == 4 and wts.shape == (4, M) and idcs.shape == (4, M)
@@ -168,7 +168,7 @@ def test_full_select_build_matches_jax(problem, dedup):
         key, st0, ITRS)
     builder = make_incremental_builder(torch.from_numpy(problem), logreg.bundle(),
                                        logreg_laplace_sampler(), tcfg)
-    tst = builder.build(state_from_numpy(_np_state(st0)), ITRS,
+    tst = builder.build(state_from_numpy(_np_state(st0), device="cpu"), ITRS,
                         jax_draws(key, st0, ITRS, n_sel=None))
     _assert_same_build(state_to_numpy(tst), _np_state(jst))
 
@@ -187,7 +187,7 @@ def test_composed_route_matches_jax(problem, refit_every):
     builder = make_incremental_builder(torch.from_numpy(problem), plain,
                                        logreg_laplace_sampler(), tcfg)
     assert builder.fstep is None
-    tst = builder.build(state_from_numpy(_np_state(st0)), ITRS,
+    tst = builder.build(state_from_numpy(_np_state(st0), device="cpu"), ITRS,
                         jax_draws(key, st0, ITRS))
     _assert_same_build(state_to_numpy(tst), _np_state(jst))
 

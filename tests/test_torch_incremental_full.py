@@ -59,7 +59,8 @@ def _against_jax(problem, key, weights=None, **change):
         else torch.from_numpy(weights))
     draws = replay_jax_draws(key, st0, ITRS, jsampler(), N, S, T,
                              kw["n_subsample_select"], kw["n_subsample_opt"])
-    got = state_to_numpy(builder.build(state_from_numpy(_np_state(st0)), ITRS, draws))
+    got = state_to_numpy(builder.build(state_from_numpy(_np_state(st0), device="cpu"), ITRS,
+                                            draws))
     return builder, got, _np_state(jst)
 
 
@@ -133,7 +134,7 @@ def _golden_port(Z, samples, M, opt_itrs, beta, dedup=False, u=None):
     d = Z.shape[1]
     zeros = torch.zeros((samples.shape[0], d), dtype=torch.float64)
     draws = FixedDraws([(zeros, None)] * M, [(zeros.expand(opt_itrs, -1, -1), None)] * M)
-    st = init_state(M, d, beta=beta, dtype=torch.float64)
+    st = init_state(M, d, beta=beta, dtype=torch.float64, device="cpu")
     return get(builder.build(st, M, draws))
 
 

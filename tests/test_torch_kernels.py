@@ -80,7 +80,7 @@ def test_adam_sclr_stack_is_bit_identical(T):
     from betacores_tpu.utils.opt import step_schedule as jschedule
     from betacores_tpu_torch.utils.opt import step_schedule
 
-    lr_t = step_schedule(1.0, T)
+    lr_t = step_schedule(1.0, T, device="cpu")
     np.testing.assert_array_equal(lr_t.numpy(), np.asarray(jschedule(1.0, T)))
     got = kernels.adam_sclr_stack(lr_t).numpy()
     want = np.asarray(jk.adam_sclr_stack(jnp.asarray(lr_t.numpy())))

@@ -14,7 +14,12 @@ magnitude (atol = rtol = 2e-4 relative to it), as chip_smoke.py holds them.
 
 ``step_operands`` builds the padded operands of tests/test_pallas_kernels.py
 and is shared with test_torch_kernels.py; ``shard_operands`` those of K3,
-shared with test_torch_shard_kernel.py."""
+shared with test_torch_shard_kernel.py.
+
+K1 and K3 run as one thread-block cluster of C CTAs (C from
+ops/kernels.py::cluster_size); ``CLUSTER_EDGES`` are the shapes at the
+cluster's edges, covering both theta paths (registers for d <= 16 and
+S <= 128, shared memory otherwise)."""
 
 import numpy as np
 import pytest
@@ -62,6 +67,18 @@ def shard_operands(rng, S=32, has_rows=1.0, **shape):
     return (xin, z, mu, linv, w, sc[:1].copy()), S
 
 
+# (d, S, n_sub, M, s_pad, M_pad, n_live), C = cluster_size(n_sub_pad + M_pad)
+CLUSTER_EDGES = {
+    "R_lt_C": dict(d=3, S=32, n_sub=0, M=1, s_pad=32, M_pad=1, n_live=1),        # R 1, C 2
+    "M_pad_1": dict(d=1, S=1, n_sub=24, M=1, s_pad=1, M_pad=1, n_live=1),        # C 2
+    "M_pad_C+1": dict(d=16, S=128, n_sub=24, M=3, s_pad=128, M_pad=3, n_live=2),  # C 2
+    "M_pad_C-1": dict(d=17, S=32, n_sub=200, M=15, s_pad=32, M_pad=15, n_live=9),  # C 16
+    "M_pad_C+1_d32": dict(d=32, S=128, n_sub=200, M=17, s_pad=128, M_pad=17,
+                          n_live=17),                                             # C 16
+    "three_row_batches": dict(d=10, S=100, n_sub=3000, M=128, s_pad=128, M_pad=128,
+                              n_live=100)}                                        # C 16
+
+
 def _torch(ops, device):
     return [torch.from_numpy(a).to(device) for a in ops]
 
@@ -78,7 +95,8 @@ def cuda_device():
 @pytest.mark.parametrize("shape", [
     dict(d=10, S=100, n_sub=200, M=128, s_pad=100, M_pad=128, n_live=60),
     dict(d=6, S=50, n_sub=24, M=5, s_pad=128, M_pad=128, n_live=3),
-    dict(d=3, S=37, n_sub=11, M=9, s_pad=37, M_pad=9, n_live=9)])
+    dict(d=3, S=37, n_sub=11, M=9, s_pad=37, M_pad=9, n_live=9),
+    *CLUSTER_EDGES.values()])
 def test_cuda_kernel_matches_plain_twin(cuda_device, use_beta, shape):
     ops, S = step_operands(np.random.default_rng(42), **shape)
     want = kernels.logreg_adam_step_plain(*_torch(ops, cuda_device), S, use_beta)
@@ -119,11 +137,12 @@ def test_cuda_multiclass_projection_matches_plain(cuda_device, use_beta, shape):
     dict(d=10, S=100, n_sub=200, M=128, n_live=60),
     dict(d=10, S=50, n_sub=100, M=128, n_live=60),
     dict(d=7, S=45, n_sub=37, M=19, s_pad=45, M_pad=19, n_live=11),
-    dict(d=6, S=50, n_sub=100, M=20, n_live=7, has_rows=0.0)])
+    dict(d=6, S=50, n_sub=100, M=20, n_live=7, has_rows=0.0),
+    *CLUSTER_EDGES.values()])
 def test_cuda_shard_partials_match_plain(cuda_device, use_beta, shape):
     """K3 at the shapes of chip_smoke.py's K3 phase: the (1, 1) full width,
-    the (., 2) shape, a ragged one (buffer and sample axes unpadded), and a
-    shard without rows."""
+    the (., 2) shape, a ragged one (buffer and sample axes unpadded), a
+    shard without rows, and the cluster's edges."""
     ops, S = shard_operands(np.random.default_rng(42), **shape)
     t = _torch(ops, cuda_device)
     want = kernels.logreg_shard_step_partials_plain(*t, S, use_beta)
@@ -139,3 +158,53 @@ def test_cuda_shard_partials_match_plain(cuda_device, use_beta, shape):
     n_live = shape["n_live"]
     assert (core[:, S:] == 0).all() and (colsum[:, S:] == 0).all() and (wcore[:, S:] == 0).all()
     assert (core[n_live:] == 0).all() and (corerow[0, n_live:] == 0).all()
+
+
+def _step_launch(kernel, device, shape):
+    """(wrapper call, its kernel's name) for K1 or K3 on ``shape``."""
+    if kernel == "K1":
+        ops, S = step_operands(np.random.default_rng(7), **shape)
+        t = _torch(ops, device)
+        return (lambda: kernels.logreg_adam_step(*t, S, use_beta=True)), kernels.logreg_adam_step
+    ops, S = shard_operands(np.random.default_rng(7), **shape)
+    t = _torch(ops, device)
+    return ((lambda: kernels.logreg_shard_step_partials(*t, S, use_beta=True)),
+            kernels.logreg_shard_step_partials)
+
+
+MAIN = dict(d=10, S=100, n_sub=200, M=128, s_pad=128, M_pad=128, n_live=60)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K3"])
+@pytest.mark.parametrize("shape", [MAIN, CLUSTER_EDGES["M_pad_C-1"],
+                                   CLUSTER_EDGES["three_row_batches"]],
+                         ids=["main", "M_pad_C-1", "three_row_batches"])
+def test_cuda_step_kernels_are_bit_identical_across_launches(cuda_device, kernel, shape):
+    """The cluster sums run in a fixed order with no atomics: the same
+    inputs give the same bits on every launch."""
+    call, _ = _step_launch(kernel, cuda_device, shape)
+    first = [t.clone() for t in call()]
+    for _ in range(3):
+        again = call()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K3"])
+def test_cuda_one_wrapper_call_is_one_launch(cuda_device, kernel):
+    """One wrapper call puts exactly one kernel on the card (the profiler's
+    device events) and adds one to the wrapper's count."""
+    call, wrapper = _step_launch(kernel, cuda_device, MAIN)
+    call()
+    torch.cuda.synchronize()
+    before = wrapper.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    device_kernels = [e.name for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+    name = "logreg_adam_step_kernel" if kernel == "K1" else "logreg_shard_partials_kernel"
+    assert len(device_kernels) == 1 and name in device_kernels[0], device_kernels

@@ -60,7 +60,8 @@ def test_full_select_multiclass_build_matches_jax(problem, dedup, refit_every):
                                        multiclass_laplace_sampler(K), IncrementalConfig(**kw))
     assert builder.fstep is None and builder.n_sel is None
     draws = replay_jax_draws(key, st0, ITRS, jsampler(K), N, S, T, None, N_OPT)
-    st = state_from_numpy({k: np.asarray(v) for k, v in st0._asdict().items()})
+    st = state_from_numpy({k: np.asarray(v) for k, v in st0._asdict().items()},
+                          device="cpu")
     got = state_to_numpy(builder.build(st, ITRS, draws))
     want = {k: np.asarray(v) for k, v in jst._asdict().items()}
     m = int(want["m"])

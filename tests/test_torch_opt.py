@@ -61,7 +61,7 @@ def test_nn_adam_matches_jax(problem, masked):
 def test_nn_adam_matches_oracle(problem, masked):
     """float64 against oracle/opt.py: same update, same order."""
     x0, scale, targets, mask = problem
-    lr = step_schedule(0.3, T, dtype=torch.float64)
+    lr = step_schedule(0.3, T, dtype=torch.float64, device="cpu")
     want = onn_adam(x0, lambda x, i: scale * (x - targets[i]), T, lambda i: 0.3 / (1.0 + i),
                     nn_mask=mask if masked else None)
     got, _ = nn_adam(torch.from_numpy(x0),

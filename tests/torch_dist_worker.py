@@ -90,7 +90,7 @@ def run_job(job, mesh):
     else:
         draws = _draws(job, mesh.ax_d)
     mesh.calls.clear()
-    st0 = state_from_numpy(job["state"])
+    st0 = state_from_numpy(job["state"], device="cpu")
     out = {"route": builder.route}
     if job.get("trace"):
         st, trace = builder.build_trace(st0, job["itrs"], draws)
