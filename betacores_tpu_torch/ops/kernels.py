@@ -13,7 +13,9 @@ wrapper counts its kernel launches in ``<wrapper>.launches``.
   (beta-)log-likelihood projection in one pass (CUDA C++,
   csrc/multiclass_projection.cu); plain version
   ``multiclass_projection_plain``. The projection engine routes row
-  blocks of at least ``FUSED_MIN_ROWS`` to it (``maybe_fused``).
+  blocks of at least ``FUSED_MIN_ROWS`` to it (``maybe_fused``). Its
+  plan (theta in registers or in shared memory, live threads, rows per
+  tile) is mirrored by ``mc_plan``, its walk over a tile by ``mc_work``.
 - ``logreg_shard_step_partials`` (K3): the shard-local, uncentred half of
   one sharded refinement step in one launch of one thread-block cluster
   (CUDA C++, csrc/logreg_shard_partials.cu); plain version
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -216,6 +219,63 @@ logreg_adam_step.launches = 0
 FUSED_MIN_ROWS = 8192
 # the kernel's limits (csrc/multiclass_projection.cu repeats them)
 MC_MAX_CLASSES, MC_MAX_FEATURES = 16, 32
+# its block, theta's register budget, the values a thread computes per tile
+# (csrc/multiclass_projection.cu: kThreads, kRegBudget, kMaxRegD, kTileValues)
+MC_THREADS, MC_REG_BUDGET, MC_MAX_REG_D, MC_TILE_VALUES = 800, 65, 10, 16
+
+
+class McPlan(NamedTuple):
+    """How one K2 launch covers its shapes: D the padded d of theta in
+    registers (0: theta in shared memory), ``live`` threads of a block
+    working, ``rows`` per tile, ``smem`` bytes of dynamic shared memory."""
+    D: int
+    live: int
+    rows: int
+    smem: int
+
+
+def mc_plan(d: int, K: int, S: int, smem_limit: int) -> McPlan:
+    """K2's plan for a block allowed ``smem_limit`` bytes of shared memory
+    (csrc/multiclass_projection.cu::make_plan, the same closed forms)."""
+    D = d + d % 2
+    reg = S <= MC_THREADS and D <= MC_MAX_REG_D and K * (D + 3) <= MC_REG_BUDGET
+    live = (MC_THREADS // S) * S if reg else MC_THREADS
+    per_row = 2 * (_round_up(d + 1, 4) + S + 1)
+    fixed = 4 + (0 if reg else d * K * S)          # beta's constants, theta
+    fit = int((smem_limit // 4 - fixed) / per_row)    # C's division truncates
+    rows = min(MC_TILE_VALUES * live // S, fit)
+    if reg and rows >= live // S:
+        rows -= rows % (live // S)
+    rows = max(rows, 1)
+    return McPlan(D if reg else 0, live, rows, 4 * (fixed + per_row * rows))
+
+
+def mc_work(N: int, S: int, plan: McPlan, grid: int):
+    """The (block, row, sample) triples K2 computes, then those it stores,
+    walked as the kernel's loops walk them (for testing): block b takes
+    tiles b, b + grid, ...; thread t < live computes the tile's pairs from
+    (t // S, t % S) in steps of ``live`` pairs, and every thread stores the
+    centred pairs from the same start in steps of MC_THREADS, both carried
+    as a row and a sample index."""
+    def walk(t, step, nr):
+        r, s = divmod(t, S)
+        dr, ds = divmod(step, S)
+        while r < nr:
+            yield r, s
+            r, s = r + dr, s + ds
+            if s >= S:
+                r, s = r + 1, s - S
+
+    computed, stored = [], []
+    T = plan.rows
+    for b in range(grid):
+        for tile in range(b, -(-N // T), grid):
+            row0, nr = tile * T, min(T, N - tile * T)
+            for t in range(MC_THREADS):
+                if t < plan.live:
+                    computed += [(b, row0 + r, s) for r, s in walk(t, plan.live, nr)]
+                stored += [(b, row0 + r, s) for r, s in walk(t, MC_THREADS, nr)]
+    return computed, stored
 
 
 def maybe_fused(n_rows: int) -> bool:
@@ -237,11 +297,21 @@ def _mc_lib() -> ctypes.CDLL:
 
     lib = load("multiclass_projection")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.multiclass_projection.argtypes = [vp] * 4 + [ctypes.c_longlong] + [ci] * 4 + [vp]
+    ll = ctypes.c_longlong
+    lib.multiclass_projection.argtypes = [vp] * 4 + [ll] + [ci] * 4 + [vp]
     lib.multiclass_projection.restype = ci
-    lib.multiclass_projection_smem_bytes.argtypes = [ci, ci, ci]
-    lib.multiclass_projection_smem_bytes.restype = ctypes.c_longlong
+    lib.multiclass_projection_plan.argtypes = [ci, ci, ci, ll, ctypes.POINTER(ll)]
+    lib.multiclass_projection_plan.restype = None
+    lib.multiclass_projection_floor.argtypes = [vp, ll, ci, ci, ci, vp]
+    lib.multiclass_projection_floor.restype = ci
     return lib
+
+
+def mc_plan_built(d: int, K: int, S: int, smem_limit: int) -> McPlan:
+    """K2's plan as the built kernel computes it (``mc_plan`` mirrors it)."""
+    out = (ctypes.c_longlong * 4)()
+    _mc_lib().multiclass_projection_plan(d, K, S, smem_limit, out)
+    return McPlan(*(int(v) for v in out))
 
 
 def _check_mc_operands(z, thetas, n_classes: int):
@@ -280,7 +350,8 @@ def multiclass_projection(z, thetas, n_classes: int, beta=1.0,
     N, D1 = z.shape
     d, K, S = D1 - 1, n_classes, thetas.shape[0]
     lib = _mc_lib()
-    _check_smem("projection", lib.multiclass_projection_smem_bytes(d, K, S), z.device,
+    limit = torch.cuda.get_device_properties(z.device).shared_memory_per_block_optin
+    _check_smem("projection", mc_plan_built(d, K, S, limit).smem, z.device,
                 f"d={d}, K={K}, S={S}")
     if isinstance(beta, torch.Tensor):
         if beta.numel() != 1 or beta.device != z.device:

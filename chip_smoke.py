@@ -9,7 +9,9 @@ toolkit. Phases, each of which raises on failure:
   0. device: requires CUDA; prints the card's name and power limit; turns
      TF32 off for float32 products;
   1. build: compiles the hand-written kernels (betacores_tpu_torch/csrc/),
-     one nvcc per source, all started together, for sm_90a;
+     one nvcc per source, all started together, for sm_90a, and prints
+     what ptxas reports (registers and spills of each library's kernels,
+     and of K2's kernel at the multiclass path's shape);
   2. K1 (the fused refinement step, one thread-block cluster per launch)
      against its plain version on the card, at the main path's shapes and
      at one ragged shape, with and without the beta-likelihood, within
@@ -19,9 +21,15 @@ toolkit. Phases, each of which raises on failure:
      one, and the kernel (graph-captured) against its plain version (CUDA
      events) and its roofline bound (``step_kernel_times``);
   3. K2 (the multiclass projection) against its plain version on the card,
-     at the multiclass path's shape (N = 2^20, S = 100, K = 5, d = 10) and
-     at a ragged one, with and without the beta-likelihood (beta = 0.3),
-     within atol 2e-5; times both with CUDA events;
+     at the multiclass path's shape (N = 2^20, S = 100, K = 5, d = 10), at
+     a ragged one and at one with theta in shared memory (d = 32, K = 16,
+     S = 111), with and without the beta-likelihood (beta = 0.3), within
+     atol 2e-5, and off the float64 plain version by at most twice the
+     float32 plain version's own error; at the main shape times both in
+     turns with CUDA events beside the bound (``mc_bound``: the
+     beta-likelihood's operations, as timed) and the floor (a write-only
+     kernel of the same grid storing the same block), and the crossover
+     with the plain version at 260 to 65,536 rows;
   4. the logistic-regression main path: the beta-Cores incremental build of
      bench.py (N = 1M contaminated rows, d = 10, S = 100, 1000-row select
      subsample, 500 Adam steps on 200 rows per selection, 128-slot buffer,
@@ -57,7 +65,7 @@ toolkit. Phases, each of which raises on failure:
      card, under one set of draws, in both select modes.
 
 The last two lines of standard output are a JSON object describing the
-kernels (K1 and K3 add ``bound_us`` and ``floor_us``), then
+kernels (K1 and K3 add ``bound_us`` and ``floor_us``, K2 ``floor_ms``), then
 {"ok": true, "device": {...}}. Without a card the script exits nonzero and
 prints neither.
 """
@@ -69,6 +77,7 @@ import contextlib
 import datetime
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -86,6 +95,8 @@ N_SEL, N_OPT, OPT_ITRS, M_BUF = 1000, 200, 500, 128
 # the configuration of examples/multiclass.py, at 2^20 rows with full select
 MC_ROWS, MC_K, MC_D, MC_BETA, MC_F_RATE = 1 << 20, 5, 10, 0.3, 0.2
 MC_M, MC_N_OPT, MC_OPT_ITRS, MC_N_TEST = 60, 200, 200, 10_000
+# K2's instantiation at that shape (K = 5, theta in registers with D = 10)
+MC_MAIN_KERNEL = "multiclass_projection_kernelILi5ELi10E"
 KERNELS = ("logreg_adam_step", "multiclass_projection", "logreg_shard_partials")
 # H100 SXM peaks at its 700 W limit: float32 outside the tensor cores, HBM3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -128,11 +139,41 @@ def phase_build() -> None:
     log(f"build: {', '.join(p.name for p in paths)} in {time.perf_counter() - t0:.2f} s")
     for path in paths:
         report = path.with_suffix(".log")
-        if report.exists():   # one line per distinct report (K2 has one per K)
-            lines = {ln.strip() for ln in report.read_text().splitlines()
-                     if "registers" in ln or "spill" in ln}
-            for line in sorted(lines):
-                log(f"  ptxas {path.name.split('-')[0]}: {line}")
+        if not report.exists():
+            continue
+        lib = path.name.split("-")[0]
+        funcs = ptxas_report(report.read_text())
+        if not funcs:
+            raise RuntimeError(f"no ptxas report in {report}")
+        regs = [f["registers"] for f in funcs.values()]
+        spills = {name: f for name, f in funcs.items() if f["spill_stores"] or f["spill_loads"]}
+        log(f"  ptxas {lib}: {len(funcs)} kernels, {min(regs)}-{max(regs)} registers, "
+            f"{len(spills)} with spills {sorted(spills)}")
+        for name, f in funcs.items():
+            if lib == "libmulticlass_projection" and MC_MAIN_KERNEL in name:
+                log(f"  ptxas {lib}: the main shape's kernel {name}: {f}")
+
+
+def ptxas_report(text: str) -> dict:
+    """{kernel: {registers, spill_stores, spill_loads, stack}} from the
+    output of ``nvcc -Xptxas -v``."""
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            funcs.setdefault(name, {"registers": 0, "spill_stores": 0, "spill_loads": 0,
+                                    "stack": 0})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            funcs[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            funcs[name]["registers"] = int(m.group(1))
+    return funcs
 
 
 def step_operands(gen, dev, n_sub, M_buf, n_live, d, S_true, packed: bool):
@@ -388,21 +429,46 @@ def mc_operands(gen, dev, N, S_true, K, d):
     return torch.cat([x, y], dim=1).contiguous(), th
 
 
+def mc_bound(N: int, S_true: int, K: int, d: int, use_beta: bool) -> dict:
+    """The least time the card could take for one K2 launch: the larger of
+    its bytes (z and thetas read once, the (N, S) block written once) over
+    3.35 TB/s and its float32 operations over 67 TFLOP/s, each operation
+    counted once. Per value: per class the logit (2 d) and the softmax's
+    max, exp and sum (3), with the beta-likelihood also the mass term's
+    subtract, multiply, exp and add (4); then the log and the label pick
+    (2), with beta the exp of beta lp_y and its scale (2), and the
+    centring's add and subtract (2): K (2 d + 7) + 6 with beta."""
+    per_value = K * (2 * d + 3 + (4 if use_beta else 0)) + 4 + (2 if use_beta else 0)
+    flops = N * S_true * per_value
+    nbytes = 4 * (N * (d + 1) + S_true * K * d + N * S_true + 1)
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
 def phase_mc_kernel(seed: int) -> dict:
     """K2 against its plain version on the card: max |kernel - plain| within
-    atol 2e-5 at both shapes, beta off and on. Both are also held against
-    the plain version in float64 (by row chunks, to bound its (N, S, K)
-    intermediates), printed for scale."""
+    atol 2e-5 at the main, a ragged and a shared-theta shape, beta off and
+    on. Both are also held against the plain version in float64 (by row
+    chunks, to bound its (N, S, K) intermediates), printed for scale. At the
+    main shape, beta on, times the kernel and its plain version in turns
+    (CUDA events) beside the bound (``mc_bound``) and the floor: a
+    write-only kernel of the same grid storing the same (N, S) block."""
     from betacores_tpu_torch.ops import kernels
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     beta = torch.full((), MC_BETA, dtype=torch.float32, device=dev)
     shapes = {"main": dict(N=MC_ROWS, S_true=S, K=MC_K, d=MC_D),
-              "ragged": dict(N=700, S_true=50, K=4, d=6)}
+              "ragged": dict(N=700, S_true=50, K=4, d=6),
+              "shared theta": dict(N=20_000, S_true=111, K=16, d=32)}
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     err_main, times = 0.0, {}
     for label, shp in shapes.items():
         z, th = mc_operands(gen, dev, **shp)
+        plan = kernels.mc_plan_built(shp["d"], shp["K"], shp["S_true"], limit)
+        log(f"K2 plan [{label}]: {plan} (D = 0: theta in shared memory)")
         for use_beta in (False, True):
             where = f"[{label}: N={shp['N']}, S={shp['S_true']}, K={shp['K']}, d={shp['d']}, beta={use_beta}]"
             got = kernels.multiclass_projection(z, th, shp["K"], beta, use_beta)
@@ -420,6 +486,9 @@ def phase_mc_kernel(seed: int) -> dict:
                 f"plain {e_p:.3e}")
             if not err <= MC_TOL or not bool(torch.isfinite(got).all()):
                 raise AssertionError(f"K2 vs plain {where}: off by {err:.3e} > {MC_TOL}")
+            if not e_k <= 2 * e_p:
+                raise AssertionError(f"K2 {where}: {e_k:.3e} off the float64 plain version, "
+                                     f"more than twice the float32 plain version's {e_p:.3e}")
             if label == "main":
                 err_main = max(err_main, err)
         if label == "main":
@@ -429,15 +498,24 @@ def phase_mc_kernel(seed: int) -> dict:
                  _time_ms(call(kernels.multiclass_projection), 200),
                  _time_ms(call(kernels.multiclass_projection), 200),
                  _time_ms(call(kernels.multiclass_projection_plain), 20)]
-            # bound: the logits (2 d per class) and the softmax's max, exp and
-            # sum per class; z and thetas read once, the (N, S) block written once
-            t_ops = MC_ROWS * S * MC_K * (2 * MC_D + 3) / PEAK_FLOPS
-            t_bytes = 4 * (MC_ROWS * (MC_D + 1) + S * MC_K * MC_D + MC_ROWS * S) / PEAK_BYTES
+            out = torch.empty((MC_ROWS, S), dtype=torch.float32, device=dev)
+
+            def floor():
+                rc = kernels._mc_lib().multiclass_projection_floor(
+                    out.data_ptr(), MC_ROWS, MC_D, MC_K, S,
+                    torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"K2 floor launch failed: cudaError {rc}")
+
+            floor_ms = _time_ms(floor, 200)
+            del out
+            bound = mc_bound(MC_ROWS, S, MC_K, MC_D, True)
             times = {"ms": (t[1] + t[2]) / 2, "plain_ms": (t[0] + t[3]) / 2,
-                     "bound_ms": max(t_ops, t_bytes) * 1e3,
-                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                     "library_ms": None}
-            log(f"K2 bound {times['bound_ms']:.4f} ms by {times['bound_by']}")
+                     "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+                     "floor_ms": floor_ms, "library_ms": None}
+            log(f"K2 bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+                f"({bound['flops']} float32 operations, {bound['bytes']} B); floor "
+                f"{floor_ms:.4f} ms (CUDA events)")
             log(f"K2 time per projection at N={MC_ROWS}, S={S}, K={MC_K}, d={MC_D}, beta "
                 f"(CUDA events): kernel {t[1]:.4f} / {t[2]:.4f} ms, plain "
                 f"{t[0]:.4f} / {t[3]:.4f} ms")

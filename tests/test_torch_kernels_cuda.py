@@ -19,7 +19,10 @@ shared with test_torch_shard_kernel.py.
 K1 and K3 run as one thread-block cluster of C CTAs (C from
 ops/kernels.py::cluster_size); ``CLUSTER_EDGES`` are the shapes at the
 cluster's edges, covering both theta paths (registers for d <= 16 and
-S <= 128, shared memory otherwise)."""
+S <= 128, shared memory otherwise). ``MC_EDGES`` are K2's: S around the
+warp and the block, K and d on both of its theta paths (registers while
+K (D + 3) <= 65 and D <= 10, D the even-padded d), N around one row tile,
+and the largest S the first K2 took at d = 32, K = 16."""
 
 import numpy as np
 import pytest
@@ -129,6 +132,92 @@ def test_cuda_multiclass_projection_matches_plain(cuda_device, use_beta, shape):
     assert kernels.multiclass_projection.launches == before + 1
     assert got.shape == (N, S) and got.dtype == torch.float32
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-5, rtol=0)
+
+
+def _mc_operands(device, N, S, K, d, seed=42):
+    rng = np.random.default_rng(seed)
+    z = np.c_[rng.normal(size=(N, d)), rng.integers(0, K, N)].astype(np.float32)
+    th = rng.normal(size=(S, K * d)).astype(np.float32)
+    return torch.from_numpy(z).to(device), torch.from_numpy(th).to(device)
+
+
+def _mc_plan(device, d, K, S):
+    limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    return kernels.mc_plan_built(d, K, S, limit)
+
+
+# K2's edges: (N, S, K, d, theta in registers?). N "tile-1" / "tile+1" is
+# one row short of / past the plan's tile.
+MC_EDGES = {
+    **{f"S{S}": (1000, S, 5, 10, True) for S in (1, 31, 32, 33, 100, 128, 257)},
+    "K2": (1000, 50, 2, 4, True), "K5": (1000, 50, 5, 4, True),
+    "K13_d2": (1000, 50, 13, 2, True), "K16_d2_shared": (1000, 50, 16, 2, False),
+    "K16_shared": (1000, 50, 16, 4, False),
+    **{f"d{d}": (1000, 100, 5, d, d <= 10) for d in (1, 4, 10, 17, 32)},
+    "N1": (1, 100, 5, 10, True), "N_tile-1": ("tile-1", 100, 5, 10, True),
+    "N_tile+1": ("tile+1", 100, 5, 10, True),
+    "shared_N_tile+1": ("tile+1", 100, 5, 17, False),
+    "S111_d32_K16": (300, 111, 16, 32, False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_beta", [True, False])
+@pytest.mark.parametrize("case", MC_EDGES.values(), ids=MC_EDGES.keys())
+def test_cuda_multiclass_projection_edges(cuda_device, use_beta, case):
+    """K2 at the edges of its plan, on the theta path named, within atol
+    2e-5 of its plain version (beta = 0.3)."""
+    N, S, K, d, in_registers = case
+    plan = _mc_plan(cuda_device, d, K, S)
+    assert (plan.D > 0) == in_registers
+    if isinstance(N, str):
+        N = plan.rows + (1 if N == "tile+1" else -1)
+    z, th = _mc_operands(cuda_device, N, S, K, d)
+    beta = torch.full((), 0.3, device=cuda_device)
+    want = kernels.multiclass_projection_plain(z, th, K, beta, use_beta)
+    got = kernels.multiclass_projection(z, th, K, beta, use_beta)
+    torch.cuda.synchronize()
+    assert got.shape == (N, S) and bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(10, 5, 100), (17, 5, 100), (32, 16, 111), (1, 2, 5811),
+                                   (4, 16, 1), (24, 2, 800)])
+def test_cuda_multiclass_plan_matches_its_mirror(cuda_device, shape):
+    d, K, S = shape
+    limit = torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
+    assert kernels.mc_plan_built(d, K, S, limit) == kernels.mc_plan(d, K, S, limit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(1 << 16, 100, 5, 10), (3000, 111, 16, 32)],
+                         ids=["registers", "shared"])
+def test_cuda_multiclass_projection_is_bit_identical_across_launches(cuda_device, case):
+    """Row means in a fixed order, no atomics: the same bits every launch."""
+    N, S, K, d = case
+    z, th = _mc_operands(cuda_device, N, S, K, d)
+    first = kernels.multiclass_projection(z, th, K, 0.3, True).clone()
+    for _ in range(3):
+        again = kernels.multiclass_projection(z, th, K, 0.3, True)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+def test_cuda_multiclass_projection_one_call_is_one_launch(cuda_device):
+    z, th = _mc_operands(cuda_device, 1 << 14, 100, 5, 10)
+    beta = torch.full((), 0.3, device=cuda_device)   # made before: a float fills one
+    kernels.multiclass_projection(z, th, 5, beta, True)
+    torch.cuda.synchronize()
+    before = kernels.multiclass_projection.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        kernels.multiclass_projection(z, th, 5, beta, True)
+        torch.cuda.synchronize()
+    assert kernels.multiclass_projection.launches == before + 1
+    device_kernels = [e.name for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert (len(device_kernels) == 1
+            and "multiclass_projection_kernel" in device_kernels[0]), device_kernels
 
 
 @pytest.mark.cuda

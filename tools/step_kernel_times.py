@@ -1,6 +1,8 @@
 """Device time per launch of the step kernels K1 (logreg_adam_step) and K3
-(logreg_shard_step_partials) at the main path's shapes, through their public
-wrappers, for comparing two trees of the port on one card.
+(logreg_shard_step_partials) at the main path's shapes, and of K2
+(multiclass_projection) at the multiclass path's (N = 2^20, S = 100, K = 5,
+d = 10, beta on), through their public wrappers, for comparing two trees
+of the port on one card.
 
     python3 tools/step_kernel_times.py                         # this tree
     PYTHONPATH=<other tree> python3 tools/step_kernel_times.py # another one
@@ -9,9 +11,10 @@ The package comes from PYTHONPATH when it is set, so the same script times
 an older checkout's kernels (unpacked with ``git archive``) beside this
 one's; the operands and the timing come from this tree's chip_smoke.py.
 Run the two in turns (old, new, new, old) in one call on one card. Prints
-one JSON line: the wrapper graph-captured (``chip_smoke._graph_us``) and in
-a loop of CUDA events (``chip_smoke._time_ms``), in us, with the card's
-name and power limit.
+one JSON line: K1 and K3 graph-captured (``chip_smoke._graph_us``) and in a
+loop of CUDA events (``chip_smoke._time_ms``), in us; K2 in a loop of CUDA
+events, in ms (at ~1 ms it is far longer than its wrapper, and its 419 MB
+output far past the 50 MB L2); with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -52,8 +55,11 @@ def main() -> int:
                                  d=cs.N_FEAT, S_true=cs.S, packed=True)
     k3_ops, _ = cs.shard_operands(gen, dev, n_sub=cs.N_OPT, M_buf=cs.M_BUF, n_live=60,
                                   d=cs.N_FEAT, S_loc=cs.S, packed=True)
+    z, th = cs.mc_operands(gen, dev, cs.MC_ROWS, cs.S, cs.MC_K, cs.MC_D)
+    beta = torch.full((), cs.MC_BETA, dtype=torch.float32, device=dev)
     k1 = lambda: kernels.logreg_adam_step(*k1_ops, S, use_beta=True)
     k3 = lambda: kernels.logreg_shard_step_partials(*k3_ops, S, use_beta=True)
+    k2 = lambda: kernels.multiclass_projection(z, th, cs.MC_K, beta, True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip()
@@ -61,7 +67,8 @@ def main() -> int:
                       "card": smi,
                       "k1_graph_us": cs._graph_us(k1), "k3_graph_us": cs._graph_us(k3),
                       "k1_loop_us": cs._time_ms(k1, 2000) * 1e3,
-                      "k3_loop_us": cs._time_ms(k3, 2000) * 1e3}))
+                      "k3_loop_us": cs._time_ms(k3, 2000) * 1e3,
+                      "k2_loop_ms": cs._time_ms(k2, 100)}))
     return 0
 
 
