@@ -10,8 +10,12 @@ refinement and base-data weights; and the sharded build on
 ``torch.distributed`` (``parallel``: one process per mesh rank, the data
 rows over the ``data`` axis and the samples over ``samp``), whose logistic
 refinement step runs its shard-local half as a third kernel
-(csrc/logreg_shard_partials.cu). Modules keep the JAX package's paths and
-names. This package imports torch and never jax.
+(csrc/logreg_shard_partials.cu). On a CUDA device the subsampled
+refinement passes run as replayed CUDA graphs over static per-builder
+buffers (``utils.graphs``; the builders' ``graph`` argument), where the
+reference's build is one jitted program. ``bench_torch.py`` at the root of
+the repository is the headline entry point. Modules keep the JAX package's
+paths and names. This package imports torch and never jax.
 """
 
 from . import coresets, data, inference, models, ops, parallel, utils

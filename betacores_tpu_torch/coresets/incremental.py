@@ -28,9 +28,19 @@ full-candidate select.
 
 Random draws are separated from compute: ``build`` takes a draws provider
 (``GeneratorDraws`` draws from a ``torch.Generator``; ``FixedDraws``
-replays given tensors, e.g. the JAX package's own draws). Python loops take
-the place of ``lax.scan``; no loop body reads a device value on the host,
-so the step loop stays capturable as a CUDA graph.
+replays given tensors, e.g. the JAX package's own draws).
+
+Where the reference's build is one jitted program, a subsampled refinement
+pass here is a device-resident program too: the builder keeps static
+buffers for everything a pass reads or carries (``FusedPass`` of
+ops/kernels.py for the fused route, ``_ComposedPass`` below), each
+selection copies its state and draws into them, and the step body, which
+reads and writes only those buffers and no device value on the host, is
+captured as a CUDA graph and replayed (utils/graphs.py). ``graph`` says
+whether: ``None`` (the default) captures on a CUDA device and runs the same
+body eagerly on the CPU, ``False`` always runs it eagerly, ``True`` off a
+CUDA device raises. A capture that fails raises. Select, the draws and
+full-data refinement (one (N, S) projection per step) stay eager.
 """
 
 from __future__ import annotations
@@ -40,10 +50,10 @@ from typing import Optional, Protocol, Sequence, Tuple
 
 import torch
 
-from ..ops.kernels import (adam_sclr_stack, make_refit_state, make_step_refit,
-                           maybe_fused, pack_fused_step_rows, pad_fused_step_noise)
+from ..ops.kernels import FusedPass, adam_sclr_stack, maybe_fused
 from ..ops.projection import draw_subsample, project_beta, project_ll
-from ..utils.opt import nn_adam, step_schedule
+from ..utils.graphs import PassRunner, capture_stats, resolve_graph, signature
+from ..utils.opt import adam_bias_corrections, adam_update, nn_adam, step_schedule
 from .state import CoresetState
 
 
@@ -141,30 +151,170 @@ class FixedDraws:
         return z.to(dev), None if idx is None else idx.to(dev)
 
 
+def _store(buffers, values) -> None:
+    """Copies a tensor, or a tuple of tensors and Nones, into buffers of
+    the same structure."""
+    if isinstance(values, torch.Tensor):
+        buffers.copy_(values)
+        return
+    for b, v in zip(buffers, values):
+        if v is not None:
+            b.copy_(v)
+
+
+def _buffers_like(values):
+    if isinstance(values, torch.Tensor):
+        return torch.empty_like(values)
+    return type(values)(*(None if v is None else torch.empty_like(v) for v in values))
+
+
+class _ComposedPass:
+    """The static buffers and the step body of a composed-route refinement
+    pass: the pass's pre-drawn noise, rows and row weights, a copy of the
+    state the projections read, the Adam carry ``x``, ``m1``, ``m2``, the
+    sampler's carry (the warm start, or with lagged refits the whole fit)
+    and the step counter ``i`` on the device. The body is
+    utils/opt.py::nn_adam's step on those buffers."""
+
+    def __init__(self, builder: "IncrementalBuilder", st: CoresetState, z_all, runner):
+        cfg, smp = builder.config, builder.sampler
+        dt, dev = builder.data.dtype, builder.data.device
+        T, n_opt = z_all.shape[0], builder.n_opt
+        M_buf, D = st.pts.shape
+        self.builder, self.runner, self.n_steps = builder, runner, T
+        self.lagged = cfg.refit_every > 1
+        self.joint = builder._joint_rows_identical(n_opt + M_buf)
+        self.rows_all = torch.empty((T, n_opt + (M_buf if self.joint else 0), D),
+                                    dtype=dt, device=dev)
+        self.z_all = torch.empty_like(z_all)
+        self.u_all = (None if builder.u is None
+                      else torch.empty((T, n_opt), dtype=dt, device=dev))
+        self.st = CoresetState(*(torch.empty_like(t) for t in st))
+        self.x, self.m1, self.m2 = (torch.zeros_like(st.wts) for _ in range(3))
+        # per-step [lr, 1-b1^t, 1-b2^t] in the weights' dtype, as nn_adam forms them
+        self.sclr = torch.cat([builder.step_sizes.to(st.wts.dtype)[:, None],
+                               adam_bias_corrections(T, st.wts.dtype, dev)], dim=1)
+        self.i = torch.zeros(1, dtype=torch.int64, device=dev)
+        if self.lagged:
+            # one fit, to learn the carry's structure
+            self.carry = _buffers_like(smp.fit(st.wts, st.pts, st.sampler_aux))
+        else:
+            fit_dtype = torch.promote_types(torch.promote_types(st.wts.dtype, st.pts.dtype),
+                                            st.sampler_aux.dtype)
+            self.carry = torch.empty_like(st.sampler_aux, dtype=fit_dtype)
+        self.like = signature((*st, z_all))
+
+    def serves(self, st, z_all) -> bool:
+        """Whether these buffers fit this state, these draws and the
+        builder's data weights (``build_with_data`` may bring or drop them)."""
+        return (self.like == signature((*st, z_all))
+                and (self.u_all is None) == (self.builder.u is None))
+
+    def fill(self, st: CoresetState, z_all, idx_all) -> None:
+        b, n_opt = self.builder, self.builder.n_opt
+        _store(self.st, st)
+        self.z_all.copy_(z_all)
+        self.rows_all[:, :n_opt] = b.data[idx_all]
+        if self.joint:
+            # the buffer is constant over the pass: appended to every
+            # step's rows once, outside the loop
+            self.rows_all[:, n_opt:] = st.pts
+        if self.u_all is not None:
+            self.u_all.copy_(b.u[idx_all])
+        self.x.copy_(st.wts)
+        self.m1.zero_()
+        self.m2.zero_()
+        self.i.zero_()
+        if not self.lagged:
+            self.carry.copy_(st.sampler_aux)
+
+    def _first_fit(self) -> None:
+        sst = self.st
+        _store(self.carry, self.builder.sampler.fit(sst.wts, sst.pts, sst.sampler_aux))
+
+    def _step(self, refit: bool) -> None:
+        b, sst, smp = self.builder, self.st, self.builder.sampler
+        z = self.z_all.index_select(0, self.i)[0]
+        rows = self.rows_all.index_select(0, self.i)[0]
+        usub = None if self.u_all is None else self.u_all.index_select(0, self.i)[0]
+        w = self.x
+        if self.lagged:
+            if refit:
+                _store(self.carry, smp.fit(w, sst.pts, smp.fit_aux(self.carry)))
+            samples = smp.from_fit(self.carry, z)
+        else:
+            samples, aux = smp.from_noise(z, w, sst.pts, self.carry)
+            self.carry.copy_(aux)
+        vecs, corevecs = b._tangent(rows, sst, samples, self.joint)
+        scaling = b.data.shape[0] / b.n_opt
+        resid = scaling * _target_sum(vecs, usub) - w @ corevecs
+        g = -(corevecs @ resid) / b.config.projection_dim
+        sclr = self.sclr.index_select(0, self.i)[0]
+        x, m1, m2 = adam_update(self.x, self.m1, self.m2, g, sclr[0], sclr[1], sclr[2])
+        self.x.copy_(x)
+        self.m1.copy_(m1)
+        self.m2.copy_(m2)
+        self.i.add_(1)
+
+    def run(self) -> None:
+        k = self.builder.config.refit_every
+        if self.lagged:
+            self.runner.run("first fit", self._first_fit)
+        self.runner.run_pass(self.n_steps, self._step,
+                             lambda i: not self.lagged or (i % k == 0 and i > 0))
+
+    def result(self, st: CoresetState) -> CoresetState:
+        aux = self.builder.sampler.fit_aux(self.carry) if self.lagged else self.carry
+        return st._replace(wts=self.x.clone(), sampler_aux=aux.clone())
+
+
 class IncrementalBuilder:
     """``build(state, itrs, draws)`` runs itrs x (select + optimize);
     ``build_trace`` also returns each iteration's (wts, idcs, beta);
-    ``select`` / ``optimize`` run one half-iteration."""
+    ``select`` / ``optimize`` run one half-iteration;
+    ``build_with_data`` runs ``build`` over other data of the same shape;
+    ``error(state, draws)`` is the tangent-space residual norm
+    (``make_tangent_error``). ``graph``: see the module docstring and
+    utils/graphs.py."""
 
     def __init__(self, data, model, sampler, config: IncrementalConfig,
-                 step_sizes: torch.Tensor, data_weights: Optional[torch.Tensor] = None):
+                 step_sizes: torch.Tensor, data_weights: Optional[torch.Tensor] = None,
+                 graph: Optional[bool] = None):
         self.data = data
         self.model = model
         self.sampler = sampler
         self.config = config
         self.step_sizes = step_sizes
         self.u = data_weights
+        self.graph = resolve_graph(graph, data.device)
         N = data.shape[0]
         self.n_sel = (None if config.n_subsample_select is None
                       else min(N, config.n_subsample_select))
         self.n_opt = (None if config.n_subsample_opt is None
                       else min(N, config.n_subsample_opt))
-        # the fused step serves a subsampled, unweighted refinement
-        self.fstep = (None if self.n_opt is None or data_weights is not None
-                      else getattr(model, "fused_beta_grad_step" if config.use_beta
-                                   else "fused_ll_grad_step", None))
+        self._model_fstep = getattr(model, "fused_beta_grad_step" if config.use_beta
+                                    else "fused_ll_grad_step", None)
         # (T, 3) per-step Adam scalars of the fused step, fixed per build
-        self.sclr_all = None if self.fstep is None else adam_sclr_stack(step_sizes)
+        self.sclr_all = (None if self._model_fstep is None or self.n_opt is None
+                         else adam_sclr_stack(step_sizes))
+        # the passes' static buffers and graphs, made at the first pass
+        self._fused: Optional[FusedPass] = None
+        self._composed: Optional[_ComposedPass] = None
+        self._bias_corrections: dict = {}
+        self.error = make_tangent_error(data, model, sampler, config, data_weights)
+
+    @property
+    def fstep(self):
+        """The model's fused step when it serves the build (a subsampled,
+        unweighted refinement), else None."""
+        return None if self.n_opt is None or self.u is not None else self._model_fstep
+
+    def _runner(self) -> PassRunner:
+        return PassRunner(self.graph)
+
+    def capture_stats(self) -> tuple:
+        """(CUDA graphs captured so far, host seconds spent capturing)."""
+        return capture_stats((self._fused, self._composed))
 
     def generator_draws(self, generator: torch.Generator) -> GeneratorDraws:
         """The default draws provider for this build."""
@@ -279,90 +429,52 @@ class IncrementalBuilder:
             resid = _target_sum(vecs, self.u) - w @ corevecs
             return -(corevecs @ resid) / S, aux
 
-        w_new, aux = nn_adam(st.wts, grad_fn, st.sampler_aux, self.step_sizes, xs=(z_all,))
+        key = (st.wts.dtype, st.wts.device)
+        if key not in self._bias_corrections:       # formed on the host: once per builder
+            self._bias_corrections[key] = adam_bias_corrections(self.step_sizes.shape[0], *key)
+        w_new, aux = nn_adam(st.wts, grad_fn, st.sampler_aux, self.step_sizes, xs=(z_all,),
+                             bias_corrections=self._bias_corrections[key])
         return st._replace(wts=w_new, sampler_aux=aux)
 
     def _optimize_composed(self, st: CoresetState, draws: Draws, it: int) -> CoresetState:
         """The composed route (reference incremental.py:430-496): per step
         the sampler turns the step's noise into samples (refitting the
         posterior, or every k-th step with ``refit_every``), the subsample
-        and the buffer are projected, and nn_adam takes the gradient
-        -(corevecs @ resid) / S."""
-        cfg, data, smp = self.config, self.data, self.sampler
-        S, n_opt = cfg.projection_dim, self.n_opt
+        and the buffer are projected, and the projected-Adam update takes
+        the gradient -(corevecs @ resid) / S (``_ComposedPass``)."""
         z_all, idx_all = draws.optimize(it, st)
-        T, M_buf = self.step_sizes.shape[0], st.pts.shape[0]
-        rows_all = data[idx_all]                                 # (T, n_opt, D)
-        u_all = None if self.u is None else self.u[idx_all]      # (T, n_opt)
-        scaling = data.shape[0] / n_opt
-        joint = self._joint_rows_identical(n_opt + M_buf)
-        if joint:
-            # the buffer is constant over the pass: append it to every
-            # step's rows once, outside the loop
-            rows_all = torch.cat([rows_all, st.pts.expand(T, *st.pts.shape)], dim=1)
-        lagged = cfg.refit_every > 1
-        if lagged:
-            k_refit = cfg.refit_every
-
-            def samples_at(w, lap, z, i):
-                if i % k_refit == 0 and i > 0:
-                    lap = smp.fit(w, st.pts, smp.fit_aux(lap))
-                return smp.from_fit(lap, z), lap
-
-            carry0 = smp.fit(st.wts, st.pts, st.sampler_aux)
-        else:
-            def samples_at(w, aux, z, i):
-                return smp.from_noise(z, w, st.pts, aux)
-
-            carry0 = st.sampler_aux
-
-        def grad_fn(w, carry, i, xs_i):
-            z, rows = xs_i[:2]
-            samples, carry = samples_at(w, carry, z, i)
-            vecs, corevecs = self._tangent(rows, st, samples, joint)
-            usub = xs_i[2] if len(xs_i) > 2 else None
-            resid = scaling * _target_sum(vecs, usub) - w @ corevecs
-            return -(corevecs @ resid) / S, carry
-
-        xs = (z_all, rows_all) if u_all is None else (z_all, rows_all, u_all)
-        w_new, carry = nn_adam(st.wts, grad_fn, carry0, self.step_sizes, xs=xs)
-        aux = smp.fit_aux(carry) if lagged else carry
-        return st._replace(wts=w_new, sampler_aux=aux)
+        p = self._composed
+        if p is None or not p.serves(st, z_all):
+            p = self._composed = _ComposedPass(self, st, z_all, self._runner())
+        p.fill(st, z_all, idx_all)
+        p.run()
+        return p.result(st)
 
     def _optimize_fused(self, st: CoresetState, draws: Draws, it: int) -> CoresetState:
         """The fused-step route: the pass's noise and subsample rows are
-        drawn and packed once, then each step is one Newton refit plus one
-        fused step."""
-        cfg, data = self.config, self.data
-        S, n_opt = cfg.projection_dim, self.n_opt
-        f32 = torch.float32
+        packed into the static buffers once, then each step is one Newton
+        refit (every k-th step with ``refit_every``) plus one fused step."""
+        data, S, n_opt = self.data, self.config.projection_dim, self.n_opt
         z_all, idx_all = draws.optimize(it, st)
-        T = self.step_sizes.shape[0]
-        M_buf = st.pts.shape[0]
-        xin_all, M_pad, _ = pack_fused_step_rows(data[idx_all], st.pts,
-                                                 st.slot_mask, n_opt)
-        z_pad = pad_fused_step_noise(z_all, S)
-        # full(), not tensor(): a host-to-device copy would synchronise
-        scaling = torch.full((), data.shape[0] / n_opt, dtype=data.dtype,
-                             device=data.device)
-        sc = torch.stack([st.beta.to(f32), scaling.to(f32)])
-        lagged = cfg.refit_every > 1
-        fit_aux = self.sampler.fit_aux
-        refit_state = make_refit_state(self.sampler, st.pts)
-        step_refit = make_step_refit(refit_state, lagged, cfg.refit_every,
-                                     fit_aux, M_buf, data.dtype)
-        w = torch.zeros((1, M_pad), dtype=f32, device=data.device)
-        w[0, :M_buf] = st.wts.to(f32)
-        m1 = torch.zeros_like(w)
-        m2 = torch.zeros_like(w)
-        lap_c = refit_state(st.wts, st.sampler_aux) if lagged else st.sampler_aux
-        for i in range(T):
-            lap, linv = step_refit(w, i, lap_c)
-            w, m1, m2 = self.fstep(xin_all[i], z_pad[i], lap.mu.to(f32)[None, :],
-                                   linv, w, m1, m2, sc, self.sclr_all[i], S)
-            lap_c = (lap, linv) if lagged else fit_aux(lap)
-        aux = fit_aux(lap_c[0]) if lagged else lap_c
-        return st._replace(wts=w[0, :M_buf].to(st.wts.dtype), sampler_aux=aux)
+        p = self._fused
+        if p is None or not p.serves(st, z_all):
+            # full(), not tensor(): a host-to-device copy would synchronise
+            scaling = torch.full((1,), data.shape[0] / n_opt, dtype=torch.float32,
+                                 device=data.device)
+            p = self._fused = FusedPass(self.sampler, st, z_all, n_opt, S, self.sclr_all,
+                                        scaling, self.config.refit_every, data.dtype,
+                                        self._runner())
+        p.fill(data[idx_all], st, z_all)
+        fstep = self.fstep
+
+        def step(refit: bool) -> None:
+            if refit:
+                p.refit()
+            xin, z, sclr = p.step_operands()
+            p.advance(*fstep(xin, z, p.mu, p.linv, p.w, p.m1, p.m2, p.sc, sclr, S))
+
+        p.run(step)
+        return p.result(st)
 
     def build(self, st: CoresetState, itrs: int, draws: Draws) -> CoresetState:
         for it in range(itrs):
@@ -377,6 +489,73 @@ class IncrementalBuilder:
             trace.append((st.wts, st.idcs, st.beta))
         return st, tuple(torch.stack(x) for x in zip(*trace))
 
+    def build_with_data(self, data, data_weights, st: CoresetState, itrs: int,
+                        draws: Draws) -> CoresetState:
+        """``build`` over caller-supplied ``data`` (and ``data_weights``, or
+        None) of the make-time shape: the same buffers and captured
+        programs serve every same-shape dataset (the reference runs its
+        one compiled program per chunk this way). N and D are baked into
+        the subsample ranges, the scaling and the buffers, so another
+        shape raises."""
+        N = self.data.shape[0]
+        if tuple(data.shape) != tuple(self.data.shape):
+            raise ValueError(f"build_with_data: data shape {tuple(data.shape)} != the "
+                             f"builder's {tuple(self.data.shape)} (N and D are baked into "
+                             f"the subsample ranges and scaling)")
+        if data_weights is not None and tuple(data_weights.shape) != (N,):
+            raise ValueError(f"build_with_data: weights must be ({N},), got "
+                             f"{tuple(data_weights.shape)}")
+        mine = (self.data, self.u)
+        self.data = data.to(dtype=mine[0].dtype, device=mine[0].device)
+        self.u = (None if data_weights is None
+                  else data_weights.to(dtype=mine[0].dtype, device=mine[0].device))
+        try:
+            return self.build(st, itrs, draws)
+        finally:
+            self.data, self.u = mine
+
+
+def make_tangent_error(data: torch.Tensor, model, sampler, config: IncrementalConfig,
+                       data_weights: Optional[torch.Tensor] = None):
+    """``error(st, draws)``: the tangent-space residual norm
+    ||scaling * sum_n u_n v_n - w . corevecs|| / S under one posterior draw
+    (u_n = 1 without ``data_weights``), over the refinement's subsample or,
+    with ``n_subsample_opt=None``, over every row (reference
+    incremental.py:606-654). ``draws`` is a ``torch.Generator`` on the
+    data's device, from which the S noise rows and then the subsample are
+    drawn, or a pair (z (S, d), idx (n_opt,) or None) to replay. The same
+    draws on two states compare them under the same samples and rows."""
+    N, S = data.shape[0], config.projection_dim
+    n_opt = None if config.n_subsample_opt is None else min(N, config.n_subsample_opt)
+    u = None if data_weights is None else data_weights.to(dtype=data.dtype, device=data.device)
+
+    def error(st: CoresetState, draws) -> torch.Tensor:
+        if isinstance(draws, torch.Generator):
+            z = sampler.draw_noise(draws, S, st.wts, st.pts, st.sampler_aux)
+            idx = None if n_opt is None else draw_subsample(draws, N, n_opt)[0]
+        else:
+            z, idx = draws
+            z = z.to(data.device)
+            idx = None if idx is None else idx.to(data.device)
+        if (idx is None) != (n_opt is None):
+            raise ValueError("error: the draws carry a subsample exactly when the "
+                             "refinement is subsampled")
+        samples, _ = sampler.from_noise(z, st.wts, st.pts, st.sampler_aux)
+        if config.use_beta:
+            proj = lambda pts: project_beta(model, pts, samples, st.beta)
+        else:
+            proj = lambda pts: project_ll(model, pts, samples)
+        if idx is None:
+            scaling, tsum = 1.0, _target_sum(proj(data), u)
+        else:
+            scaling = N / n_opt
+            tsum = _target_sum(proj(data[idx]), None if u is None else u[idx])
+        corevecs = proj(st.pts) * st.slot_mask[:, None].to(data.dtype)
+        resid = scaling * tsum - st.wts @ corevecs
+        return torch.sqrt(torch.sum(resid * resid)) / S
+
+    return error
+
 
 def make_incremental_builder(
     data: torch.Tensor,
@@ -385,10 +564,13 @@ def make_incremental_builder(
     config: IncrementalConfig,
     step_sizes: Optional[torch.Tensor] = None,
     data_weights: Optional[torch.Tensor] = None,
+    graph: Optional[bool] = None,
 ) -> IncrementalBuilder:
     """The builder over ``data`` (N, D): select over every row or a
     subsample, refinement on a subsample or every row, a Laplace-family
-    sampler, optional (N,) base-data weights ``data_weights``. A subsampled,
+    sampler, optional (N,) base-data weights ``data_weights``. ``graph``:
+    whether the subsampled refinement passes run as replayed CUDA graphs
+    (None: on a CUDA device; True elsewhere raises). A subsampled,
     unweighted refinement takes the model's fused step when it has one
     (with the sampler's ``fit`` and ``fit_aux``; ``fit_inv`` when present),
     else the composed route (with ``fit``, ``from_fit`` and ``fit_aux`` for
@@ -418,4 +600,5 @@ def make_incremental_builder(
         step_sizes = step_schedule(config.i0, config.opt_itrs, dtype=data.dtype,
                                    device=data.device)
     step_sizes = torch.as_tensor(step_sizes, dtype=data.dtype, device=data.device)
-    return IncrementalBuilder(data, model, sampler, config, step_sizes, data_weights)
+    return IncrementalBuilder(data, model, sampler, config, step_sizes, data_weights,
+                              graph)

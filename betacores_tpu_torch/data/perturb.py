@@ -20,7 +20,10 @@ def perturb_logreg(generator: torch.Generator, X: torch.Tensor, y: torch.Tensor,
     columns with N(noise_x) noise on ``int(N f_rate)`` rows drawn with
     replacement, and flip the labels of as many rows drawn independently.
     Returns (X, y, Z = y * X, outlier_idcs) with the sorted distinct
-    corrupted rows. X and y are not modified in place."""
+    corrupted rows. X and y are not modified in place. A row drawn more
+    than once keeps the noise of its last draw, on every device: the result
+    follows from the generator's seed alone (an indexed write over repeated
+    indices would leave the winner to the card's scheduling)."""
     if structured:
         raise NotImplementedError("structured corruption is not ported yet")
     N, D = X.shape
@@ -33,8 +36,12 @@ def perturb_logreg(generator: torch.Generator, X: torch.Tensor, y: torch.Tensor,
     cols = torch.randperm(D, generator=generator, device=dev)[:D // 2]
     noise = noise_x[0] + noise_x[1] * torch.randn((o, D // 2), generator=generator,
                                                   dtype=X.dtype, device=dev)
+    # last[n]: the last draw that hit row n, or -1
+    draw = torch.arange(o, device=dev)
+    last = torch.full((N,), -1, dtype=torch.int64, device=dev)
+    last.scatter_reduce_(0, idxx, draw, "amax")
     X = X.clone()
-    X[idxx[:, None], cols[None, :]] = noise
+    X[:, cols] = torch.where((last >= 0)[:, None], noise[last.clamp_min(0)], X[:, cols])
     y = y.clone()
     y[idxy] = -y[idxy]
     out_idx = torch.unique(torch.cat([idxx, idxy]))

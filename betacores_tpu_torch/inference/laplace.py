@@ -17,6 +17,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..models.base import identity
+
 # Backtracking grid: candidate step sizes tried per Newton iteration.
 _TS = (1.0, 0.5, 0.25, 0.125, 0.0625, 0.03125, 0.015625, 0.0078125)
 
@@ -55,8 +57,8 @@ def newton_laplace(
         # cholesky_ex: no host check of the info flag (cholesky syncs)
         L, _ = torch.linalg.cholesky_ex(-H)
         if with_inverse:
-            eye = torch.eye(d, dtype=L.dtype, device=L.device)
-            linv = torch.linalg.solve_triangular(L, eye, upper=False)
+            linv = torch.linalg.solve_triangular(L, identity(d, L.dtype, L.device),
+                                                 upper=False)
             pg = linv @ g
             p = linv.T @ pg
             lam2 = pg @ pg

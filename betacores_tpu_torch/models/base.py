@@ -13,7 +13,19 @@ convention (beta+1)/beta * p^beta - integral p^(beta+1).
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional
+
+import torch
+
+
+@functools.cache
+def identity(d: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The (d, d) identity, made once per size, dtype and device: the
+    Newton refit needs it in every iteration (the prior's Hessian, the
+    right-hand side of L^-1), and a fresh one each time is one more launch
+    per use. Read-only: callers never write to it."""
+    return torch.eye(d, dtype=dtype, device=device)
 
 
 class ModelFns(NamedTuple):

@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from .base import ModelFns
+from .base import ModelFns, identity
 
 _LOG2PI = math.log(2.0 * math.pi)
 
@@ -67,7 +67,7 @@ def hess_th_log_joint(z, th, wts):
     s = torch.sigmoid(m)
     c = wts * s * (1.0 - s)
     d = th.shape[-1]
-    return -torch.eye(d, dtype=th.dtype, device=th.device) - (c[:, None] * z).T @ z
+    return -identity(d, th.dtype, th.device) - (c[:, None] * z).T @ z
 
 
 def bundle() -> ModelFns:

@@ -21,7 +21,7 @@ import math
 
 import torch
 
-from .base import ModelFns
+from .base import ModelFns, identity
 
 _LOG2PI = math.log(2.0 * math.pi)
 
@@ -115,8 +115,7 @@ def make_hess_th_log_joint(n_classes: int):
         p = torch.softmax(_logits(x, th, K), dim=-1)                # (N, K)
         Wp = wts[:, None, None] * (torch.diag_embed(p) - p[:, :, None] * p[:, None, :])
         H = torch.einsum("nkl,nd,ne->kdle", Wp, x, x)               # (K, d, K, d)
-        return (-torch.eye(K * d, dtype=th.dtype, device=th.device)
-                - H.reshape(K * d, K * d))
+        return -identity(K * d, th.dtype, th.device) - H.reshape(K * d, K * d)
 
     return hess_th_log_joint
 
@@ -154,11 +153,19 @@ def bundle(n_classes: int, fused: bool | None = None) -> ModelFns:
     if fused is None or fused:
         from ..ops.kernels import multiclass_projection
 
+        # the kernel computes in float32: cast in, and back to the rows'
+        # dtype out, as the reference's fused projection does
+        f32 = torch.float32
+
         def fused_ll(pts, th):
-            return multiclass_projection(pts, th, n_classes, 1.0, use_beta=False)
+            return multiclass_projection(pts.to(f32), th.to(f32), n_classes, 1.0,
+                                         use_beta=False).to(pts.dtype)
 
         def fused_beta(pts, th, beta):
-            return multiclass_projection(pts, th, n_classes, beta, use_beta=True)
+            if isinstance(beta, torch.Tensor):
+                beta = beta.to(f32)
+            return multiclass_projection(pts.to(f32), th.to(f32), n_classes, beta,
+                                         use_beta=True).to(pts.dtype)
 
     return ModelFns(log_likelihood=make_log_likelihood(n_classes),
                     beta_likelihood=make_beta_likelihood(n_classes),

@@ -4,7 +4,8 @@ betacores_tpu/ops/pallas_kernels.py).
 Each wrapper launches its kernel on a CUDA tensor or raises; on a CPU
 tensor it runs the kernel's plain PyTorch version, which the CPU tests and
 the on-card comparison use. There is no fallback between the two. Each
-wrapper counts its kernel launches in ``<wrapper>.launches``.
+wrapper counts its kernel launches in ``<wrapper>.launches``; a launch
+captured in a CUDA graph is counted at every replay (utils/graphs.py).
 
 - ``logreg_adam_step`` (K1): one whole projected-Adam refinement step of
   the incremental build in one launch of one thread-block cluster (CUDA
@@ -37,6 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from ..models import logreg, multiclass
+from ..models.base import identity
+from ..utils.graphs import counted, signature
 from ..utils.opt import adam_bias_corrections
 from .projection import center
 
@@ -206,7 +209,7 @@ def launch_adam_step(xin, z, mu, linv, w, m1, m2, sc, sclr, s_true: int,
     return w_out, m1_out, m2_out
 
 
-logreg_adam_step.launches = 0
+counted(logreg_adam_step)
 
 
 # ---------------------------------------------------------------------------
@@ -373,7 +376,7 @@ def multiclass_projection(z, thetas, n_classes: int, beta=1.0,
     return out
 
 
-multiclass_projection.launches = 0
+counted(multiclass_projection)
 
 
 # ---------------------------------------------------------------------------
@@ -475,7 +478,7 @@ def launch_shard_partials(xin, z, mu, linv, w_row, sc, s_true: int, use_beta: bo
     return colsum, core, corerow, wcore
 
 
-logreg_shard_step_partials.launches = 0
+counted(logreg_shard_step_partials)
 
 
 # ---------------------------------------------------------------------------
@@ -485,19 +488,26 @@ logreg_shard_step_partials.launches = 0
 # the reference's exactly; the kernel skips the padding.
 # ---------------------------------------------------------------------------
 
-def pack_fused_step_rows(rows_all, core_pts, slot_mask, n_sub: int, sub_mask=None):
+def pack_fused_step_rows(rows_all, core_pts, slot_mask, n_sub: int, sub_mask=None,
+                         out=None):
     """The (T, R, D+1) xin block: [subsample rows; zero pad to 8; coreset
     buffer; zero pad to 128] with the row mask as the last column
     (``sub_mask`` for subsample rows, slot_mask for buffer rows, 0 for
     padding). ``sub_mask`` is 1 by default; the sharded build passes a 0-d
-    tensor that is 0 when its shard has no valid rows.
+    tensor that is 0 when its shard has no valid rows. ``out`` is a block
+    this function made for the same shapes (its padding is still 0): the
+    rows are written into it in place of a new one.
 
     Returns (xin_all, M_pad, R)."""
     T, _, D = rows_all.shape
     M_buf = core_pts.shape[0]
     n_sub_pad, M_pad = _round_up(n_sub, 8), _round_up(M_buf, 128)
     R = n_sub_pad + M_pad
-    xin = torch.zeros((T, R, D + 1), dtype=torch.float32, device=rows_all.device)
+    xin = out
+    if xin is None:
+        xin = torch.zeros((T, R, D + 1), dtype=torch.float32, device=rows_all.device)
+    elif tuple(xin.shape) != (T, R, D + 1):
+        raise ValueError(f"out has shape {tuple(xin.shape)}, want {(T, R, D + 1)}")
     xin[:, :n_sub, :D] = rows_all
     xin[:, :n_sub, D] = 1.0 if sub_mask is None else sub_mask
     xin[:, n_sub_pad:n_sub_pad + M_buf, :D] = core_pts
@@ -505,11 +515,16 @@ def pack_fused_step_rows(rows_all, core_pts, slot_mask, n_sub: int, sub_mask=Non
     return xin, M_pad, R
 
 
-def pad_fused_step_noise(z_all, s_active: int):
-    """Pad the (T, S, d) pre-drawn noise block's sample axis to 128."""
+def pad_fused_step_noise(z_all, s_active: int, out=None):
+    """Pad the (T, S, d) pre-drawn noise block's sample axis to 128, into
+    ``out`` when given (a block this function made for the same shapes)."""
     T, _, d = z_all.shape
-    z = torch.zeros((T, _round_up(s_active, 128), d), dtype=torch.float32,
-                    device=z_all.device)
+    shape = (T, _round_up(s_active, 128), d)
+    z = out
+    if z is None:
+        z = torch.zeros(shape, dtype=torch.float32, device=z_all.device)
+    elif tuple(z.shape) != shape:
+        raise ValueError(f"out has shape {tuple(z.shape)}, want {shape}")
     z[:, :s_active] = z_all
     return z
 
@@ -538,23 +553,115 @@ def make_refit_state(smp, pts):
             return lap, lap.prec_chol_inv.to(torch.float32).contiguous()
         lap = smp.fit(w, pts, lap_aux)
         L = lap.prec_chol.to(torch.float32)
-        eye = torch.eye(L.shape[0], dtype=torch.float32, device=L.device)
+        eye = identity(L.shape[0], torch.float32, L.device)
         return lap, torch.linalg.solve_triangular(L, eye, upper=False).contiguous()
 
     return refit_state
 
 
-def make_step_refit(refit_state, lagged: bool, k_refit: int, fit_aux,
-                    M_buf: int, w_dtype):
-    """Per-step (lap, L^-1): with lagged refits the Newton chain runs only
-    on every k-th step (step 0 reuses the fit made before the loop);
-    otherwise every step refits. The step index is a host int, so the
-    schedule costs no device read."""
-    def step_refit(w, i: int, lap_c):
-        if not lagged:
-            return refit_state(w[0, :M_buf].to(w_dtype), lap_c)
-        if i % k_refit == 0 and i > 0:
-            return refit_state(w[0, :M_buf].to(w_dtype), fit_aux(lap_c[0]))
-        return lap_c
+class FusedPass:
+    """The static buffers of a fused-route refinement pass (K1's, or K3's
+    on a mesh) and the parts of its step that the two builders share.
 
-    return step_refit
+    Everything a step reads or carries lives here at a fixed address, so
+    that the step body can be captured once as a CUDA graph and replayed
+    (utils/graphs.py): the packed rows ``xin_all`` (T, R, D+1) and noise
+    ``z_pad`` (T, s_pad, d) of the whole pass, the buffer's points, ``sc``
+    = [beta, *sc_tail], the Adam carry ``w``, ``m1``, ``m2`` (1, M_pad), the
+    Laplace fit the kernel consumes (``mu`` (1, d) and ``linv`` (d, d) in
+    float32), the sampler's warm start ``aux``, and the step counter ``i``
+    (on the device: a replayed step picks its own rows, noise and Adam
+    scalars). ``fill`` copies one selection's state and draws in; nothing
+    is reallocated between selections.
+
+    With lagged refits (``k_refit`` > 1) the Newton chain runs before the
+    pass and then on every k-th step (step 0 reuses the fit made before
+    the pass); otherwise on every step. That schedule is the host's
+    (``refits``), so it costs no device read."""
+
+    def __init__(self, sampler, st, z_all, n_sub: int, s_active: int, sclr_all, sc_tail,
+                 k_refit: int, w_dtype: torch.dtype, runner):
+        f32 = dict(dtype=torch.float32, device=st.pts.device)
+        T, _, d = z_all.shape
+        self.M_buf, D = st.pts.shape
+        self.n_sub, self.s_active, self.n_steps = n_sub, s_active, T
+        self.k_refit, self.w_dtype, self.runner = k_refit, w_dtype, runner
+        self.M_pad = _round_up(self.M_buf, 128)
+        self.xin_all = torch.zeros((T, _round_up(n_sub, 8) + self.M_pad, D + 1), **f32)
+        self.z_pad = torch.zeros((T, _round_up(s_active, 128), d), **f32)
+        self.sclr_all = sclr_all
+        self.sc = torch.zeros(1 + sc_tail.numel(), **f32)
+        self.sc[1:] = sc_tail
+        self.pts, self.wts0 = torch.empty_like(st.pts), torch.empty_like(st.wts)
+        # the warm start in the dtype the fit computes in (its mode's)
+        fit_dtype = torch.promote_types(torch.promote_types(st.wts.dtype, st.pts.dtype),
+                                        st.sampler_aux.dtype)
+        self.aux = torch.empty_like(st.sampler_aux, dtype=fit_dtype)
+        self.mu, self.linv = torch.empty((1, d), **f32), torch.empty((d, d), **f32)
+        self.w, self.m1, self.m2 = (torch.zeros((1, self.M_pad), **f32) for _ in range(3))
+        self.i = torch.zeros(1, dtype=torch.int64, device=st.pts.device)
+        self.refit_state = make_refit_state(sampler, self.pts)
+        self.fit_aux = sampler.fit_aux
+        self.like = signature((st.pts, st.wts, st.sampler_aux, z_all))
+
+    def serves(self, st, z_all) -> bool:
+        """Whether these buffers fit this state and these draws."""
+        return self.like == signature((st.pts, st.wts, st.sampler_aux, z_all))
+
+    def fill(self, rows_all, st, z_all, sub_mask=None) -> None:
+        """One selection's state and draws into the buffers; the Adam
+        moments and the step counter back to 0."""
+        pack_fused_step_rows(rows_all, st.pts, st.slot_mask, self.n_sub, sub_mask,
+                             out=self.xin_all)
+        pad_fused_step_noise(z_all, self.s_active, out=self.z_pad)
+        self.sc[:1].copy_(st.beta.reshape(1))
+        self.pts.copy_(st.pts)
+        self.wts0.copy_(st.wts)
+        self.aux.copy_(st.sampler_aux)
+        self.w.zero_()
+        self.w[0, :self.M_buf].copy_(st.wts)
+        self.m1.zero_()
+        self.m2.zero_()
+        self.i.zero_()
+
+    def refits(self, i: int) -> bool:
+        """Whether step i runs the Newton chain."""
+        return self.k_refit == 1 or (i % self.k_refit == 0 and i > 0)
+
+    def refit(self, first: bool = False) -> None:
+        """The Newton refit at the current weights (``first``: at the
+        selection's own weights, before the pass), warm-started at ``aux``,
+        into ``aux``, ``mu`` and ``linv``."""
+        w = self.wts0 if first else self.w[0, :self.M_buf].to(self.w_dtype)
+        lap, linv = self.refit_state(w, self.aux)
+        self.aux.copy_(self.fit_aux(lap))
+        self.mu[0].copy_(lap.mu)
+        self.linv.copy_(linv)
+
+    def step_operands(self):
+        """(xin, z, sclr) of the step the device counter points at."""
+        return (self.xin_all.index_select(0, self.i)[0],
+                self.z_pad.index_select(0, self.i)[0],
+                self.sclr_all.index_select(0, self.i)[0])
+
+    def advance(self, w, m1, m2) -> None:
+        """The step's Adam state into the carry, and on to the next step.
+        The kernels write fresh outputs, which under replay sit at fixed
+        addresses of their own: without this copy the next step would read
+        the state of two steps before."""
+        self.w.copy_(w)
+        self.m1.copy_(m1)
+        self.m2.copy_(m2)
+        self.i.add_(1)
+
+    def run(self, step) -> None:
+        """The whole pass: ``step(refit)`` for every step of the schedule."""
+        if self.k_refit > 1:
+            self.runner.run("first fit", lambda: self.refit(first=True))
+        self.runner.run_pass(self.n_steps, step, self.refits)
+
+    def result(self, st):
+        """``st`` with the refined weights and the last fit's warm start,
+        as tensors of their own (the buffers are reused)."""
+        return st._replace(wts=self.w[0, :self.M_buf].to(st.wts.dtype, copy=True),
+                           sampler_aux=self.aux.clone())

@@ -19,7 +19,11 @@ serve a tensor's device raises instead of copying through the host.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import datetime
+import os
+import tempfile
 from typing import Optional, Tuple
 
 import torch
@@ -123,6 +127,25 @@ def make_mesh(n_data: int, n_samp: int = 1,
         else:
             device = torch.device("cpu")
     return Mesh(n_data, n_samp, ax_d, ax_s, torch.device(device), groups)
+
+
+@contextlib.contextmanager
+def world_of_one(backend: str):
+    """This process as the only rank of a ``backend`` process group ("nccl"
+    for a card, "gloo" for the CPU), met through a FileStore in a temporary
+    directory, so it needs no launcher and no network; destroyed on exit.
+    The (1, 1) mesh made inside it drives the sharded build on one device."""
+    if backend == "nccl":
+        # one rank still bootstraps over a socket: keep it on the loopback
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
 
 
 def auto_mesh_shape(n_devices: int) -> Tuple[int, int]:

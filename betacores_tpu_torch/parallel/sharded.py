@@ -34,6 +34,15 @@ replicated noise from one generator and the shard-local subsample indices
 (in [0, max(local_valid, 1))) from another, seeded per data shard;
 ``coresets.FixedDraws`` replays given draws, with each rank's LOCAL
 indices. No loop body reads a device value on the host.
+
+The fused route's pass is a device-resident program, as in the
+single-device builder (coresets/incremental.py): static buffers
+(ops/kernels.py::FusedPass), and on a CUDA device the step body, its two
+all-reduces included, captured as a CUDA graph and replayed
+(utils/graphs.py; ``graph=None`` captures on a CUDA device, ``False`` runs
+the same body eagerly, ``True`` off a CUDA device raises). A replay adds
+the collectives its graph holds to ``mesh.calls``. The composed and
+per-step routes and select stay eager.
 """
 
 from __future__ import annotations
@@ -45,10 +54,9 @@ import torch
 
 from ..coresets.incremental import Draws, IncrementalConfig
 from ..coresets.state import CoresetState
-from ..ops.kernels import (ADAM_B1, ADAM_B2, ADAM_EPS, adam_sclr_stack,
-                           make_refit_state, make_step_refit, pack_fused_step_rows,
-                           pad_fused_step_noise)
-from ..utils.opt import nn_adam, step_schedule
+from ..ops.kernels import ADAM_B1, ADAM_B2, ADAM_EPS, FusedPass, adam_sclr_stack
+from ..utils.graphs import PassRunner, capture_stats, resolve_graph
+from ..utils.opt import adam_bias_corrections, adam_update, nn_adam, step_schedule
 from .mesh import DATA_AXIS, SAMP_AXIS, Mesh, require_axes
 
 
@@ -95,8 +103,11 @@ class ShardedIncrementalBuilder:
 
     def __init__(self, data_local, n_true: int, model, sampler,
                  config: IncrementalConfig, mesh: Mesh, step_sizes: torch.Tensor,
-                 u_local: Optional[torch.Tensor]):
+                 u_local: Optional[torch.Tensor], graph: Optional[bool] = None):
         n_data, n_samp = require_axes(mesh)
+        self.graph = resolve_graph(graph, data_local.device)
+        self._fused: Optional[FusedPass] = None
+        self._bias_corrections: dict = {}
         S = config.projection_dim
         self.data, self.u = data_local, u_local
         self.model, self.sampler, self.config, self.mesh = model, sampler, config, mesh
@@ -116,6 +127,10 @@ class ShardedIncrementalBuilder:
         valid = torch.full((), self.local_valid, dtype=dt, device=dev)
         self.sel_scale = None if self.n_sel is None else valid / self.n_sel
         self.opt_scale = None if self.n_opt is None else valid / self.n_opt
+        # the fused step's own float32 copy, made once: a captured step reads
+        # it at this address at every replay
+        self.opt_scale_f32 = (None if self.opt_scale is None
+                              else self.opt_scale.to(torch.float32))
         self.row_valid = (torch.arange(rows, device=dev) < self.local_valid).to(dt)
         self.lagged = config.refit_every > 1
         self.fstep = getattr(model, "fused_beta_shard_partials" if config.use_beta
@@ -127,6 +142,10 @@ class ShardedIncrementalBuilder:
         else:
             self.route = "composed"
         self.sclr_all = adam_sclr_stack(step_sizes) if self.route == "fused" else None
+
+    def capture_stats(self) -> tuple:
+        """(CUDA graphs captured so far, host seconds spent capturing)."""
+        return capture_stats((self._fused,))
 
     def generator_draws(self, seed: int) -> ShardedGeneratorDraws:
         """The default draws provider of this rank: the replicated generator
@@ -257,31 +276,27 @@ class ShardedIncrementalBuilder:
 
     def _optimize_fused(self, st: CoresetState, draws: Draws, it: int) -> CoresetState:
         """One Newton refit, one K3 launch, two psums and the Adam epilogue
-        per step. K3 skips the centring (the mean is over the sharded S
-        axis); the gradient uses the exact uncentred identity
-        g = -(a - (r / S) * b) / S."""
+        per step, on the pass's static buffers. K3 skips the centring (the
+        mean is over the sharded S axis); the gradient uses the exact
+        uncentred identity g = -(a - (r / S) * b) / S."""
         mesh, data, S, S_loc = self.mesh, self.data, self.S, self.S_loc
         f32 = torch.float32
         z_all, idx_all = draws.optimize(it, st)
-        M_buf = st.pts.shape[0]
-        xin_all, M_pad, _ = pack_fused_step_rows(data[idx_all], st.pts, st.slot_mask,
-                                                 self.n_opt, self.has_rows.to(f32))
-        z_loc = pad_fused_step_noise(z_all[:, self.samp_lo:self.samp_lo + S_loc], S_loc)
-        sc = st.beta.to(f32).reshape(1)
-        scale = self.opt_scale.to(f32)
-        fit_aux = self.sampler.fit_aux
-        refit_state = make_refit_state(self.sampler, st.pts)
-        step_refit = make_step_refit(refit_state, self.lagged, self.config.refit_every,
-                                     fit_aux, M_buf, data.dtype)
-        w = torch.zeros((1, M_pad), dtype=f32, device=data.device)
-        w[0, :M_buf] = st.wts.to(f32)
-        m1 = torch.zeros_like(w)
-        m2 = torch.zeros_like(w)
-        lap_c = refit_state(st.wts, st.sampler_aux) if self.lagged else st.sampler_aux
-        for i in range(self.step_sizes.shape[0]):
-            lap, linv = step_refit(w, i, lap_c)
-            colsum, core, corerow, wcore = self.fstep(
-                xin_all[i], z_loc[i], lap.mu.to(f32)[None, :], linv, w, sc, S_loc)
+        z_loc = z_all[:, self.samp_lo:self.samp_lo + S_loc]
+        p = self._fused
+        if p is None or not p.serves(st, z_loc):
+            runner = PassRunner(self.graph, calls=mesh.calls)
+            p = self._fused = FusedPass(self.sampler, st, z_loc, self.n_opt, S_loc,
+                                        self.sclr_all, torch.empty(0, dtype=f32),
+                                        self.config.refit_every, data.dtype, runner)
+        p.fill(data[idx_all], st, z_loc, self.has_rows.to(f32))
+        scale, M_pad = self.opt_scale_f32, p.M_pad
+
+        def step(refit: bool) -> None:
+            if refit:
+                p.refit()
+            xin, z, sclr = p.step_operands()
+            colsum, core, corerow, wcore = self.fstep(xin, z, p.mu, p.linv, p.w, p.sc, S_loc)
             total = mesh.psum(scale * colsum, DATA_AXIS)          # (1, s_pad)
             r_unc = total - wcore
             packed = mesh.psum(torch.cat([r_unc @ core.T, corerow,
@@ -289,14 +304,19 @@ class ShardedIncrementalBuilder:
                                SAMP_AXIS)
             a, r, b = packed[:, :M_pad], packed[:, M_pad:2 * M_pad], packed[:, 2 * M_pad:]
             g = -(a - (r / S) * b) / S
-            sclr = self.sclr_all[i]
-            m1 = ADAM_B1 * m1 + (1.0 - ADAM_B1) * g
-            m2 = ADAM_B2 * m2 + (1.0 - ADAM_B2) * g * g
-            w = torch.clamp_min(
-                w - sclr[0] * (m1 / sclr[1]) / (ADAM_EPS + torch.sqrt(m2 / sclr[2])), 0.0)
-            lap_c = (lap, linv) if self.lagged else fit_aux(lap)
-        aux = fit_aux(lap_c[0]) if self.lagged else lap_c
-        return st._replace(wts=w[0, :M_buf].to(st.wts.dtype), sampler_aux=aux)
+            p.advance(*adam_update(p.w, p.m1, p.m2, g, sclr[0], sclr[1], sclr[2],
+                                   b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS))
+
+        p.run(step)
+        return p.result(st)
+
+    def _bc(self, w):
+        """nn_adam's bias corrections for weights like ``w``: formed on the
+        host, so once per builder and not per pass."""
+        key = (w.dtype, w.device)
+        if key not in self._bias_corrections:
+            self._bias_corrections[key] = adam_bias_corrections(self.step_sizes.shape[0], *key)
+        return self._bias_corrections[key]
 
     def _samples_at(self, st):
         """(samples_at(w, carry, z, i) -> (samples, carry), carry0): the
@@ -336,7 +356,8 @@ class ShardedIncrementalBuilder:
             resid = total - w @ corevecs
             return -mesh.psum(corevecs @ resid, SAMP_AXIS) / S, carry
 
-        w_new, carry = nn_adam(st.wts, grad_fn, carry0, self.step_sizes, xs=xs)
+        w_new, carry = nn_adam(st.wts, grad_fn, carry0, self.step_sizes, xs=xs,
+                               bias_corrections=self._bc(st.wts))
         aux = self.sampler.fit_aux(carry) if self.lagged else carry
         return st._replace(wts=w_new, sampler_aux=aux)
 
@@ -357,7 +378,8 @@ class ShardedIncrementalBuilder:
             resid = total - w @ corevecs
             return -mesh.psum(corevecs @ resid, SAMP_AXIS) / S, aux
 
-        w_new, aux = nn_adam(st.wts, grad_fn, st.sampler_aux, self.step_sizes, xs=(z_all,))
+        w_new, aux = nn_adam(st.wts, grad_fn, st.sampler_aux, self.step_sizes, xs=(z_all,),
+                             bias_corrections=self._bc(st.wts))
         return st._replace(wts=w_new, sampler_aux=aux)
 
     def build(self, st: CoresetState, itrs: int, draws: Draws) -> CoresetState:
@@ -388,6 +410,7 @@ def make_sharded_incremental_builder(
     mesh: Mesh,
     step_sizes: Optional[torch.Tensor] = None,
     data_weights: Optional[torch.Tensor] = None,
+    graph: Optional[bool] = None,
 ) -> ShardedIncrementalBuilder:
     """The builder of this rank over its row block ``data_local`` of an
     (n_true, D) dataset (``shard_data``'s output; zero rows pad N to a
@@ -396,7 +419,8 @@ def make_sharded_incremental_builder(
     in the target, and zero-weight rows are never selected. The sampler
     needs ``draw_noise``/``from_noise``, and ``fit``/``from_fit``/
     ``fit_aux`` for lagged refits; ``learn_beta`` raises
-    NotImplementedError."""
+    NotImplementedError. ``graph``: whether the fused route's passes run as
+    replayed CUDA graphs (None: on a CUDA device; True elsewhere raises)."""
     n_data, n_samp = require_axes(mesh)
     if config.learn_beta:
         raise NotImplementedError("learn_beta is not ported yet")
@@ -422,4 +446,4 @@ def make_sharded_incremental_builder(
     step_sizes = torch.as_tensor(step_sizes, dtype=data_local.dtype,
                                  device=data_local.device)
     return ShardedIncrementalBuilder(data_local, n_true, model, sampler, config, mesh,
-                                     step_sizes, data_weights)
+                                     step_sizes, data_weights, graph)

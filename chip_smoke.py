@@ -33,8 +33,13 @@ toolkit. Phases, each of which raises on failure:
   4. the logistic-regression main path: the beta-Cores incremental build of
      bench.py (N = 1M contaminated rows, d = 10, S = 100, 1000-row select
      subsample, 500 Adam steps on 200 rows per selection, 128-slot buffer,
-     beta = 0.1) for --selections selections, with every Adam step
-     launched through K1;
+     beta = 0.1) for --selections selections, every refinement pass
+     replayed as CUDA graphs (the builder's default on a card) and every
+     Adam step through K1 (the count of launches includes the replayed
+     ones); then the same selections from the same state under the same
+     draws with ``graph=False`` (each step dispatched from Python), which
+     must give the same indices and m and weights within 1e-6 max|w|;
+     prints both times per Adam step;
   5. that slice against itself: a small build through K1 equals the same
      build through the plain version on the CPU under replayed draws, in
      reference-parity select and in dedup select with lagged refits;
@@ -42,8 +47,10 @@ toolkit. Phases, each of which raises on failure:
      (N = 2^20 rows, K = 5, d = 10, 20 % label flips, S = 100, 60-slot
      buffer, beta = 0.3, 200 Adam steps on 200 rows per selection) with
      full-candidate select, for --mc-selections selections after a warm-up
-     one, every select launching K2 once; prints the select and refinement
-     time per selection and the test accuracy of the coreset's posterior;
+     one, every select launching K2 once, the composed refinement route
+     captured and then eager as in phase 4; prints the select and
+     refinement time per selection and the test accuracy of the coreset's
+     posterior;
   7. that slice against itself: a small full-select multiclass build
      (N = 9000, so select launches K2) on the card equals the same build
      on the CPU under replayed draws, in both select modes;
@@ -58,11 +65,15 @@ toolkit. Phases, each of which raises on failure:
      mesh, one process in an NCCL process group of one rank (met through
      a FileStore in a temporary directory), for --sharded-selections
      selections after a warm-up one, every Adam step launching K3 and no
-     step K1; prints the collective counts;
+     step K1, its two all-reduces inside the captured step; prints the
+     collective counts (replayed ones included); then eager as in phase 4;
  10. that slice against itself: a small sharded build through K3 on the
      card equals the same build through K3's plain version on the CPU (a
      gloo group of one rank) and the single-device build through K1 on the
-     card, under one set of draws, in both select modes.
+     card, under one set of draws, in both select modes;
+ 11. the entry point: ``bench_torch.run`` at 3 selections of the headline
+     configuration (a warm-up build and a timed one), whose record must
+     hold a positive time and a fill.
 
 The last two lines of standard output are a JSON object describing the
 kernels (K1 and K3 add ``bound_us`` and ``floor_us``, K2 ``floor_ms``), then
@@ -73,14 +84,10 @@ prints neither.
 from __future__ import annotations
 
 import argparse
-import contextlib
-import datetime
 import json
-import os
 import re
 import subprocess
 import sys
-import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -89,6 +96,7 @@ import torch
 TOL = 2e-4                      # K1 vs its plain version, float32 (the reference's own)
 MC_TOL = 2e-5                   # K2 vs its plain version (the reference's own)
 GRAD_TOL = 3e-4                 # K3's assembled gradient vs the centred one (the reference's own)
+GRAPH_TOL = 1e-6                # a captured build's weights vs the eager build's, of max|w|
 # the headline configuration of bench.py
 N_ROWS, N_FEAT, S, BETA = 1_000_000, 10, 100, 0.1
 N_SEL, N_OPT, OPT_ITRS, M_BUF = 1000, 200, 500, 128
@@ -564,6 +572,34 @@ def check_same_build(what: str, got, ref) -> str:
     return f"m={m1}, same indices, max |dw| {err:.2e} <= {tol:.2e}"
 
 
+def check_graph_equals_eager(what: str, got, ref) -> str:
+    """Raises unless a build through replayed CUDA graphs and the same
+    build dispatched from Python (same state, same draws) select the same
+    indices and m, with weights within 1e-6 * max|w|: the two run the same
+    kernels in the same order. Returns a summary."""
+    if int(got.m) != int(ref.m) or not torch.equal(got.idcs, ref.idcs):
+        raise AssertionError(f"{what}: captured and eager selections differ: m={int(got.m)} "
+                             f"{got.idcs.tolist()} against m={int(ref.m)} {ref.idcs.tolist()}")
+    scale = float(ref.wts.abs().max())
+    err = float((got.wts - ref.wts).abs().max())
+    if not err <= GRAPH_TOL * scale:
+        raise AssertionError(f"{what}: captured and eager weights differ by {err:.3e} > "
+                             f"{GRAPH_TOL * scale:.3e}")
+    return f"same m={int(got.m)} and indices, max |dw| {err:.3e} <= {GRAPH_TOL * scale:.3e}"
+
+
+def timed_build(builder, st0, selections: int, draws):
+    """(state, seconds by CUDA events, seconds on the host clock) of one
+    ``build``."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    st = builder.build(st0, selections, draws)
+    end.record()
+    end.synchronize()
+    return st, start.elapsed_time(end) / 1e3, time.perf_counter() - t0
+
+
 def same_build_on_cpu(tag: str, make, Z, st_at, cfg, itrs: int, gen, dev: str,
                       kernel=None) -> None:
     """Runs one build on the CPU (plain versions) and on ``dev`` (kernels)
@@ -615,26 +651,31 @@ def phase_main_path(seed: int, n: int, selections: int, dev: str = "cuda") -> di
     torch.cuda.synchronize()
     log(f"warm-up selection: {time.perf_counter() - t0:.2f} s")
 
+    if not builder.graph and dev == "cuda":
+        raise AssertionError("the builder does not capture its passes on the card")
+    gen_state = gen.get_state()
     kernels.logreg_adam_step.launches = 0
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    st = builder.build(st0, selections, draws)
-    end.record()
-    end.synchronize()
-    wall = time.perf_counter() - t0
+    st, secs, wall = timed_build(builder, st0, selections, draws)
     launches = kernels.logreg_adam_step.launches
 
     want = selections * OPT_ITRS
     if launches != want:
         raise AssertionError(f"kernel launched {launches} times, want {want}")
     w, m = check_state(st)
-    secs = start.elapsed_time(end) / 1e3
     log(f"main path: {selections} selections x {OPT_ITRS} steps, m={m} "
-        f"(fill {m / selections:.2f}), {launches} kernel launches, sum(w)={float(w.sum()):.1f}")
-    log(f"build: {secs:.3f} s (CUDA events), {wall:.3f} s host clock, "
+        f"(fill {m / selections:.2f}), {launches} kernel launches (replayed ones counted), "
+        f"sum(w)={float(w.sum()):.1f}")
+    log(f"build, passes captured: {secs:.3f} s (CUDA events), {wall:.3f} s host clock, "
         f"{secs / selections * 1e3:.1f} ms per selection, "
         f"{secs / want * 1e6:.1f} us per Adam step")
+    # the same selections, each step dispatched from Python
+    eager = make_incremental_builder(Z, logreg.bundle(), logreg_laplace_sampler(), cfg,
+                                     graph=False)
+    gen.set_state(gen_state)
+    st_e, secs_e, wall_e = timed_build(eager, st0, selections, eager.generator_draws(gen))
+    log(f"build, passes eager: {secs_e:.3f} s (CUDA events), {wall_e:.3f} s host clock, "
+        f"{secs_e / want * 1e6:.1f} us per Adam step")
+    log(f"main path, captured == eager: {check_graph_equals_eager('main path', st, st_e)}")
     return {"launches": launches}
 
 
@@ -695,23 +736,39 @@ def phase_mc_path(seed: int, n: int, selections: int, dev: str = "cuda") -> dict
     torch.cuda.synchronize()
     log(f"multiclass warm-up selection: {time.perf_counter() - t0:.2f} s")
 
-    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] for _ in range(selections)]
+    def halves(b, draws):
+        """(state, select ms, refinement ms per selection) of build's loop
+        with CUDA events between the halves."""
+        ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+              for _ in range(selections)]
+        st = st0
+        for it in range(selections):
+            ev[it][0].record()
+            st = b.select(st, draws, it)
+            ev[it][1].record()
+            st = b.optimize(st, draws, it)
+            ev[it][2].record()
+        ev[-1][2].synchronize()
+        return (st, [e[0].elapsed_time(e[1]) for e in ev],
+                [e[1].elapsed_time(e[2]) for e in ev])
+
+    gen_state = gen.get_state()
     kernels.multiclass_projection.launches = 0
     kernels.logreg_adam_step.launches = 0
-    st = st0
-    for it in range(selections):
-        ev[it][0].record()
-        st = builder.select(st, draws, it)
-        ev[it][1].record()
-        st = builder.optimize(st, draws, it)
-        ev[it][2].record()
-    ev[-1][2].synchronize()
+    st, sel_ms, opt_ms = halves(builder, draws)
     launches = kernels.multiclass_projection.launches
     if launches != selections or kernels.logreg_adam_step.launches != 0:
         raise AssertionError(f"K2 launched {launches} times, want {selections} "
                              f"(one per select); K1 {kernels.logreg_adam_step.launches}")
-    sel_ms = [e[0].elapsed_time(e[1]) for e in ev]
-    opt_ms = [e[1].elapsed_time(e[2]) for e in ev]
+    eager = make_incremental_builder(Zc, multiclass.bundle(K), multiclass_laplace_sampler(K),
+                                     cfg, graph=False)
+    gen.set_state(gen_state)
+    st_e, _, opt_ms_e = halves(eager, eager.generator_draws(gen))
+    log(f"multiclass refinement per Adam step: captured "
+        f"{sum(opt_ms) / selections / MC_OPT_ITRS * 1e3:.1f} us, eager "
+        f"{sum(opt_ms_e) / selections / MC_OPT_ITRS * 1e3:.1f} us")
+    log(f"multiclass path, captured == eager: "
+        f"{check_graph_equals_eager('multiclass path', st, st_e)}")
     w, m = check_state(st)
     # test accuracy of the coreset's Laplace posterior (examples/multiclass.py)
     lj, g, h = (multiclass.make_log_joint(K), multiclass.make_grad_th_log_joint(K),
@@ -855,25 +912,6 @@ def phase_shard_kernel(seed: int, dev: str = "cuda") -> dict:
     return {"max_abs_err": err_main, **times}
 
 
-@contextlib.contextmanager
-def world_of_one(backend: str):
-    """This process as the only rank of a ``backend`` process group, met
-    through a FileStore in a temporary directory; destroyed on exit."""
-    import torch.distributed as dist
-
-    if backend == "nccl":
-        # one rank still bootstraps over a socket: keep it on the loopback
-        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
-    with tempfile.TemporaryDirectory() as tmp:
-        dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
-                                rank=0, world_size=1,
-                                timeout=datetime.timedelta(seconds=300))
-        try:
-            yield
-        finally:
-            dist.destroy_process_group()
-
-
 def phase_sharded_path(seed: int, n: int, selections: int, dev: str = "cuda") -> dict:
     """The headline build of bench.py through the sharded builder on a
     (1, 1) mesh (what bench.py runs on more than one device), in an NCCL
@@ -884,6 +922,7 @@ def phase_sharded_path(seed: int, n: int, selections: int, dev: str = "cuda") ->
                                      make_sharded_incremental_builder, perturb_logreg,
                                      shard_data)
     from betacores_tpu_torch.ops import kernels
+    from betacores_tpu_torch.parallel import world_of_one
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     X, y, _ = gen_synthetic_logreg(gen, n, d=N_FEAT)
@@ -908,18 +947,20 @@ def phase_sharded_path(seed: int, n: int, selections: int, dev: str = "cuda") ->
         log(f"sharded warm-up selection on a {mesh.shape} mesh ({mesh.device}): "
             f"{time.perf_counter() - t0:.2f} s")
 
+        if not builder.graph and dev == "cuda":
+            raise AssertionError("the sharded builder does not capture its passes on the card")
         kernels.logreg_shard_step_partials.launches = 0
         kernels.logreg_adam_step.launches = 0
         mesh.calls.clear()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        st = builder.build(st0, selections, draws)
-        end.record()
-        end.synchronize()
-        wall = time.perf_counter() - t0
+        st, secs, wall = timed_build(builder, st0, selections,
+                                     builder.generator_draws(seed + 1))
         launches = kernels.logreg_shard_step_partials.launches
         calls = dict(mesh.calls)
+        # the same selections, each step dispatched from Python
+        eager = make_sharded_incremental_builder(Zs, n_true, logreg.bundle(),
+                                                 logreg_laplace_sampler(), cfg, mesh,
+                                                 graph=False)
+        st_e, secs_e, _ = timed_build(eager, st0, selections, eager.generator_draws(seed + 1))
     want = selections * OPT_ITRS
     if launches != want or kernels.logreg_adam_step.launches != 0:
         raise AssertionError(f"K3 launched {launches} times, want {want}; K1 "
@@ -928,13 +969,15 @@ def phase_sharded_path(seed: int, n: int, selections: int, dev: str = "cuda") ->
     if calls != want_calls:
         raise AssertionError(f"collectives {calls}, want {want_calls}")
     w, m = check_state(st)
-    secs = start.elapsed_time(end) / 1e3
     log(f"sharded path: {selections} selections x {OPT_ITRS} steps, m={m} "
         f"(fill {m / selections:.2f}), {launches} K3 launches, 0 K1 launches, "
         f"collectives {calls}, sum(w)={float(w.sum()):.1f}")
-    log(f"sharded build: {secs:.3f} s (CUDA events), {wall:.3f} s host clock, "
-        f"{secs / selections * 1e3:.1f} ms per selection, "
-        f"{secs / want * 1e6:.1f} us per Adam step")
+    log(f"sharded build, passes captured: {secs:.3f} s (CUDA events), {wall:.3f} s host "
+        f"clock, {secs / selections * 1e3:.1f} ms per selection, "
+        f"{secs / want * 1e6:.1f} us per Adam step; passes eager: {secs_e:.3f} s, "
+        f"{secs_e / want * 1e6:.1f} us per Adam step")
+    log(f"sharded path, captured == eager: "
+        f"{check_graph_equals_eager('sharded path', st, st_e)}")
     return {"launches": launches}
 
 
@@ -949,6 +992,7 @@ def phase_sharded_self_check(seed: int, dev: str = "cuda") -> None:
                                      make_mesh, make_sharded_incremental_builder,
                                      shard_data)
     from betacores_tpu_torch.ops import kernels
+    from betacores_tpu_torch.parallel import world_of_one
 
     N, D, M, S_s, itrs, T = 1500, 5, 15, 40, 8, 25
     gen = torch.Generator().manual_seed(seed)
@@ -993,6 +1037,26 @@ def phase_sharded_self_check(seed: int, dev: str = "cuda") -> None:
             log(f"sharded self-check [{mode}]: {tag} == {ref_tag} ({summary})")
 
 
+def phase_bench(seed: int, n: int, selections: int = 3, dev: str = "cuda") -> None:
+    """The port's headline entry point, driven as its ``main`` drives it."""
+    import bench_torch
+
+    from betacores_tpu_torch.ops import kernels
+
+    kernels.logreg_adam_step.launches = 0
+    rec = bench_torch.run(n=n, selections=selections, device=dev, seed=seed)
+    launches = kernels.logreg_adam_step.launches
+    log(f"bench_torch.run: {json.dumps(rec)}; logreg_adam_step launches {launches}")
+    # the warm-up and the timed build, then three passes timed alone
+    want = (2 * selections + 3) * OPT_ITRS
+    if dev == "cuda" and launches != want:
+        raise AssertionError(f"bench_torch.run launched K1 {launches} times, expected {want}")
+    if set(rec) != {"metric", "value", "unit", "selected", "budget", "fill"}:
+        raise AssertionError(f"bench_torch.run: unexpected record {rec}")
+    if not rec["value"] > 0 or rec["budget"] != selections or not 0 < rec["fill"] <= 1:
+        raise AssertionError(f"bench_torch.run: bad record {rec}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1012,6 +1076,7 @@ def main() -> int:
     phase_mc_self_check(args.seed)
     sharded = phase_sharded_path(args.seed, N_ROWS, args.sharded_selections)
     phase_sharded_self_check(args.seed)
+    phase_bench(args.seed, N_ROWS)
     entries = [("logreg_adam_step", "logreg_adam_step.cu", "pallas_kernels.py:173", main_path, k1),
                ("multiclass_projection", "multiclass_projection.cu", "pallas_kernels.py:330",
                 mc_path, k2),

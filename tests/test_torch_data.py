@@ -58,6 +58,24 @@ def test_perturb_logreg_corrupts_f_rate_of_rows(d):
     assert len(out) <= 2 * o
 
 
+def test_perturb_logreg_repeated_rows_keep_their_last_draw():
+    """A row drawn several times ends with the noise of its last draw (what
+    a sequential indexed write gives), so the data follows from the seed."""
+    N, d, f_rate = 400, 6, 0.5
+    X, y, _ = gen_synthetic_logreg(torch.Generator().manual_seed(1), N, d=d)
+    X2, _, _, _ = perturb_logreg(torch.Generator().manual_seed(2), X, y, f_rate=f_rate)
+    g, o = torch.Generator().manual_seed(2), int(N * f_rate)
+    idxx = torch.randint(0, N, (o,), generator=g)
+    torch.randint(0, N, (o,), generator=g)
+    cols = torch.randperm(d, generator=g)[:d // 2]
+    noise = 5.0 * torch.randn((o, d // 2), generator=g, dtype=X.dtype)
+    assert len(set(idxx.tolist())) < o            # some rows are drawn twice
+    want = X.numpy().copy()
+    for i, n in enumerate(idxx.tolist()):
+        want[n, cols.numpy()] = noise[i].numpy()
+    assert torch.equal(X2, torch.from_numpy(want))
+
+
 def test_perturb_logreg_without_corruption_and_structured():
     X, y, _ = gen_synthetic_logreg(torch.Generator().manual_seed(1), 50, d=4)
     X2, y2, _, out = perturb_logreg(torch.Generator().manual_seed(2), X, y, f_rate=0.0)

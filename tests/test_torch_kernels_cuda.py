@@ -297,3 +297,182 @@ def test_cuda_one_wrapper_call_is_one_launch(cuda_device, kernel):
                       if e.device_type == torch.autograd.DeviceType.CUDA]
     name = "logreg_adam_step_kernel" if kernel == "K1" else "logreg_shard_partials_kernel"
     assert len(device_kernels) == 1 and name in device_kernels[0], device_kernels
+
+
+# ---------------------------------------------------------------------------
+# The refinement passes as replayed CUDA graphs (utils/graphs.py): captured
+# equals eager, on the card, for each route at a small size.
+# ---------------------------------------------------------------------------
+
+def _logreg_rows(n=1500, d=5):
+    rng = np.random.default_rng(42)
+    th = rng.normal(size=d)
+    X = rng.normal(size=(n, d))
+    y = np.where(X @ th + 0.3 * rng.normal(size=n) > 0, 1.0, -1.0)
+    return torch.from_numpy((y[:, None] * X).astype(np.float32))
+
+
+def _mc_rows(n=900, d=4, K=3):
+    rng = np.random.default_rng(17)
+    Th = 2.0 * rng.normal(size=(K, d))
+    X = rng.normal(size=(n, d))
+    y = np.argmax(X @ Th.T + rng.gumbel(size=(n, K)), axis=1)
+    return torch.from_numpy(np.c_[X, y].astype(np.float32))
+
+
+def _route(route, device, refit_every, graph):
+    """(builder, initial state, draws of seed -> provider) of a small build
+    through ``route`` on ``device``; the sharded one needs a process group."""
+    from betacores_tpu_torch import (IncrementalConfig, init_state, logreg,
+                                     logreg_laplace_sampler, make_incremental_builder,
+                                     make_mesh, make_sharded_incremental_builder, multiclass,
+                                     multiclass_laplace_sampler, shard_data)
+
+    cfg = IncrementalConfig(projection_dim=40, n_subsample_select=150, n_subsample_opt=150,
+                            opt_itrs=25, i0=0.5, use_beta=True, dedup_select=True,
+                            refit_every=refit_every)
+    if route == "composed":
+        K, d = 3, 4
+        b = make_incremental_builder(_mc_rows().to(device), multiclass.bundle(K),
+                                     multiclass_laplace_sampler(K), cfg, graph=graph)
+        st0 = init_state(15, d + 1, beta=0.3, device=device,
+                         sampler_aux=torch.zeros(K * d, device=device))
+    elif route == "sharded":
+        mesh = make_mesh(1, 1, device=device)
+        Zs, n_true = shard_data(_logreg_rows().to(device), mesh)
+        b = make_sharded_incremental_builder(Zs, n_true, logreg.bundle(),
+                                             logreg_laplace_sampler(), cfg, mesh, graph=graph)
+        assert b.route == "fused"
+        return b, init_state(15, 5, beta=0.2, device=device), b.generator_draws
+    else:
+        b = make_incremental_builder(_logreg_rows().to(device), logreg.bundle(),
+                                     logreg_laplace_sampler(), cfg, graph=graph)
+        st0 = init_state(15, 5, beta=0.2, device=device)
+    return b, st0, lambda seed: b.generator_draws(torch.Generator(device=device)
+                                                  .manual_seed(seed))
+
+
+def _world(route):
+    import contextlib
+
+    from betacores_tpu_torch.parallel import world_of_one
+
+    return world_of_one("nccl") if route == "sharded" else contextlib.nullcontext()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refit_every", [1, 4])
+@pytest.mark.parametrize("route", ["fused", "composed", "sharded"])
+def test_cuda_captured_build_equals_eager(cuda_device, route, refit_every):
+    """Four selections through replayed graphs (the default on a card)
+    equal the same selections dispatched from Python under the same draws:
+    the same indices and m, weights within 1e-6 max|w|; the step kernel's
+    count says one launch per step either way."""
+    wrapper = {"fused": kernels.logreg_adam_step, "sharded": kernels.logreg_shard_step_partials,
+               "composed": None}[route]
+    out = {}
+    with _world(route):
+        for graph in (None, False):
+            b, st0, draws = _route(route, cuda_device, refit_every, graph)
+            assert b.graph is (graph is None)
+            before = wrapper.launches if wrapper else 0
+            out[graph] = b.build(st0, 4, draws(7))
+            torch.cuda.synchronize()
+            if wrapper:
+                assert wrapper.launches - before == 4 * 25
+    got, ref = out[None], out[False]
+    assert int(got.m) == int(ref.m) == 4 and torch.equal(got.idcs, ref.idcs)
+    scale = float(ref.wts.abs().max())
+    assert scale > 0 and float((got.wts - ref.wts).abs().max()) <= 1e-6 * scale
+    assert float((got.sampler_aux - ref.sampler_aux).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["fused", "composed", "sharded"])
+def test_cuda_replay_reads_the_refilled_buffers(cuda_device, route):
+    """A replay after new draws gives another result (the buffers were
+    really refilled), and the first draws again give the first result bit
+    for bit."""
+    with _world(route):
+        b, st0, draws = _route(route, cuda_device, 1, None)
+        b.build(st0, 2, draws(1))                      # eager, then captured
+        first = b.build(st0, 2, draws(2))              # replayed
+        other = b.build(st0, 2, draws(3))
+        again = b.build(st0, 2, draws(2))
+        torch.cuda.synchronize()
+    assert not torch.equal(first.wts, other.wts)
+    assert torch.equal(first.wts, again.wts) and torch.equal(first.idcs, again.idcs)
+
+
+@pytest.mark.cuda
+def test_cuda_captured_sharded_float64_build_equals_eager(cuda_device):
+    """The captured sharded step on float64 data reads its float32 scale
+    from storage the builder keeps: six selections (allocations come and go
+    between them) equal the eager build."""
+    from betacores_tpu_torch import (IncrementalConfig, init_state, logreg,
+                                     logreg_laplace_sampler, make_mesh,
+                                     make_sharded_incremental_builder, shard_data)
+    from betacores_tpu_torch.parallel import world_of_one
+
+    cfg = IncrementalConfig(projection_dim=40, n_subsample_select=150, n_subsample_opt=150,
+                            opt_itrs=25, i0=0.5, use_beta=True, dedup_select=True)
+    out = {}
+    with world_of_one("nccl"):
+        mesh = make_mesh(1, 1, device=cuda_device)
+        Zs, n_true = shard_data(_logreg_rows().double().to(cuda_device), mesh)
+        for graph in (None, False):
+            b = make_sharded_incremental_builder(Zs, n_true, logreg.bundle(),
+                                                 logreg_laplace_sampler(), cfg, mesh,
+                                                 graph=graph)
+            assert b.route == "fused" and b.graph is (graph is None)
+            st0 = init_state(15, 5, beta=0.2, dtype=torch.float64, device=cuda_device)
+            out[graph] = b.build(st0, 6, b.generator_draws(7))
+            # churn the allocator between the builders, as a longer build does
+            junk = [torch.randn(n, device=cuda_device) for n in (1, 7, 1, 300, 1)]
+            del junk
+        torch.cuda.synchronize()
+    got, ref = out[None], out[False]
+    assert got.wts.dtype == torch.float64
+    assert int(got.m) == int(ref.m) == 6 and torch.equal(got.idcs, ref.idcs)
+    scale = float(ref.wts.abs().max())
+    assert scale > 0 and float((got.wts - ref.wts).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.cuda
+def test_cuda_perturb_logreg_follows_from_the_seed(cuda_device):
+    """Rows drawn more than once get the same noise in every run."""
+    from betacores_tpu_torch import gen_synthetic_logreg, perturb_logreg
+
+    def make():
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        X, y, _ = gen_synthetic_logreg(gen, 200_000, d=10)
+        return perturb_logreg(gen, X, y, f_rate=0.3)[2]
+
+    first = make()
+    assert all(torch.equal(first, make()) for _ in range(3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_beta", [False, True])
+def test_cuda_float64_multiclass_block_computes(cuda_device, use_beta):
+    """A float64 block of at least FUSED_MIN_ROWS rows through the bundle's
+    fused projection launches K2 and returns float64: the float32 result
+    cast up."""
+    from betacores_tpu_torch import multiclass
+    from betacores_tpu_torch.ops.projection import project_beta, project_ll
+
+    K, d, S, N = 5, 10, 100, kernels.FUSED_MIN_ROWS + 37
+    z, th = _mc_operands(cuda_device, N, S, K, d)
+    model = multiclass.bundle(K)
+    beta = torch.tensor(0.3, dtype=torch.float64, device=cuda_device)
+    before = kernels.multiclass_projection.launches
+    if use_beta:
+        got = project_beta(model, z.double(), th.double(), beta)
+        want = project_beta(model, z, th, beta.float())
+    else:
+        got = project_ll(model, z.double(), th.double())
+        want = project_ll(model, z, th)
+    torch.cuda.synchronize()
+    assert kernels.multiclass_projection.launches == before + 2
+    assert got.dtype == torch.float64 and got.shape == (N, S)
+    assert want.dtype == torch.float32 and torch.equal(got, want.double())

@@ -255,3 +255,25 @@ def test_kernel_operand_checks_raise(rng, bad):
         Z = torch.from_numpy(rows(rng, 16, d + 1))[:, 1:]
     with pytest.raises((TypeError, ValueError)):
         kernels._check_mc_operands(Z, TH, n_classes)
+
+
+@pytest.mark.parametrize("use_beta", [False, True])
+def test_fused_projection_closures_keep_the_rows_dtype(use_beta):
+    """The bundle's fused projections compute in float32 and return in the
+    rows' dtype, as the reference's fused projection does: float64 rows and
+    samples give the float32 result cast up, float32 ones are unchanged."""
+    rng = np.random.default_rng(3)
+    K_, d_, n_, s_ = 4, 3, 50, 7
+    z = np.c_[rng.normal(size=(n_, d_)), rng.integers(0, K_, n_)]
+    th = rng.normal(size=(s_, K_ * d_))
+    b = multiclass.bundle(K_)
+    call = ((lambda p, t: b.fused_beta_projection(p, t, torch.tensor(0.3, dtype=p.dtype)))
+            if use_beta else b.fused_ll_projection)
+    z64, th64 = torch.from_numpy(z), torch.from_numpy(th)
+    got64 = call(z64, th64)
+    got32 = call(z64.float(), th64.float())
+    assert got64.dtype == torch.float64 and got32.dtype == torch.float32
+    assert got64.shape == (n_, s_)
+    assert torch.equal(got64, got32.double())
+    # mixed: float64 rows with float32 samples still come back as the rows'
+    assert call(z64, th64.float()).dtype == torch.float64
