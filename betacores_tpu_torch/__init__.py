@@ -14,27 +14,40 @@ refinement step runs its shard-local half as a third kernel
 refinement passes run as replayed CUDA graphs over static per-builder
 buffers (``utils.graphs``; the builders' ``graph`` argument), where the
 reference's build is one jitted program. ``bench_torch.py`` at the root of
-the repository is the headline entry point. Modules keep the JAX package's
-paths and names. This package imports torch and never jax.
+the repository is the headline entry point.
+
+The reference's object API is the user's entry point, exported here as the
+JAX package exports it: ``BetaCoreset``, ``SparseVICoreset`` (both with
+``learn_beta``, ``build_trace``, ``optimize()`` with rollback) and
+``UniformSamplingCoreset`` over ``BlackBoxProjector`` /
+``BetaBlackBoxProjector``, with ``select_beta``; they run on the card unless
+given ``device="cpu"``. Modules keep the JAX package's paths and names.
+This package imports torch and never jax.
 """
 
-from . import coresets, data, inference, models, ops, parallel, utils
-from .coresets import (CoresetState, FixedDraws, GeneratorDraws,
-                       IncrementalConfig, init_state, make_incremental_builder,
-                       state_from_numpy, state_to_numpy)
+from . import coresets, data, evaluation, inference, models, ops, parallel, utils
+from .coresets import (BatchPSVICoreset, BetaBlackBoxProjector, BetaCoreset,
+                       BlackBoxProjector, CoresetState, FixedDraws, GeneratorDraws,
+                       HilbertCoreset, IncrementalConfig, SparseVICoreset,
+                       UniformSamplingCoreset, init_state, make_incremental_builder,
+                       select_beta, state_from_numpy, state_to_numpy, trimmed_mean)
 from .data import (flip_labels, gen_synthetic_logreg, gen_synthetic_multiclass,
                    perturb_logreg)
-from .inference import logreg_laplace_sampler, multiclass_laplace_sampler
+from .inference import fixed_sampler, logreg_laplace_sampler, multiclass_laplace_sampler
 from .models import logreg, multiclass
 from .parallel import (make_mesh, make_sharded_incremental_builder, shard_data,
                        shard_weights)
+from .utils import NumericalPrecisionError, set_tolerance, set_verbosity
 
 __all__ = [
-    "coresets", "data", "inference", "models", "ops", "parallel", "utils",
+    "coresets", "data", "evaluation", "inference", "models", "ops", "parallel", "utils",
+    "BatchPSVICoreset", "BetaBlackBoxProjector", "BetaCoreset", "BlackBoxProjector",
+    "HilbertCoreset", "SparseVICoreset", "UniformSamplingCoreset", "select_beta",
+    "trimmed_mean", "NumericalPrecisionError", "set_tolerance", "set_verbosity",
     "CoresetState", "FixedDraws", "GeneratorDraws", "IncrementalConfig",
     "init_state", "make_incremental_builder", "state_from_numpy",
     "state_to_numpy", "flip_labels", "gen_synthetic_logreg",
-    "gen_synthetic_multiclass", "perturb_logreg", "logreg_laplace_sampler",
-    "multiclass_laplace_sampler", "logreg", "multiclass", "make_mesh",
+    "gen_synthetic_multiclass", "perturb_logreg", "fixed_sampler",
+    "logreg_laplace_sampler", "multiclass_laplace_sampler", "logreg", "multiclass", "make_mesh",
     "make_sharded_incremental_builder", "shard_data", "shard_weights",
 ]

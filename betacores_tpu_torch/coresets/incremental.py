@@ -14,10 +14,17 @@ Each iteration runs
             ``refit_every``). A model with a fused step (logistic
             regression) on an unweighted build runs each step as ONE
             launch (ops/kernels.py::logreg_adam_step: a CUDA kernel on the
-            card, its plain version on the CPU); any other model, or a
-            weighted build, takes the composed route through
-            utils/opt.py::nn_adam. Full-data refinement
-            (``n_subsample_opt=None``) projects every row at each step.
+            card, its plain version on the CPU) when the sampler is a
+            Laplace family; any other model or sampler, or a weighted
+            build, takes the composed route through utils/opt.py::nn_adam.
+            Full-data refinement (``n_subsample_opt=None``) projects every
+            row at each step.
+
+``learn_beta`` refines beta with the weights: one projected Adam over
+x = [w, beta], beta clamped to [1e-3, ``beta_cap``], the beta-gradient from
+the model's ``beta_gradient`` (reference incremental.py:507-535). It always
+takes the composed route (or the full-data one), never K1, and refits the
+posterior every step, as the reference's learn_beta branch does.
 
 ``data_weights`` (N,) makes row n count u_n times in the residual target
 scaling * sum_n u_n v_n; zero-weight rows are never selected.
@@ -51,7 +58,8 @@ from typing import Optional, Protocol, Sequence, Tuple
 import torch
 
 from ..ops.kernels import FusedPass, adam_sclr_stack, maybe_fused
-from ..ops.projection import draw_subsample, project_beta, project_ll
+from ..ops.projection import (draw_subsample, project_beta, project_beta_with_grad,
+                              project_ll)
 from ..utils.graphs import PassRunner, capture_stats, resolve_graph, signature
 from ..utils.opt import adam_bias_corrections, adam_update, nn_adam, step_schedule
 from .state import CoresetState
@@ -67,7 +75,7 @@ class IncrementalConfig:
     opt_itrs: int = 100
     i0: float = 0.1                    # lr schedule i0 / (1 + i)
     use_beta: bool = False             # project with the beta-likelihood
-    learn_beta: bool = False           # not ported: raises
+    learn_beta: bool = False           # refine beta jointly with the weights
     # True: mask already-selected rows out of the candidate argmax and always
     # install the best remaining candidate. False: reference parity (a
     # duplicate argmax, or an existing point out-scoring every candidate,
@@ -76,12 +84,24 @@ class IncrementalConfig:
     # refit the posterior only every k-th refinement step, reusing the last
     # fit for the steps between
     refit_every: int = 1
+    beta_grad_scale: float = 1e-5      # damping of the learn_beta gradient
+    beta_cap: float = 1.0              # learn_beta clamps beta to [1e-3, beta_cap]
 
     def __post_init__(self):
         if self.learn_beta and not self.use_beta:
             raise ValueError("learn_beta requires use_beta=True")
         if self.refit_every < 1:
             raise ValueError("refit_every must be >= 1")
+
+
+BETA_FLOOR = 1e-3                      # learn_beta's lower clamp (the 1/beta pole)
+
+
+def laplace_family(sampler) -> bool:
+    """Whether ``sampler`` splits its fit from its draws (``fit``,
+    ``from_fit``, ``fit_aux``), as the fused step and lagged refits need."""
+    return all(getattr(sampler, n, None) is not None
+               for n in ("fit", "from_fit", "fit_aux"))
 
 
 def _target_sum(vecs, usub):
@@ -174,7 +194,10 @@ class _ComposedPass:
     state the projections read, the Adam carry ``x``, ``m1``, ``m2``, the
     sampler's carry (the warm start, or with lagged refits the whole fit)
     and the step counter ``i`` on the device. The body is
-    utils/opt.py::nn_adam's step on those buffers."""
+    utils/opt.py::nn_adam's step on those buffers. Under ``learn_beta`` the
+    carry is x = [w, beta], M_buf + 1 long; a builder's configuration is
+    fixed, so its passes are all of one kind, and a learn_beta pass never
+    shares buffers or graphs with a weights-only pass of the same size."""
 
     def __init__(self, builder: "IncrementalBuilder", st: CoresetState, z_all, runner):
         cfg, smp = builder.config, builder.sampler
@@ -182,15 +205,20 @@ class _ComposedPass:
         T, n_opt = z_all.shape[0], builder.n_opt
         M_buf, D = st.pts.shape
         self.builder, self.runner, self.n_steps = builder, runner, T
-        self.lagged = cfg.refit_every > 1
-        self.joint = builder._joint_rows_identical(n_opt + M_buf)
+        self.learn_beta = cfg.learn_beta
+        # the reference's learn_beta branch refits every step
+        self.lagged = cfg.refit_every > 1 and not self.learn_beta
+        # ... and projects the subsample and the buffer separately
+        self.joint = not self.learn_beta and builder._joint_rows_identical(n_opt + M_buf)
         self.rows_all = torch.empty((T, n_opt + (M_buf if self.joint else 0), D),
                                     dtype=dt, device=dev)
         self.z_all = torch.empty_like(z_all)
         self.u_all = (None if builder.u is None
                       else torch.empty((T, n_opt), dtype=dt, device=dev))
         self.st = CoresetState(*(torch.empty_like(t) for t in st))
-        self.x, self.m1, self.m2 = (torch.zeros_like(st.wts) for _ in range(3))
+        n_x = M_buf + (1 if self.learn_beta else 0)
+        self.x, self.m1, self.m2 = (torch.zeros(n_x, dtype=st.wts.dtype, device=dev)
+                                    for _ in range(3))
         # per-step [lr, 1-b1^t, 1-b2^t] in the weights' dtype, as nn_adam forms them
         self.sclr = torch.cat([builder.step_sizes.to(st.wts.dtype)[:, None],
                                adam_bias_corrections(T, st.wts.dtype, dev)], dim=1)
@@ -221,7 +249,10 @@ class _ComposedPass:
             self.rows_all[:, n_opt:] = st.pts
         if self.u_all is not None:
             self.u_all.copy_(b.u[idx_all])
-        self.x.copy_(st.wts)
+        M_buf = st.wts.shape[0]
+        self.x[:M_buf].copy_(st.wts)
+        if self.learn_beta:
+            self.x[M_buf:].copy_(st.beta.reshape(1))
         self.m1.zero_()
         self.m2.zero_()
         self.i.zero_()
@@ -237,7 +268,7 @@ class _ComposedPass:
         z = self.z_all.index_select(0, self.i)[0]
         rows = self.rows_all.index_select(0, self.i)[0]
         usub = None if self.u_all is None else self.u_all.index_select(0, self.i)[0]
-        w = self.x
+        w = self.x[:sst.wts.shape[0]]
         if self.lagged:
             if refit:
                 _store(self.carry, smp.fit(w, sst.pts, smp.fit_aux(self.carry)))
@@ -245,10 +276,13 @@ class _ComposedPass:
         else:
             samples, aux = smp.from_noise(z, w, sst.pts, self.carry)
             self.carry.copy_(aux)
-        vecs, corevecs = b._tangent(rows, sst, samples, self.joint)
         scaling = b.data.shape[0] / b.n_opt
-        resid = scaling * _target_sum(vecs, usub) - w @ corevecs
-        g = -(corevecs @ resid) / b.config.projection_dim
+        if self.learn_beta:
+            g = b._joint_grad(self.x, samples, rows, usub, scaling, sst)
+        else:
+            vecs, corevecs = b._tangent(rows, sst, samples, self.joint)
+            resid = scaling * _target_sum(vecs, usub) - w @ corevecs
+            g = -(corevecs @ resid) / b.config.projection_dim
         sclr = self.sclr.index_select(0, self.i)[0]
         x, m1, m2 = adam_update(self.x, self.m1, self.m2, g, sclr[0], sclr[1], sclr[2])
         self.x.copy_(x)
@@ -264,8 +298,13 @@ class _ComposedPass:
                              lambda i: not self.lagged or (i % k == 0 and i > 0))
 
     def result(self, st: CoresetState) -> CoresetState:
+        """``st`` with the pass's weights (and beta) and warm start, as
+        tensors of their own (the buffers are reused)."""
         aux = self.builder.sampler.fit_aux(self.carry) if self.lagged else self.carry
-        return st._replace(wts=self.x.clone(), sampler_aux=aux.clone())
+        M_buf = st.wts.shape[0]
+        if self.learn_beta:
+            st = st._replace(beta=self.builder._clamp_beta(self.x[M_buf]))
+        return st._replace(wts=self.x[:M_buf].clone(), sampler_aux=aux.clone())
 
 
 class IncrementalBuilder:
@@ -292,8 +331,9 @@ class IncrementalBuilder:
                       else min(N, config.n_subsample_select))
         self.n_opt = (None if config.n_subsample_opt is None
                       else min(N, config.n_subsample_opt))
-        self._model_fstep = getattr(model, "fused_beta_grad_step" if config.use_beta
-                                    else "fused_ll_grad_step", None)
+        self._model_fstep = (None if config.learn_beta or not laplace_family(sampler)
+                             else getattr(model, "fused_beta_grad_step" if config.use_beta
+                                          else "fused_ll_grad_step", None))
         # (T, 3) per-step Adam scalars of the fused step, fixed per build
         self.sclr_all = (None if self._model_fstep is None or self.n_opt is None
                          else adam_sclr_stack(step_sizes))
@@ -306,7 +346,8 @@ class IncrementalBuilder:
     @property
     def fstep(self):
         """The model's fused step when it serves the build (a subsampled,
-        unweighted refinement), else None."""
+        unweighted refinement without learn_beta, with a Laplace-family
+        sampler), else None."""
         return None if self.n_opt is None or self.u is not None else self._model_fstep
 
     def _runner(self) -> PassRunner:
@@ -347,6 +388,25 @@ class IncrementalBuilder:
             return allvecs[:n], allvecs[n:] * mask
         return (self._project(rows, samples, st.beta),
                 self._project(st.pts, samples, st.beta) * mask)
+
+    def _clamp_beta(self, b):
+        return torch.clamp(b, BETA_FLOOR, self.config.beta_cap)
+
+    def _joint_grad(self, x, samples, rows, usub, scaling, st: CoresetState):
+        """The learn_beta gradient over x = [w, beta] (reference
+        incremental.py:524-531): the weights' -(corevecs @ resid) / S and
+        beta's -beta_grad_scale * w . (betagrads @ resid) / S, at beta
+        clamped to [1e-3, beta_cap]. The rows and the buffer project
+        separately, the buffer with its beta-gradient."""
+        cfg, S = self.config, self.config.projection_dim
+        w, beta = x[:-1], self._clamp_beta(x[-1])
+        mask = st.slot_mask[:, None].to(self.data.dtype)
+        vecs = project_beta(self.model, rows, samples, beta)
+        corevecs, betagrads = project_beta_with_grad(self.model, st.pts, samples, beta)
+        corevecs, betagrads = corevecs * mask, betagrads * mask
+        resid = scaling * _target_sum(vecs, usub) - w @ corevecs
+        betagrad = -cfg.beta_grad_scale * (w @ (betagrads @ resid)) / S
+        return torch.cat([-(corevecs @ resid) / S, betagrad.reshape(1)])
 
     def select(self, st: CoresetState, draws: Draws, it: int = 0) -> CoresetState:
         """Reference bcores.py:74-90 / sparsevi.py:74-96."""
@@ -422,19 +482,25 @@ class IncrementalBuilder:
         and takes the exact target sum_n u_n v_n."""
         smp, S = self.sampler, self.config.projection_dim
         z_all, _ = draws.optimize(it, st)
+        learn_beta, M_buf = self.config.learn_beta, st.wts.shape[0]
 
-        def grad_fn(w, aux, i, xs_i):
-            samples, aux = smp.from_noise(xs_i[0], w, st.pts, aux)
+        def grad_fn(x, aux, i, xs_i):
+            samples, aux = smp.from_noise(xs_i[0], x[:M_buf], st.pts, aux)
+            if learn_beta:
+                return self._joint_grad(x, samples, self.data, self.u, 1.0, st), aux
             vecs, corevecs = self._tangent(self.data, st, samples, joint=False)
-            resid = _target_sum(vecs, self.u) - w @ corevecs
+            resid = _target_sum(vecs, self.u) - x @ corevecs
             return -(corevecs @ resid) / S, aux
 
         key = (st.wts.dtype, st.wts.device)
         if key not in self._bias_corrections:       # formed on the host: once per builder
             self._bias_corrections[key] = adam_bias_corrections(self.step_sizes.shape[0], *key)
-        w_new, aux = nn_adam(st.wts, grad_fn, st.sampler_aux, self.step_sizes, xs=(z_all,),
-                             bias_corrections=self._bias_corrections[key])
-        return st._replace(wts=w_new, sampler_aux=aux)
+        x0 = torch.cat([st.wts, st.beta.reshape(1)]) if learn_beta else st.wts
+        x, aux = nn_adam(x0, grad_fn, st.sampler_aux, self.step_sizes, xs=(z_all,),
+                         bias_corrections=self._bias_corrections[key])
+        if learn_beta:
+            st = st._replace(beta=self._clamp_beta(x[M_buf]))
+        return st._replace(wts=x[:M_buf], sampler_aux=aux)
 
     def _optimize_composed(self, st: CoresetState, draws: Draws, it: int) -> CoresetState:
         """The composed route (reference incremental.py:430-496): per step
@@ -572,26 +638,27 @@ def make_incremental_builder(
     whether the subsampled refinement passes run as replayed CUDA graphs
     (None: on a CUDA device; True elsewhere raises). A subsampled,
     unweighted refinement takes the model's fused step when it has one
-    (with the sampler's ``fit`` and ``fit_aux``; ``fit_inv`` when present),
-    else the composed route (with ``fit``, ``from_fit`` and ``fit_aux`` for
-    lagged refits). ``learn_beta``, or a sampler the route cannot use,
-    raises NotImplementedError rather than taking another route."""
-    if config.learn_beta:
-        raise NotImplementedError("learn_beta is not ported yet")
+    when the sampler is a Laplace family (``fit``, ``from_fit``,
+    ``fit_aux``; ``fit_inv`` when present), else the composed route (which
+    needs ``fit``, ``from_fit`` and ``fit_aux`` for lagged refits).
+    ``learn_beta`` refines beta too, through the composed or full-data
+    route; it needs a model with ``beta_gradient``. A sampler the route
+    cannot use raises NotImplementedError rather than taking another
+    route."""
+    if config.learn_beta and getattr(model, "beta_gradient", None) is None:
+        raise ValueError("learn_beta requires a model with beta_gradient")
     N = data.shape[0]
     if data_weights is not None:
         if tuple(data_weights.shape) != (N,):
             raise ValueError(f"data_weights must be ({N},), got "
                              f"{tuple(data_weights.shape)}")
         data_weights = data_weights.to(dtype=data.dtype, device=data.device)
-    field = "fused_beta_grad_step" if config.use_beta else "fused_ll_grad_step"
-    # full-data refinement refits every step through from_noise
+    # full-data refinement and learn_beta refit every step through
+    # from_noise; the fused route takes only Laplace-family samplers
     needs = ["draw_noise", "from_noise"]
-    if config.n_subsample_opt is not None:
-        if getattr(model, field, None) is not None and data_weights is None:
-            needs += ["fit", "fit_aux"]
-        elif config.refit_every > 1:
-            needs += ["fit", "from_fit", "fit_aux"]
+    if (config.n_subsample_opt is not None and config.refit_every > 1
+            and not config.learn_beta):
+        needs += ["fit", "from_fit", "fit_aux"]
     for name in needs:
         if getattr(sampler, name, None) is None:
             raise NotImplementedError(f"sampler lacks {name}: only Laplace-family "

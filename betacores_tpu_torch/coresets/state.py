@@ -44,6 +44,33 @@ def init_state(max_size: int, dim: int, beta: float = 0.5,
     )
 
 
+def warm_start_state(max_size: int, wts, idcs, pts, beta: float = 0.5,
+                     sampler_aux: torch.Tensor | None = None,
+                     device: torch.device | str = "cuda") -> CoresetState:
+    """A state seeded with an existing coreset (the reference's constructor
+    warm start ``wts``/``idcs``/``pts``): its k points fill slots 0..k-1
+    and m = k. The indices may lie outside the data (sentinel points whose
+    coordinates live only in ``pts``). The buffers are assembled on the
+    host and copied to ``device`` once; the weights' dtype is kept."""
+    wts = np.asarray(wts)
+    pts = np.atleast_2d(np.asarray(pts))
+    k, d = pts.shape
+    w_buf = np.zeros(max_size, dtype=wts.dtype)
+    i_buf = np.full(max_size, -1, dtype=np.int32)
+    p_buf = np.zeros((max_size, d), dtype=wts.dtype)
+    w_buf[:k] = wts
+    i_buf[:k] = np.asarray(idcs, dtype=np.int32)
+    p_buf[:k] = pts
+    t = lambda a: torch.from_numpy(a).to(device)
+    dtype = torch.from_numpy(w_buf[:0]).dtype
+    if sampler_aux is None:
+        sampler_aux = torch.zeros(d, dtype=dtype, device=device)
+    return CoresetState(wts=t(w_buf), idcs=t(i_buf), pts=t(p_buf),
+                        m=torch.full((), k, dtype=torch.int32, device=device),
+                        beta=torch.full((), beta, dtype=dtype, device=device),
+                        sampler_aux=sampler_aux)
+
+
 def get(state: CoresetState):
     """(wts, pts, idcs) of the strictly-positive-weight support, as numpy
     arrays (the reference's ``Coreset.get()`` filter). Eager: the shape

@@ -8,6 +8,16 @@ done flag is set, so it returns the same mode and factor as the while loop
 without a host read of the flag: the build's refinement loop stays free of
 device-to-host syncs (and capturable as a CUDA graph). Iterations after
 ``done`` still execute; their results are discarded by ``torch.where``.
+
+Where -H is not positive definite, ``jnp.linalg.cholesky`` returns NaN in
+the factor's lower triangle; ``cholesky_ex`` returns a finite partial
+factor and a nonzero ``info``. ``eval_at`` turns that case into the
+reference's NaN factor on the device (no host read of ``info``), so the
+Newton direction is NaN, every line-search candidate scores -inf and the
+step is rejected, as in the reference.
+
+``newton_laplace_diag`` is the diagonal-Hessian variant (the reference's
+``graddiag``), a fixed-count loop as the reference's scan is.
 """
 
 from __future__ import annotations
@@ -21,6 +31,14 @@ from ..models.base import identity
 
 # Backtracking grid: candidate step sizes tried per Newton iteration.
 _TS = (1.0, 0.5, 0.25, 0.125, 0.0625, 0.03125, 0.015625, 0.0078125)
+
+
+@functools.cache
+def _nan_lower(d: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """(d, d) with NaN on and below the diagonal and 0 above: what
+    ``jnp.linalg.cholesky`` returns for a matrix that is not positive
+    definite. Made once per size, dtype and device; read-only."""
+    return torch.full((d, d), float("nan"), dtype=dtype, device=device).tril()
 
 
 @functools.cache
@@ -54,8 +72,10 @@ def newton_laplace(
     def eval_at(mu):
         g = grad(mu)
         H = hess(mu)
-        # cholesky_ex: no host check of the info flag (cholesky syncs)
-        L, _ = torch.linalg.cholesky_ex(-H)
+        # cholesky_ex: no host check of the info flag (cholesky syncs); a
+        # failed factorization becomes the reference's NaN factor
+        L, info = torch.linalg.cholesky_ex(-H)
+        L = torch.where(info == 0, L, _nan_lower(d, L.dtype, L.device))
         if with_inverse:
             linv = torch.linalg.solve_triangular(L, identity(d, L.dtype, L.device),
                                                  upper=False)
@@ -96,6 +116,34 @@ def newton_laplace(
         done = done | done_new
     return LaplaceApprox(mu=mu, prec_chol=L,
                          prec_chol_inv=linv if with_inverse else None)
+
+
+def newton_laplace_diag(
+    log_joint: Callable[[torch.Tensor], torch.Tensor],
+    grad: Callable[[torch.Tensor], torch.Tensor],
+    diag_hess: Callable[[torch.Tensor], torch.Tensor],
+    mu0: torch.Tensor,
+    n_iters: int = 12,
+) -> LaplaceApprox:
+    """Diagonal-Hessian Newton (reference ``newton_laplace_diag``): the
+    direction g / (-diag_hess), the same 8-point backtracking grid, and the
+    covariance diag(1 / -diag_hess) at the mode, as the factor
+    diag(sqrt(-diag_hess(mu))). Runs exactly ``n_iters`` iterations with no
+    early exit, as the reference's scan does."""
+    g = grad(mu0)
+    mu = mu0.to(torch.promote_types(mu0.dtype, g.dtype))
+    ts = _ts(mu.dtype, mu.device)
+    for it in range(n_iters):
+        if it:
+            g = grad(mu)
+        p = g / (-diag_hess(mu))
+        cands = mu[None, :] + ts[:, None] * p[None, :]
+        vals = log_joint(cands)
+        vals = torch.where(torch.isfinite(vals), vals, float("-inf"))
+        best = torch.argmax(vals).reshape(1)
+        improved = vals.index_select(0, best)[0] > log_joint(mu)
+        mu = torch.where(improved, cands.index_select(0, best)[0], mu)
+    return LaplaceApprox(mu=mu, prec_chol=torch.diag(torch.sqrt(-diag_hess(mu))))
 
 
 def sample_laplace_from_noise(lap: LaplaceApprox, z: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Posterior samplers (counterpart of betacores_tpu/inference/samplers.py).
 
-The Laplace samplers of logistic and multiclass (softmax) regression are
-ported. They keep the reference's split between drawing noise and
+The Laplace samplers of logistic (full or diagonal Hessian) and multiclass
+(softmax) regression are ported, and ``fixed_sampler``. They keep the reference's split between drawing noise and
 transforming it, so a builder can draw a whole refinement pass's noise up
 front (or replay another implementation's draws):
 
@@ -18,7 +18,8 @@ import dataclasses
 import torch
 
 from ..models import logreg, multiclass
-from .laplace import LaplaceApprox, newton_laplace, sample_laplace_from_noise
+from .laplace import (LaplaceApprox, newton_laplace, newton_laplace_diag,
+                      sample_laplace_from_noise)
 
 
 def _fit_dtype(wts, pts, aux) -> torch.dtype:
@@ -82,9 +83,30 @@ class LogregLaplaceSampler(_LaplaceSampler):
         return self.fit(wts, pts, aux, with_inverse=True)
 
 
-def logreg_laplace_sampler(n_newton: int = 8) -> LogregLaplaceSampler:
-    """Laplace sampler for Bayesian logistic regression; pass zeros as the
-    initial ``aux``."""
+@dataclasses.dataclass(frozen=True)
+class LogregDiagLaplaceSampler(_LaplaceSampler):
+    """The diagonal-Hessian Laplace sampler (the reference's ``graddiag``):
+    ``n_newton + 4`` fixed iterations of ``newton_laplace_diag``, and the
+    factor diag(sqrt(-diag_hess)). It has no ``fit_inv``, as in the
+    reference: the fused step forms L^-1 from the diagonal factor
+    (ops/kernels.py::make_refit_state)."""
+
+    n_newton: int = 8
+
+    def fit(self, wts, pts, aux) -> LaplaceApprox:
+        dt = _fit_dtype(wts, pts, aux)
+        wts, pts, aux = wts.to(dt), pts.to(dt), aux.to(dt)
+        return newton_laplace_diag(lambda th: logreg.log_joint(pts, th, wts),
+                                   lambda th: logreg.grad_th_log_joint(pts, th, wts),
+                                   lambda th: logreg.diag_hess_th_log_joint(pts, th, wts),
+                                   aux, n_iters=self.n_newton + 4)
+
+
+def logreg_laplace_sampler(diag: bool = False, n_newton: int = 8):
+    """Laplace sampler for Bayesian logistic regression, with the full
+    Hessian or (``diag``) its diagonal; pass zeros as the initial ``aux``."""
+    if diag:
+        return LogregDiagLaplaceSampler(n_newton=n_newton)
     return LogregLaplaceSampler(n_newton=n_newton)
 
 
@@ -110,3 +132,31 @@ def multiclass_laplace_sampler(n_classes: int, n_newton: int = 12) -> Multiclass
     """Laplace sampler for K-class softmax regression; pass zeros of dim
     K*d as the initial ``aux``."""
     return MulticlassLaplaceSampler(n_classes=n_classes, n_newton=n_newton)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class FixedSampler:
+    """A deterministic sampler returning the first n rows of a fixed (S, d)
+    ``samples`` block, whatever the coreset (reference ``fixed_sampler``:
+    golden tests drive builds down identical trajectories with it). In the
+    port's noise split ``draw_noise`` returns zeros of (n, d) and
+    ``from_noise`` returns ``samples[:n]``, so the builders take it on
+    their usual routes; it has no ``fit``, so it never serves the fused
+    step or lagged refits."""
+
+    samples: torch.Tensor
+
+    def draw_noise(self, generator, n, wts, pts, aux):
+        return torch.zeros((n, self.samples.shape[1]), dtype=self.samples.dtype,
+                           device=aux.device)
+
+    def from_noise(self, z, wts, pts, aux):
+        return self.samples[:z.shape[0]], aux
+
+    def __call__(self, generator, n, wts, pts, aux):
+        return self.samples[:n], aux
+
+
+def fixed_sampler(samples: torch.Tensor) -> FixedSampler:
+    """A sampler that always returns ``samples[:n]``."""
+    return FixedSampler(samples)

@@ -8,7 +8,8 @@ A model family is a ``ModelFns`` bundle of functions over
 
 ``log_likelihood(pts, thetas)[n, s]`` = log p(pts[n] | thetas[s]);
 ``beta_likelihood`` is the beta-divergence surrogate in the positive
-convention (beta+1)/beta * p^beta - integral p^(beta+1).
+convention (beta+1)/beta * p^beta - integral p^(beta+1); ``beta_gradient``
+is its d/d(beta), by forward-mode autodiff (``beta_gradient_from_autodiff``).
 """
 
 from __future__ import annotations
@@ -35,6 +36,10 @@ class ModelFns(NamedTuple):
     log_likelihood: Callable
     # (N, D), (S, d), beta -> (N, S)
     beta_likelihood: Optional[Callable] = None
+    # (N, D), (S, d), beta -> (N, S): d/d(beta) of beta_likelihood
+    beta_gradient: Optional[Callable] = None
+    # (N, D), (S, d) -> (N, S, D): gradient w.r.t. the data row
+    grad_z_log_likelihood: Optional[Callable] = None
     # single-launch refinement step of the incremental build's Adam loop:
     # (xin, z, mu, linv, w, m1, m2, sc, sclr, s_true) -> (w', m1', m2'),
     # see ops/kernels.py::logreg_adam_step
@@ -51,3 +56,20 @@ class ModelFns(NamedTuple):
     # ops/kernels.py::logreg_shard_step_partials
     fused_ll_shard_partials: Optional[Callable] = None
     fused_beta_shard_partials: Optional[Callable] = None
+
+
+def beta_gradient_from_autodiff(beta_likelihood: Callable) -> Callable:
+    """Exact d/d(beta) of a beta-likelihood by forward-mode autodiff: beta
+    is one scalar and the output the whole (N, S) block, so one JVP gives
+    the whole gradient. Pass the plain ``beta_likelihood``, never a kernel
+    wrapper (a kernel has no forward-mode rule). A tensor ``beta`` already
+    on the rows' device and dtype is used as it is, so the call makes no
+    host-to-device copy and can be captured in a CUDA graph."""
+
+    def beta_gradient(pts, thetas, beta):
+        beta = torch.as_tensor(beta, dtype=pts.dtype, device=pts.device)
+        _, tangent = torch.func.jvp(lambda b: beta_likelihood(pts, thetas, b),
+                                    (beta,), (torch.ones_like(beta),))
+        return tangent
+
+    return beta_gradient

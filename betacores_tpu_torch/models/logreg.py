@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from .base import ModelFns, identity
+from .base import ModelFns, beta_gradient_from_autodiff, identity
 
 _LOG2PI = math.log(2.0 * math.pi)
 
@@ -41,6 +41,11 @@ def beta_likelihood(z, th, beta):
     return ((beta + 1.0) / beta * torch.exp(-beta * sp_pos)
             - torch.exp(-(beta + 1.0) * sp_pos)
             - torch.exp(-(beta + 1.0) * sp_neg))
+
+
+def grad_z_log_likelihood(z, th):
+    """(N, S, D) gradient w.r.t. the data row z_n: sigmoid(-z.th) * th."""
+    return torch.sigmoid(-(z @ th.T))[:, :, None] * th[None, :, :]
 
 
 def log_prior(th):
@@ -70,8 +75,35 @@ def hess_th_log_joint(z, th, wts):
     return -identity(d, th.dtype, th.device) - (c[:, None] * z).T @ z
 
 
+def diag_hess_th_log_joint(z, th, wts):
+    """(d,) diagonal of the Hessian of the weighted log joint."""
+    s = torch.sigmoid(-(z @ th))
+    c = wts * s * (1.0 - s)
+    return -torch.ones_like(th) - c @ (z * z)
+
+
+# --- prediction --------------------------------------------------------------
+
+
+def compute_accuracy(Xt, Yt, thetas):
+    """Posterior max-log-likelihood predictions, averaged over test points
+    and samples: predict +1 where x . th >= 0."""
+    scores = Xt @ thetas.T                                   # (Nt, S)
+    preds = torch.where(scores >= 0.0, 1.0, -1.0).to(scores.dtype)
+    return torch.mean((Yt[:, None] == preds).to(scores.dtype))
+
+
+def predictive_loglik(Zt, thetas):
+    """Mean posterior-predictive log-likelihood on test rows z = y * x:
+    mean_n log(mean_s p(z_n | th_s)), through logsumexp."""
+    ll = log_likelihood(Zt, thetas)                          # (Nt, S)
+    return torch.mean(torch.logsumexp(ll, dim=1) - math.log(thetas.shape[0]))
+
+
 def bundle() -> ModelFns:
-    """The logistic-regression bundle with the fused refinement step
+    """The logistic-regression bundle: the likelihoods, the beta-gradient
+    (forward-mode autodiff of the plain ``beta_likelihood``) and the data
+    gradient, with the fused refinement step
     (ops/kernels.py::logreg_adam_step) and the sharded step's partials
     (ops/kernels.py::logreg_shard_step_partials) attached."""
     from ..ops.kernels import logreg_adam_step, logreg_shard_step_partials
@@ -94,6 +126,8 @@ def bundle() -> ModelFns:
 
     return ModelFns(log_likelihood=log_likelihood,
                     beta_likelihood=beta_likelihood,
+                    beta_gradient=beta_gradient_from_autodiff(beta_likelihood),
+                    grad_z_log_likelihood=grad_z_log_likelihood,
                     fused_ll_grad_step=fused_ll_step,
                     fused_beta_grad_step=fused_beta_step,
                     fused_ll_shard_partials=fused_ll_shard,

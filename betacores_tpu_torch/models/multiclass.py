@@ -21,7 +21,7 @@ import math
 
 import torch
 
-from .base import ModelFns, identity
+from .base import ModelFns, beta_gradient_from_autodiff, identity
 
 _LOG2PI = math.log(2.0 * math.pi)
 
@@ -65,6 +65,21 @@ def make_beta_likelihood(n_classes: int):
         return (beta + 1.0) / beta * torch.exp(beta * lp_y) - mass
 
     return beta_likelihood
+
+
+def make_grad_z_log_likelihood(n_classes: int):
+    def grad_z_log_likelihood(z, th):
+        """(N, S, D) gradient w.r.t. the data row: (e_y - p) . Th over the
+        features; the label coordinate gets 0 (labels are discrete)."""
+        x, y = _split(z)
+        S, d = th.shape[0], x.shape[1]
+        lp = _log_probs(x, th, n_classes)                  # (N, S, K)
+        onehot = torch.nn.functional.one_hot(y, n_classes).to(lp.dtype)
+        coef = -torch.exp(lp) + onehot[:, None, :]           # e_y - p
+        gx = torch.einsum("nsk,skd->nsd", coef, th.reshape(S, n_classes, d))
+        return torch.cat([gx, torch.zeros_like(gx[:, :, :1])], dim=2)
+
+    return grad_z_log_likelihood
 
 
 def log_prior(th):
@@ -146,7 +161,9 @@ def bundle(n_classes: int, fused: bool | None = None) -> ModelFns:
     (ops/kernels.py::multiclass_projection: the CUDA kernel on a card, its
     plain version on the CPU), which the projection engine takes for row
     blocks of at least FUSED_MIN_ROWS. ``fused=False`` leaves it off, so
-    every projection is the plain composition."""
+    every projection is the plain composition. ``beta_gradient`` is the
+    forward-mode derivative of the plain ``beta_likelihood``, never of
+    the kernel."""
     if n_classes < 2:
         raise ValueError("n_classes must be >= 2")
     fused_ll = fused_beta = None
@@ -167,7 +184,10 @@ def bundle(n_classes: int, fused: bool | None = None) -> ModelFns:
             return multiclass_projection(pts.to(f32), th.to(f32), n_classes, beta,
                                          use_beta=True).to(pts.dtype)
 
+    beta_likelihood = make_beta_likelihood(n_classes)
     return ModelFns(log_likelihood=make_log_likelihood(n_classes),
-                    beta_likelihood=make_beta_likelihood(n_classes),
+                    beta_likelihood=beta_likelihood,
+                    beta_gradient=beta_gradient_from_autodiff(beta_likelihood),
+                    grad_z_log_likelihood=make_grad_z_log_likelihood(n_classes),
                     fused_ll_projection=fused_ll,
                     fused_beta_projection=fused_beta)

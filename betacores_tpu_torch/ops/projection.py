@@ -36,6 +36,22 @@ def project_beta(model, pts, samples, beta):
     return center(model.beta_likelihood(pts, samples, beta))
 
 
+def project_ll_with_grad(model, pts, samples):
+    """Centred log-likelihood and data-gradient projections, ((N, S),
+    (N, S, D)), both centred over the sample axis."""
+    lls = center(model.log_likelihood(pts, samples))
+    glls = model.grad_z_log_likelihood(pts, samples)
+    return lls, glls - glls.mean(dim=1, keepdim=True)
+
+
+def project_beta_with_grad(model, pts, samples, beta):
+    """Centred beta-likelihood projection and its centred d/d(beta), for
+    the joint (w, beta) refinement. Always the plain ``beta_likelihood``:
+    the fused projections have no beta-gradient."""
+    return (center(model.beta_likelihood(pts, samples, beta)),
+            center(model.beta_gradient(pts, samples, beta)))
+
+
 def draw_subsample(generator: torch.Generator, n_total: int,
                    n_subsample: int) -> Tuple[torch.Tensor, float]:
     """Uniform with-replacement subsample indices on the generator's device,

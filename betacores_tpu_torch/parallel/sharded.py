@@ -28,6 +28,13 @@ The refinement takes one of three routes, as in the reference:
   * per step: full-data refinement (``n_subsample_opt=None``) projects
     every local row at each step.
 
+``learn_beta`` (route "learn_beta", reference sharded.py:453-477) is the
+single-device builder's joint (w, beta) update, replicated: every step
+refits, projects the local rows and the buffer with the buffer's
+beta-gradient (their centring in one psum over ``samp``), psums the target
+over ``data``, and takes both inner products over S in one more psum over
+``samp``. It runs eagerly, subsampled or over every local row.
+
 Draws are separate from compute, as in the single-device builder:
 ``build`` takes a draws provider. ``ShardedGeneratorDraws`` draws the
 replicated noise from one generator and the shard-local subsample indices
@@ -52,7 +59,7 @@ from typing import Optional
 
 import torch
 
-from ..coresets.incremental import Draws, IncrementalConfig
+from ..coresets.incremental import BETA_FLOOR, Draws, IncrementalConfig, laplace_family
 from ..coresets.state import CoresetState
 from ..ops.kernels import ADAM_B1, ADAM_B2, ADAM_EPS, FusedPass, adam_sclr_stack
 from ..utils.graphs import PassRunner, capture_stats, resolve_graph
@@ -135,9 +142,11 @@ class ShardedIncrementalBuilder:
         self.lagged = config.refit_every > 1
         self.fstep = getattr(model, "fused_beta_shard_partials" if config.use_beta
                              else "fused_ll_shard_partials", None)
-        if self.n_opt is None:
+        if config.learn_beta:
+            self.route = "learn_beta"
+        elif self.n_opt is None:
             self.route = "per_step"
-        elif self.fstep is not None and u_local is None and _laplace_family(sampler):
+        elif self.fstep is not None and u_local is None and laplace_family(sampler):
             self.route = "fused"
         else:
             self.route = "composed"
@@ -272,6 +281,8 @@ class ShardedIncrementalBuilder:
             return self._optimize_fused(st, draws, it)
         if self.route == "composed":
             return self._optimize_composed(st, draws, it)
+        if self.route == "learn_beta":
+            return self._optimize_learn_beta(st, draws, it)
         return self._optimize_per_step(st, draws, it)
 
     def _optimize_fused(self, st: CoresetState, draws: Draws, it: int) -> CoresetState:
@@ -382,6 +393,49 @@ class ShardedIncrementalBuilder:
                              bias_corrections=self._bc(st.wts))
         return st._replace(wts=w_new, sampler_aux=aux)
 
+    def _optimize_learn_beta(self, st: CoresetState, draws: Draws, it: int) -> CoresetState:
+        """The joint (w, beta) refinement, replicated (reference
+        sharded.py:460-477): beta clamped to [1e-3, beta_cap] inside the
+        gradient and after the pass; the rows and the buffer projected
+        separately, the buffer with its centred beta-gradient; one psum
+        over ``samp`` centres all three blocks and one more takes both
+        inner products over S."""
+        cfg, S, mesh, smp = self.config, self.S, self.mesh, self.sampler
+        z_all, idx_all = draws.optimize(it, st)
+        M_buf = st.wts.shape[0]
+        mask = st.slot_mask[:, None].to(self.data.dtype)
+        clamp = lambda b: torch.clamp(b, BETA_FLOOR, cfg.beta_cap)
+        if idx_all is None:
+            xs = (z_all,)
+        else:
+            xs = (z_all, self.data[idx_all]) + (() if self.u is None else (self.u[idx_all],))
+
+        def grad_fn(x, aux, i, xs_i):
+            w, beta = x[:M_buf], clamp(x[M_buf])
+            samples, aux = smp.from_noise(xs_i[0], w, st.pts, aux)
+            samples_loc = self._samples_loc(samples)
+            rows = self.data if idx_all is None else xs_i[1]
+            lls = [self._lik(rows, samples_loc, beta), self._lik(st.pts, samples_loc, beta),
+                   self.model.beta_gradient(st.pts, samples_loc, beta)]
+            sums = mesh.psum(torch.cat([v.sum(dim=1) for v in lls]), SAMP_AXIS)
+            means = torch.split(sums / S, [v.shape[0] for v in lls])
+            vecs, corevecs, betagrads = (v - mu[:, None] for v, mu in zip(lls, means))
+            corevecs, betagrads = corevecs * mask, betagrads * mask
+            if idx_all is None:
+                total = self._target(vecs * self.row_valid[:, None], self.u, None)
+            else:
+                total = self._target(vecs * self.has_rows,
+                                     xs_i[2] if len(xs_i) > 2 else None, self.opt_scale)
+            resid = total - w @ corevecs
+            dots = mesh.psum(torch.cat([corevecs @ resid, betagrads @ resid]), SAMP_AXIS)
+            betagrad = -cfg.beta_grad_scale * (w @ dots[M_buf:]) / S
+            return torch.cat([-dots[:M_buf] / S, betagrad.reshape(1)]), aux
+
+        x0 = torch.cat([st.wts, st.beta.reshape(1)])
+        x, aux = nn_adam(x0, grad_fn, st.sampler_aux, self.step_sizes, xs=xs,
+                         bias_corrections=self._bc(x0))
+        return st._replace(wts=x[:M_buf], beta=clamp(x[M_buf]), sampler_aux=aux)
+
     def build(self, st: CoresetState, itrs: int, draws: Draws) -> CoresetState:
         for it in range(itrs):
             st = self.optimize(self.select(st, draws, it), draws, it)
@@ -394,11 +448,6 @@ class ShardedIncrementalBuilder:
             st = self.optimize(self.select(st, draws, it), draws, it)
             trace.append((st.wts, st.idcs, st.beta))
         return st, tuple(torch.stack(x) for x in zip(*trace))
-
-
-def _laplace_family(sampler) -> bool:
-    return all(getattr(sampler, n, None) is not None
-               for n in ("fit", "from_fit", "fit_aux"))
 
 
 def make_sharded_incremental_builder(
@@ -418,12 +467,12 @@ def make_sharded_incremental_builder(
     of (N,) base-data weights (``shard_weights``): row n counts u_n times
     in the target, and zero-weight rows are never selected. The sampler
     needs ``draw_noise``/``from_noise``, and ``fit``/``from_fit``/
-    ``fit_aux`` for lagged refits; ``learn_beta`` raises
-    NotImplementedError. ``graph``: whether the fused route's passes run as
+    ``fit_aux`` for lagged refits; ``learn_beta`` needs a model with
+    ``beta_gradient``. ``graph``: whether the fused route's passes run as
     replayed CUDA graphs (None: on a CUDA device; True elsewhere raises)."""
     n_data, n_samp = require_axes(mesh)
-    if config.learn_beta:
-        raise NotImplementedError("learn_beta is not ported yet")
+    if config.learn_beta and getattr(model, "beta_gradient", None) is None:
+        raise ValueError("learn_beta requires a model with beta_gradient")
     S = config.projection_dim
     if S % n_samp:
         raise ValueError(f"projection_dim {S} must divide over samp axis {n_samp}")
@@ -434,7 +483,8 @@ def make_sharded_incremental_builder(
                              f"{tuple(data_weights.shape)}")
         data_weights = data_weights.to(dtype=data_local.dtype, device=data_local.device)
     needs = ["draw_noise", "from_noise"]
-    if config.refit_every > 1 and config.n_subsample_opt is not None:
+    if (config.refit_every > 1 and config.n_subsample_opt is not None
+            and not config.learn_beta):
         needs += ["fit", "from_fit", "fit_aux"]
     for name in needs:
         if getattr(sampler, name, None) is None:

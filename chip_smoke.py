@@ -1,7 +1,7 @@
 """Smoke test of the PyTorch/CUDA port (betacores_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--selections 5] [--mc-selections 3]
-                          [--sharded-selections 3]
+                          [--sharded-selections 3] [--api-selections 5]
 
 Run from the root of a checkout, on a machine with a card and the CUDA
 toolkit. Phases, each of which raises on failure:
@@ -73,7 +73,26 @@ toolkit. Phases, each of which raises on failure:
      card, under one set of draws, in both select modes;
  11. the entry point: ``bench_torch.run`` at 3 selections of the headline
      configuration (a warm-up build and a timed one), whose record must
-     hold a positive time and a fill.
+     hold a positive time and a fill;
+ 12. the object API (``import betacores_tpu_torch as bc``) at the
+     headline's full width, on data made on the card (``phase_api``):
+     ``bc.BetaCoreset`` (a warm-up ``build(1, 1)``, then
+     ``build_trace(--api-selections)``, every Adam step through K1), which
+     must equal the functional builder's build from the same state under
+     the same generator (same ``idcs`` and m, w within 1e-6 max|w|);
+     ``bc.SparseVICoreset`` for 3 selections (K1's ll variant);
+     ``optimize()`` on the beta-Cores coreset, with ``error()`` before and
+     after, whose kept state must be tensors of its own; ``learn_beta``
+     for 2 selections captured and then eager from the same seed (agreeing
+     as phase 4's builds do, beta within [1e-3, 1] and moved, no K1),
+     after timing the process's first forward-mode derivative apart; the
+     diagonal Laplace sampler for 2 selections through K1, across a
+     buffer growth from 64 to 128 slots; ``bc.UniformSamplingCoreset`` for
+     100 points and at the beta-Cores coreset's size; the multiclass
+     ``bc.BetaCoreset`` of phase 6 for 2 selections (K2 once per select);
+     and the held-out test accuracy of each logistic coreset's Laplace
+     posterior side by side. Every run prints its seconds per selection
+     and per Adam step.
 
 The last two lines of standard output are a JSON object describing the
 kernels (K1 and K3 add ``bound_us`` and ``floor_us``, K2 ``floor_ms``), then
@@ -109,6 +128,7 @@ KERNELS = ("logreg_adam_step", "multiclass_projection", "logreg_shard_partials")
 # H100 SXM peaks at its 700 W limit: float32 outside the tensor cores, HBM3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 CLUSTERS = (1, 2, 4, 8, 16)     # K1's and K3's cluster sizes, timed in phases 2 and 8
+N_TEST = 10_000                 # held-out rows of the object API's accuracy check
 # operations per likelihood value (csrc/logreg_common.cuh::Likelihood),
 # each arithmetic or transcendental operation counted once: beta, log
 TRANSFORM_OPS = {True: 17, False: 6}
@@ -1057,14 +1077,232 @@ def phase_bench(seed: int, n: int, selections: int = 3, dev: str = "cuda") -> No
         raise AssertionError(f"bench_torch.run: bad record {rec}")
 
 
+def laplace_thetas(w, p, d: int, gen, n: int = 256, log_joint=None, grad=None,
+                   hess=None):
+    """``n`` draws of a coreset's Laplace posterior (25 Newton iterations
+    from 0), by default the logistic one's."""
+    from betacores_tpu_torch.inference import newton_laplace, sample_laplace_from_noise
+    from betacores_tpu_torch.models import logreg
+
+    lj = log_joint or logreg.log_joint
+    g = grad or logreg.grad_th_log_joint
+    h = hess or logreg.hess_th_log_joint
+    w = torch.as_tensor(w, device=gen.device)
+    p = torch.as_tensor(p, device=gen.device)
+    lap = newton_laplace(lambda th: lj(p, th, w), lambda th: g(p, th, w),
+                         lambda th: h(p, th, w), torch.zeros(d, dtype=w.dtype, device=gen.device),
+                         n_iters=25)
+    return sample_laplace_from_noise(lap, torch.randn((n, d), generator=gen, dtype=w.dtype,
+                                                      device=gen.device))
+
+
+def static_buffer_storages(builder) -> set:
+    """The storage addresses of every static buffer of a builder's passes."""
+    out = set()
+    for p in (builder._fused, builder._composed):
+        for t in ([] if p is None else vars(p).values()):
+            for x in (t if isinstance(t, tuple) else (t,)):
+                if isinstance(x, torch.Tensor):
+                    out.add(x.untyped_storage().data_ptr())
+    return out
+
+
+def phase_api(seed: int, n: int, selections: int, dev: str = "cuda") -> dict:
+    """The object API at the headline's full width (the module docstring's
+    phase 12). Returns the launches of K1 and K2 in the API's driven runs
+    (counted from 0 before each run and read after it; the comparison
+    build of the functional builder is not counted)."""
+    import copy
+
+    import betacores_tpu_torch as bc
+    from betacores_tpu_torch import (flip_labels, gen_synthetic_logreg,
+                                     gen_synthetic_multiclass, logreg, logreg_laplace_sampler,
+                                     make_incremental_builder, multiclass,
+                                     multiclass_laplace_sampler, perturb_logreg)
+    from betacores_tpu_torch.evaluation import compute_accuracy
+    from betacores_tpu_torch.ops import kernels
+
+    k1, k2 = kernels.logreg_adam_step, kernels.multiclass_projection
+    counts = {"K1": 0, "K2": 0}
+
+    def driven(what: str, fn, sels: int = 0, itrs: int = OPT_ITRS, k1_want=None,
+               k2_want=None):
+        """Runs ``fn`` (``sels`` selections of ``itrs`` Adam steps each) with
+        both counts from 0, adds its launches to the phase's, checks them,
+        and returns (fn's value, seconds by CUDA events)."""
+        k1.launches = k2.launches = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        secs = start.elapsed_time(end) / 1e3
+        got = {"K1": k1.launches, "K2": k2.launches}
+        counts["K1"] += got["K1"]
+        counts["K2"] += got["K2"]
+        for name, want in (("K1", k1_want), ("K2", k2_want)):
+            if want is not None and dev == "cuda" and got[name] != want:
+                raise AssertionError(f"{what}: {name} launched {got[name]} times, want {want}")
+        per = (f", {secs / sels:.3f} s per selection, {secs / (sels * itrs) * 1e6:.1f} us "
+               f"per Adam step (selects included)" if sels else "")
+        log(f"api {what}: {secs:.3f} s (CUDA events){per}; launches {got}")
+        return out, secs
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    X, y, _ = gen_synthetic_logreg(gen, n + N_TEST, d=N_FEAT)
+    Xt, yt = X[n:], y[n:]
+    _, _, Z, out = perturb_logreg(gen, X[:n], y[:n], f_rate=0.1)
+    del X, y
+    log(f"api data: N={n} x d={N_FEAT} on {Z.device}, {len(out)} corrupted rows, "
+        f"{N_TEST} clean held-out rows")
+    common = dict(n_subsample_select=N_SEL, n_subsample_opt=N_OPT, opt_itrs=OPT_ITRS,
+                  step_sched=lambda i: 1.0 / (1.0 + i), seed=seed, max_size=M_BUF,
+                  device=dev)
+    sampler, model = logreg_laplace_sampler(), logreg.bundle()
+    prj_b = bc.BetaBlackBoxProjector(sampler, S, model=model)
+    prj_w = bc.BlackBoxProjector(sampler, S, model=model)
+    acc = {}
+
+    def accuracy(tag, alg):
+        w, p = alg.get()[:2]
+        acc[f"{tag} ({len(w)} points)"] = float(
+            compute_accuracy(Xt, yt, laplace_thetas(w, p, N_FEAT, gen)))
+
+    # BCORES: a warm-up selection, then build_trace, against the functional
+    # builder from the same state under the same generator
+    bcores = bc.BetaCoreset(Z, prj_b, beta=BETA, **common)
+    driven("BCORES warm-up build(1, 1)", lambda: bcores.build(1, 1), 1, k1_want=OPT_ITRS)
+    st1, keys = bcores.state, copy.deepcopy(bcores.keys)
+    trace, _ = driven(f"BCORES build_trace({selections})",
+                      lambda: bcores.build_trace(selections), selections,
+                      k1_want=selections * OPT_ITRS)
+    log(f"api BCORES: m={int(bcores.state.m)}, {len(trace)} snapshots, the last of "
+        f"{len(trace[-1][0])} points")
+    fb = make_incremental_builder(Z, model, sampler, bcores._cfg,
+                                  step_sizes=bcores._builder.step_sizes)
+    st_f = fb.build(st1, selections, fb.generator_draws(keys()))
+    log(f"api BCORES == the functional build: "
+        f"{check_graph_equals_eager('api BCORES vs functional', bcores.state, st_f)}")
+    check_state(bcores.state)
+
+    # optimize() with its rollback guard; the state it keeps is its own
+    e0 = bcores.error()
+    before = bcores.state
+    driven("BCORES optimize()", bcores.optimize, k1_want=OPT_ITRS)
+    e1 = bcores.error()
+    kept = bcores.state
+    log(f"api BCORES optimize(): error {e0:.6g} -> {e1:.6g}, "
+        f"{'rolled back' if kept is before else 'kept'}, "
+        f"reached_numeric_limit={bcores.reached_numeric_limit}")
+    shared = {t.untyped_storage().data_ptr() for t in kept} & static_buffer_storages(
+        bcores._builder)
+    if shared:
+        raise AssertionError("optimize() kept a state that aliases the builder's buffers")
+    snap = [t.clone() for t in kept]
+    accuracy("BCORES", bcores)
+    m_b = len(bcores.get()[0])
+    bcores.build(1, int(bcores.state.m) + 1)        # replays over the same buffers
+    if not all(torch.equal(a, b) for a, b in zip(kept, snap)):
+        raise AssertionError("a later pass overwrote the state optimize() kept")
+
+    # SVI: K1's ll variant
+    svi = bc.SparseVICoreset(Z, prj_w, **common)
+    driven("SVI warm-up build(1, 1)", lambda: svi.build(1, 1), 1, k1_want=OPT_ITRS)
+    driven("SVI build(3, 4)", lambda: svi.build(3, 4), 3, k1_want=3 * OPT_ITRS)
+    log(f"api SVI: m={int(svi.state.m)}")
+    check_state(svi.state)
+    accuracy("SVI", svi)
+
+    # learn_beta: captured, then eager from the same seed; never K1. The
+    # first forward-mode derivative in a process loads torch's Python
+    # dispatch machinery (seconds of host time), so it is taken, and
+    # timed, before the builds
+    t0 = time.perf_counter()
+    model.beta_gradient(Z[:8], Z[:4], torch.tensor(BETA, device=dev))
+    torch.cuda.synchronize()
+    log(f"api learn_beta: the process's first forward-mode derivative took "
+        f"{time.perf_counter() - t0:.2f} s (host clock)")
+    lb = {}
+    for mode, graph in (("captured", None), ("eager", False)):
+        alg = bc.BetaCoreset(Z, prj_b, beta=BETA, learn_beta=True, graph=graph, **common)
+        driven(f"learn_beta {mode} build(2, 2)", lambda: alg.build(2, 2), 2, k1_want=0)
+        lb[mode] = alg
+    beta = float(lb["captured"].state.beta)
+    log(f"api learn_beta: captured == eager: "
+        f"{check_graph_equals_eager('api learn_beta', lb['captured'].state, lb['eager'].state)}"
+        f"; beta {BETA} -> {beta:.6g} (eager {float(lb['eager'].state.beta):.6g})")
+    if not 1e-3 <= beta <= 1.0 or beta == BETA:
+        raise AssertionError(f"learn_beta: beta {beta} did not move within [1e-3, 1]")
+    if abs(beta - float(lb["eager"].state.beta)) > GRAPH_TOL * beta:
+        raise AssertionError("learn_beta: captured and eager beta differ")
+
+    # the diagonal Laplace sampler through K1, across a buffer growth
+    prj_d = bc.BetaBlackBoxProjector(logreg_laplace_sampler(diag=True), S, model=model)
+    idx0 = torch.arange(63, device=dev)
+    diag = bc.BetaCoreset(Z, prj_d, beta=BETA, wts=torch.ones(63).numpy(),
+                          idcs=idx0.cpu().numpy(), pts=Z[idx0].cpu().numpy(),
+                          **dict(common, max_size=0))
+    driven("diag build(1, 64) at 64 slots", lambda: diag.build(1, 64), 1, k1_want=OPT_ITRS)
+    mem0 = torch.cuda.memory_allocated()
+    driven("diag build(1, 65), grown to 128 slots", lambda: diag.build(1, 65), 1,
+           k1_want=OPT_ITRS)
+    if diag.state.wts.shape[0] != 128 or diag._builder._fused.M_buf != 128:
+        raise AssertionError("the diag coreset's buffer did not grow to 128 slots")
+    log(f"api diag: memory allocated {mem0 / 2**20:.1f} -> "
+        f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB across the growth "
+        f"(peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB)")
+    check_state(diag.state)
+
+    # RAND: 100 uniform draws
+    rand = bc.UniformSamplingCoreset(Z, seed=seed, device=dev)
+    driven("RAND build(100, 100)", lambda: rand.build(100, 100), k1_want=0, k2_want=0)
+    w, _, _ = rand.get()
+    if abs(float(w.sum()) - n) > 1e-3 * n:
+        raise AssertionError(f"RAND weights sum to {float(w.sum())}, want {n}")
+    accuracy("RAND", rand)
+    rand_m = bc.UniformSamplingCoreset(Z, seed=seed, device=dev)   # at BCORES's size
+    rand_m.build(m_b, m_b)
+    accuracy("RAND", rand_m)
+    log(f"api test accuracy of the Laplace posterior ({N_TEST} clean held-out rows): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in acc.items()))
+    for k, v in acc.items():
+        if not 0.0 <= v <= 1.0:
+            raise AssertionError(f"{k} accuracy {v} outside [0, 1]")
+    del Z, Xt, yt, bcores, svi, lb, diag, fb, st_f, st1, kept, snap, before
+    torch.cuda.empty_cache()
+
+    # multiclass: full-candidate select, K2 once per select
+    K, d = MC_K, MC_D
+    Xm, ym, Zm = gen_synthetic_multiclass(gen, MC_ROWS + MC_N_TEST, d=d, n_classes=K)
+    Zc, _ = flip_labels(gen, Zm[:MC_ROWS], K, MC_F_RATE)
+    prj_m = bc.BetaBlackBoxProjector(multiclass_laplace_sampler(K), S,
+                                     model=multiclass.bundle(K), theta_dim=K * d)
+    mc = bc.BetaCoreset(Zc, prj_m, beta=MC_BETA, n_subsample_select=None,
+                        n_subsample_opt=MC_N_OPT, opt_itrs=MC_OPT_ITRS,
+                        step_sched=lambda i: 1.0 / (1.0 + i), seed=seed, max_size=MC_M,
+                        device=dev)
+    driven("multiclass build(2, 2)", lambda: mc.build(2, 2), 2, MC_OPT_ITRS, k1_want=0,
+           k2_want=2)
+    check_state(mc.state)
+    w, p = (torch.as_tensor(a, device=dev) for a in mc.get()[:2])
+    ths = laplace_thetas(w, p, K * d, gen, log_joint=multiclass.make_log_joint(K),
+                         grad=multiclass.make_grad_th_log_joint(K),
+                         hess=multiclass.make_hess_th_log_joint(K))
+    mc_acc = float(multiclass.compute_accuracy(Xm[MC_ROWS:], ym[MC_ROWS:], ths, K))
+    log(f"api multiclass: m={int(mc.state.m)}, test accuracy {mc_acc:.4f}")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--selections", type=int, default=5)
     ap.add_argument("--mc-selections", type=int, default=3)
     ap.add_argument("--sharded-selections", type=int, default=3)
+    ap.add_argument("--api-selections", type=int, default=5)
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     name = phase_device()
     phase_build()
     k1 = phase_kernel(args.seed)
@@ -1077,11 +1315,14 @@ def main() -> int:
     sharded = phase_sharded_path(args.seed, N_ROWS, args.sharded_selections)
     phase_sharded_self_check(args.seed)
     phase_bench(args.seed, N_ROWS)
-    entries = [("logreg_adam_step", "logreg_adam_step.cu", "pallas_kernels.py:173", main_path, k1),
+    api = phase_api(args.seed, N_ROWS, args.api_selections)
+    entries = [("logreg_adam_step", "logreg_adam_step.cu", "pallas_kernels.py:173",
+                {"launches": main_path["launches"] + api["K1"]}, k1),
                ("multiclass_projection", "multiclass_projection.cu", "pallas_kernels.py:330",
-                mc_path, k2),
+                {"launches": mc_path["launches"] + api["K2"]}, k2),
                ("logreg_shard_step_partials", "logreg_shard_partials.cu", "pallas_kernels.py:249",
                 sharded, k3)]
+    log(f"chip_smoke: phases 0-12 in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"betacores_tpu_torch/csrc/{src}",
          "replaces": f"betacores_tpu/ops/{tpu}", "launches": path["launches"], **k}

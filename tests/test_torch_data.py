@@ -77,11 +77,46 @@ def test_perturb_logreg_repeated_rows_keep_their_last_draw():
 
 
 def test_perturb_logreg_without_corruption_and_structured():
+    """f_rate = 0 changes nothing; the structured branch (reference
+    perturb.py:47-54) replaces int(N f_rate) rows, drawn with replacement,
+    with draws of the adversarial logistic model: the replaced rows are
+    exactly the outlier set, the others are untouched, and their labels
+    follow theta = -1 (the share of +1 labels matches the model's mean
+    probability, far from the clean data's)."""
     X, y, _ = gen_synthetic_logreg(torch.Generator().manual_seed(1), 50, d=4)
     X2, y2, _, out = perturb_logreg(torch.Generator().manual_seed(2), X, y, f_rate=0.0)
     assert torch.equal(X2, X) and torch.equal(y2, y) and out.numel() == 0
-    with pytest.raises(NotImplementedError):
-        perturb_logreg(torch.Generator().manual_seed(2), X, y, structured=True)
+    N, d, f_rate = 20000, 4, 0.1
+    X, y, _ = gen_synthetic_logreg(torch.Generator().manual_seed(1), N, d=d)
+    X2, y2, Z2, out = perturb_logreg(torch.Generator().manual_seed(2), X, y, f_rate=f_rate,
+                                     structured=True)
+    assert torch.equal(Z2, y2[:, None] * X2) and not torch.equal(X2, X)
+    changed = torch.nonzero((X2 != X).any(dim=1))[:, 0]
+    assert torch.equal(changed, out) and torch.equal(out, torch.unique(out))
+    o = int(N * f_rate)
+    assert o * math.exp(-f_rate) * 0.95 < len(out) <= o
+    Xo, yo = X2[out], y2[out]
+    assert abs(float(Xo.mean()) - 0.1) < 0.03               # the adversary's mean_val
+    p_adv = float(torch.sigmoid(-Xo.sum(dim=1)).mean())     # theta = -1
+    assert abs(float((yo > 0).double().mean()) - p_adv) < 0.03
+    assert abs(float((y > 0).double().mean()) - p_adv) > 0.3  # the clean labels differ
+
+
+def test_perturb_logreg_structured_repeated_rows_keep_their_last_draw():
+    """The structured branch, rebuilt from the same generator: a row drawn
+    several times ends with its last draw, rows and labels alike."""
+    N, d, f_rate = 400, 6, 0.5
+    X, y, _ = gen_synthetic_logreg(torch.Generator().manual_seed(1), N, d=d)
+    X2, y2, _, _ = perturb_logreg(torch.Generator().manual_seed(2), X, y, f_rate=f_rate,
+                                  structured=True)
+    g, o = torch.Generator().manual_seed(2), int(N * f_rate)
+    idxx = torch.randint(0, N, (o,), generator=g)
+    Xa, ya, _ = gen_synthetic_logreg(g, o, d=d, mean_val=0.1, std_val=1.0, theta_val=-1.0)
+    assert len(set(idxx.tolist())) < o            # some rows are drawn twice
+    want_X, want_y = X.numpy().copy(), y.numpy().copy()
+    for i, n in enumerate(idxx.tolist()):
+        want_X[n], want_y[n] = Xa[i].numpy(), ya[i].numpy()
+    assert torch.equal(X2, torch.from_numpy(want_X)) and torch.equal(y2, torch.from_numpy(want_y))
 
 
 def test_generators_follow_the_generator_device():

@@ -86,9 +86,9 @@ def replay_jax_draws(key, st, itrs, smp, n_rows, n_samples, n_steps, n_sel, n_op
     return FixedDraws([conv(*p) for p in sel], [conv(*p) for p in opt])
 
 
-def jax_draws(key, st, itrs, n_sel=N_SEL):
+def jax_draws(key, st, itrs, n_sel=N_SEL, n_opt=N_OPT):
     """The draws of the JAX logreg build of this file's configuration."""
-    return replay_jax_draws(key, st, itrs, jsampler(), N, S, T, n_sel, N_OPT)
+    return replay_jax_draws(key, st, itrs, jsampler(), N, S, T, n_sel, n_opt)
 
 
 def _np_state(st):
@@ -196,14 +196,31 @@ def test_composed_route_matches_jax(problem, refit_every):
     dict(), dict(n_subsample_select=None, n_subsample_opt=None),
     dict(n_subsample_opt=None)])
 def test_outside_the_slice_raises(problem, change):
-    """learn_beta is not ported: it raises in every select and refinement
-    mode."""
-    kw = dict(projection_dim=S, n_subsample_select=N_SEL, n_subsample_opt=N_OPT,
-              opt_itrs=T, use_beta=True, learn_beta=True)
-    kw.update(change)
-    with pytest.raises(NotImplementedError):
-        make_incremental_builder(torch.from_numpy(problem), logreg.bundle(),
-                                 logreg_laplace_sampler(), IncrementalConfig(**kw))
+    """learn_beta, which earlier slices left out, in each select and
+    refinement mode (subsampled, full-data, subsampled select with
+    full-data refinement): the joint (w, beta) refinement against the JAX
+    build's under its replayed draws. The JAX learn_beta pass draws per
+    step, splitting each of nn_adam's T step keys into (noise, subsample):
+    the key walk that ``replay_jax_draws`` replays. The same selections and
+    weights as the other build tests, and each iteration's beta within
+    rel 1e-5 or 1e-6 absolute (float32: the error of a few hundred Adam
+    updates of size ~1e-3 each). With i0 = 0.01 beta falls from 0.2 by about 0.04 a
+    selection, so the early iterations hold it off its clamps."""
+    jcfg, tcfg = _cfgs(False, 1, learn_beta=True, i0=0.01, **change)
+    key = jax.random.PRNGKey(3)
+    st0 = _jax_state()
+    jst, (_, _, jbeta) = jbuilder(jnp.asarray(problem), jlogreg.bundle(), jsampler(),
+                                  jcfg).build_trace(key, st0, ITRS)
+    builder = make_incremental_builder(torch.from_numpy(problem), logreg.bundle(),
+                                       logreg_laplace_sampler(), tcfg)
+    assert builder.fstep is None                    # never K1
+    tst, (_, _, tbeta) = builder.build_trace(
+        state_from_numpy(_np_state(st0), device="cpu"), ITRS,
+        jax_draws(key, st0, ITRS, tcfg.n_subsample_select, tcfg.n_subsample_opt))
+    _assert_same_build(state_to_numpy(tst), _np_state(jst))
+    jbeta = np.asarray(jbeta)
+    assert (jbeta[:3] > 0.05).all() and (np.diff(jbeta) <= 0).all()  # it moves
+    np.testing.assert_allclose(tbeta.numpy(), jbeta, rtol=1e-5, atol=1e-6)
 
 
 def test_data_weights_and_plain_model_raise(problem):
@@ -230,3 +247,22 @@ def test_data_weights_and_plain_model_raise(problem):
     make_incremental_builder(Z, plain, NoFit(), cfg)
     with pytest.raises(NotImplementedError):
         make_incremental_builder(Z, plain, NoFit(), _cfgs(False, 4)[1])
+
+
+@pytest.mark.parametrize("refit_every", [1, 4])
+def test_diag_sampler_build_matches_jax(problem, refit_every):
+    """The diagonal-Hessian Laplace sampler on the fused route: K1's plain
+    version with L^-1 formed from the diagonal factor (the sampler has no
+    fit_inv), against the JAX build through the Pallas step, under the
+    JAX build's draws."""
+    jcfg, tcfg = _cfgs(False, refit_every)
+    key = jax.random.PRNGKey(13)
+    st0 = _jax_state()
+    jst = jbuilder(jnp.asarray(problem), jlogreg.bundle(), jsampler(diag=True), jcfg).build(
+        key, st0, ITRS)
+    builder = make_incremental_builder(torch.from_numpy(problem), logreg.bundle(),
+                                       logreg_laplace_sampler(diag=True), tcfg)
+    assert builder.fstep is not None
+    draws = replay_jax_draws(key, st0, ITRS, jsampler(diag=True), N, S, T, N_SEL, N_OPT)
+    tst = builder.build(state_from_numpy(_np_state(st0), device="cpu"), ITRS, draws)
+    _assert_same_build(state_to_numpy(tst), _np_state(jst))

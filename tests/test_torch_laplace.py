@@ -117,3 +117,81 @@ def test_sampler_noise_split_and_dtype(problem):
     ref, ref_mode = smp.from_noise(z, wt, Zt, aux)
     assert torch.equal(samples, ref) and torch.equal(mode, ref_mode)
     assert mode.dtype == z.dtype
+
+
+def _diag_fns(mod, Z, w):
+    return (lambda t: mod.log_joint(Z, t, w), lambda t: mod.grad_th_log_joint(Z, t, w),
+            lambda t: mod.diag_hess_th_log_joint(Z, t, w))
+
+
+@pytest.mark.parametrize("start", ["cold", "warm"])
+def test_newton_laplace_diag_matches_jax(problem, start):
+    """The diagonal-Hessian Newton: a fixed 12-iteration loop on both sides
+    (no early exit in either), so mode and diagonal factor agree to
+    float64 round-off."""
+    Z, w, th = problem
+    mu0 = np.zeros(Z.shape[1]) if start == "cold" else 0.3 * th
+    want = jlaplace.newton_laplace_diag(*_diag_fns(jlogreg, jnp.asarray(Z), jnp.asarray(w)),
+                                        jnp.asarray(mu0), n_iters=12)
+    got = laplace.newton_laplace_diag(*_diag_fns(logreg, torch.from_numpy(Z),
+                                                 torch.from_numpy(w)),
+                                      torch.from_numpy(mu0), n_iters=12)
+    np.testing.assert_allclose(got.mu.numpy(), np.asarray(want.mu), atol=1e-10, rtol=0)
+    np.testing.assert_allclose(got.prec_chol.numpy(), np.asarray(want.prec_chol),
+                               atol=1e-10, rtol=0)
+    L = got.prec_chol.numpy()
+    assert (L == np.diag(np.diag(L))).all() and (np.diag(L) > 0).all()
+
+
+def test_diag_sampler_fit_and_draws_match_jax(problem):
+    """``logreg_laplace_sampler(diag=True)``: n_newton + 4 iterations, its
+    fit and its samples from the same noise, within 1e-10; it has no
+    ``fit_inv``, as in the reference."""
+    Z, w, th = problem
+    rng = np.random.default_rng(4)
+    z = rng.normal(size=(16, Z.shape[1]))
+    aux = 0.1 * th
+    js, ts = jsampler(diag=True), logreg_laplace_sampler(diag=True)
+    assert getattr(ts, "fit_inv", None) is None and getattr(js, "fit_inv", None) is None
+    want = js.fit(jnp.asarray(w), jnp.asarray(Z), jnp.asarray(aux))
+    got = ts.fit(*(torch.from_numpy(a) for a in (w, Z, aux)))
+    np.testing.assert_allclose(got.mu.numpy(), np.asarray(want.mu), atol=1e-10, rtol=0)
+    np.testing.assert_allclose(got.prec_chol.numpy(), np.asarray(want.prec_chol),
+                               atol=1e-10, rtol=0)
+    s_want, a_want = js.from_noise(jnp.asarray(z), jnp.asarray(w), jnp.asarray(Z),
+                                   jnp.asarray(aux))
+    s_got, a_got = ts.from_noise(*(torch.from_numpy(a) for a in (z, w, Z, aux)))
+    np.testing.assert_allclose(s_got.numpy(), np.asarray(s_want), atol=1e-10, rtol=0)
+    np.testing.assert_allclose(a_got.numpy(), np.asarray(a_want), atol=1e-10, rtol=0)
+
+
+@pytest.mark.parametrize("with_inverse", [False, True])
+def test_indefinite_hessian_gives_the_reference_nan_factor(with_inverse):
+    """A target whose -H is not positive definite ([[1, 2], [2, 1]]): the
+    reference's Cholesky gives NaN in the factor's lower triangle, its
+    Newton direction is NaN, every candidate scores -inf and the step is
+    rejected. The port returns the same: mu0, and NaN exactly where the
+    JAX factor (and L^-1) has NaN."""
+    negH = np.array([[1.0, 2.0], [2.0, 1.0]])
+    b = np.array([0.3, -0.2])
+    mu0 = np.array([0.5, 0.25])
+
+    def fns(xp, asarr):
+        A, bb = asarr(negH), asarr(b)
+        return (lambda t: -0.5 * ((t @ A) * t).sum(-1) + t @ bb,
+                lambda t: bb - A @ t, lambda t: -A)
+
+    want = jlaplace.newton_laplace(*fns(jnp, jnp.asarray), jnp.asarray(mu0), n_iters=8,
+                                   with_inverse=with_inverse)
+    got = laplace.newton_laplace(*fns(torch, torch.from_numpy), torch.from_numpy(mu0),
+                                 n_iters=8, with_inverse=with_inverse)
+    np.testing.assert_array_equal(got.mu.numpy(), np.asarray(want.mu))
+    np.testing.assert_array_equal(got.mu.numpy(), mu0)
+    pairs = [(got.prec_chol, want.prec_chol)]
+    if with_inverse:
+        pairs.append((got.prec_chol_inv, want.prec_chol_inv))
+    for g, w in pairs:
+        g, w = g.numpy(), np.asarray(w)
+        assert np.isnan(w).any()
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+        np.testing.assert_array_equal(g[~np.isnan(g)], w[~np.isnan(w)])

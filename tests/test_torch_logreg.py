@@ -103,3 +103,74 @@ def test_matches_numpy_oracle(inputs, name):
                                   for a in args)).numpy()
     np.testing.assert_allclose(got, getattr(oracle, "lr_" + name)(*args),
                                atol=ATOL, rtol=1e-13)
+
+
+def test_diag_hess_th_log_joint(inputs):
+    """The Hessian's diagonal, and equal to the full Hessian's diagonal."""
+    Z, TH, w = inputs
+    got, want = _both(jlogreg.diag_hess_th_log_joint, logreg.diag_hess_th_log_joint,
+                      Z, TH[2], w)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    full = logreg.hess_th_log_joint(*(torch.from_numpy(a) for a in (Z, TH[2], w)))
+    np.testing.assert_allclose(got, torch.diagonal(full).numpy(), atol=ATOL, rtol=0)
+
+
+def test_grad_z_log_likelihood(inputs):
+    """Against the JAX function and the float64 oracle."""
+    from oracle import models as om
+
+    Z, TH, _ = inputs
+    got, want = _both(jlogreg.grad_z_log_likelihood, logreg.grad_z_log_likelihood, Z, TH)
+    assert got.shape == (40, 9, 4)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got, om.lr_grad_z_log_likelihood(Z, TH), atol=ATOL, rtol=0)
+
+
+def test_compute_accuracy_and_predictive_loglik(inputs):
+    """Accuracy exactly (the count of right predictions over the same
+    signs; the JAX mean of booleans is float32, so the counts are
+    compared), the predictive log-likelihood within atol; a score of
+    exactly 0 predicts +1."""
+    Z, TH, _ = inputs
+    Xt, Yt = Z.copy(), np.where(np.arange(40) % 3 == 0, -1.0, 1.0)
+    Xt[5] = 0.0                                  # every score 0: predicted +1
+    got, want = _both(jlogreg.compute_accuracy, logreg.compute_accuracy, Xt, Yt, TH)
+    n = Xt.shape[0] * TH.shape[0]
+    assert round(float(got) * n) == round(float(want) * n) and 0.0 < float(got) < 1.0
+    got, want = _both(jlogreg.predictive_loglik, logreg.predictive_loglik, Z, TH)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("beta", [0.05, 0.5, 1.0])
+def test_beta_gradient_from_autodiff(inputs, beta):
+    """The bundle's d/d(beta) (torch.func.jvp) against the JAX bundle's
+    (jax.jvp) within rtol 1e-10, and against a central difference."""
+    Z, TH, _ = inputs
+    got = logreg.bundle().beta_gradient(torch.from_numpy(Z), torch.from_numpy(TH),
+                                        torch.tensor(beta, dtype=torch.float64)).numpy()
+    want = np.asarray(jlogreg.bundle().beta_gradient(jnp.asarray(Z), jnp.asarray(TH), beta))
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-14)
+    h = 1e-6
+    fd = (logreg.beta_likelihood(torch.from_numpy(Z), torch.from_numpy(TH), beta + h)
+          - logreg.beta_likelihood(torch.from_numpy(Z), torch.from_numpy(TH), beta - h)) / (2 * h)
+    np.testing.assert_allclose(got, fd.numpy(), atol=1e-6)
+
+
+def test_projections_with_grad(inputs):
+    """``project_beta_with_grad`` (the centred beta projection and its
+    centred d/d(beta)) and ``project_ll_with_grad`` (the centred
+    log-likelihood and data-gradient projections) against the JAX
+    projection engine's."""
+    from betacores_tpu.ops import projection as jproj
+    from betacores_tpu_torch.ops import projection as tproj
+
+    Z, TH, _ = inputs
+    jm, tm = jlogreg.bundle(fused=False), logreg.bundle()
+    zj, tj, zt, tt = jnp.asarray(Z), jnp.asarray(TH), torch.from_numpy(Z), torch.from_numpy(TH)
+    pairs = zip(tproj.project_beta_with_grad(tm, zt, tt, torch.tensor(0.3, dtype=torch.float64)),
+                jproj.project_beta_with_grad(jm, zj, tj, 0.3))
+    pairs = list(pairs) + list(zip(tproj.project_ll_with_grad(tm, zt, tt),
+                                   jproj.project_ll_with_grad(jm, zj, tj)))
+    for got, want in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    assert np.allclose(pairs[1][0].mean(dim=1).numpy(), 0.0, atol=1e-12)

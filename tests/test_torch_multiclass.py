@@ -277,3 +277,21 @@ def test_fused_projection_closures_keep_the_rows_dtype(use_beta):
     assert torch.equal(got64, got32.double())
     # mixed: float64 rows with float32 samples still come back as the rows'
     assert call(z64, th64.float()).dtype == torch.float64
+
+
+def test_grad_z_log_likelihood_and_beta_gradient_in_float64():
+    """The data gradient (the label coordinate 0) and the bundle's
+    d/d(beta) (torch.func.jvp of the plain beta-likelihood) against the
+    JAX bundle's (jax.jvp), in float64 within rtol 1e-10."""
+    rng = np.random.default_rng(8)
+    Z = np.c_[rng.normal(size=(30, D_X)), rng.integers(0, K, 30)]
+    TH = rng.normal(size=(7, K * D_X))
+    got, want = _both(jmc.make_grad_z_log_likelihood(K),
+                      multiclass.make_grad_z_log_likelihood(K), Z, TH)
+    assert got.shape == (30, 7, D_X + 1) and (got[:, :, -1] == 0).all()
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-14)
+    for beta in (0.1, 0.7):
+        got = multiclass.bundle(K).beta_gradient(torch.from_numpy(Z), torch.from_numpy(TH),
+                                                 torch.tensor(beta, dtype=torch.float64))
+        want = jmc.bundle(K).beta_gradient(jnp.asarray(Z), jnp.asarray(TH), beta)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-10, atol=1e-14)

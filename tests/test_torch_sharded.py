@@ -106,6 +106,8 @@ CASES = {
     "full_data": ("logreg", dict(n_subsample_select=None, n_subsample_opt=None), False),
     "weighted": ("logreg", dict(), True),
     "multiclass": (("multiclass", K), dict(refit_every=2), False),
+    # small steps keep beta off its clamps for the first iterations
+    "learn_beta": ("logreg", dict(learn_beta=True, i0=0.01), False),
 }
 
 
@@ -241,3 +243,40 @@ def test_collectives_per_step(mesh_run):
     _, ranks, _ = mesh_run
     calls = ranks[0]["jobs"]["parity"]["calls"]
     assert calls == {"psum": ITRS * (3 + 2 * T), "all_gather": ITRS}
+
+
+def test_learn_beta_matches_jax_and_the_single_device_build(mesh_run):
+    """The sharded joint (w, beta) refinement, replicated: against the JAX
+    sharded learn_beta under its draws (beta within rel 1e-5 or 1e-6
+    absolute, float32), with three psums per step (the centring of the
+    rows, the buffer and its beta-gradient; the target; both inner
+    products over S); and on the (1, 1) mesh, where the local indices are
+    the global ones, against the single-device learn_beta build under the
+    same draws."""
+    from betacores_tpu_torch.coresets import (FixedDraws, IncrementalConfig,
+                                             make_incremental_builder, state_from_numpy,
+                                             state_to_numpy)
+    from betacores_tpu_torch.inference import logreg_laplace_sampler
+    from betacores_tpu_torch.models import logreg
+
+    want, ranks, shape = mesh_run
+    assert all(r["jobs"]["learn_beta"]["route"] == "learn_beta" for r in ranks)
+    got = _every_rank(ranks, "learn_beta")
+    _assert_same_build(got, want["learn_beta"])
+    assert 0.01 < float(want["learn_beta"]["beta"]) < BETA
+    np.testing.assert_allclose(got["beta"], want["learn_beta"]["beta"], rtol=1e-5, atol=1e-6)
+    calls = ranks[0]["jobs"]["learn_beta"]["calls"]
+    assert calls == {"psum": ITRS * (3 + 3 * T), "all_gather": ITRS}
+    if shape != (1, 1):
+        return
+    job = ranks[0]["jobs"]["learn_beta"]
+    spec = _jax_case("learn_beta", 1, 1, jax.random.PRNGKey(3))[0]
+    t = lambda a: None if a is None else torch.from_numpy(a[0] if isinstance(a, list) else a)
+    draws = FixedDraws([(t(z), t(i)) for z, i in spec["sel"]],
+                       [(t(z), t(i)) for z, i in spec["opt"]])
+    b = make_incremental_builder(torch.from_numpy(spec["data"]), logreg.bundle(),
+                                 logreg_laplace_sampler(), IncrementalConfig(**spec["cfg"]))
+    single = state_to_numpy(b.build(state_from_numpy(spec["state"], device="cpu"), ITRS,
+                                    draws))
+    _assert_same_build(job["state"], single)
+    np.testing.assert_allclose(job["state"]["beta"], single["beta"], rtol=1e-5, atol=1e-6)
