@@ -21,7 +21,13 @@ JAX package exports it: ``BetaCoreset``, ``SparseVICoreset`` (both with
 ``learn_beta``, ``build_trace``, ``optimize()`` with rollback) and
 ``UniformSamplingCoreset`` over ``BlackBoxProjector`` /
 ``BetaBlackBoxProjector``, with ``select_beta``; they run on the card unless
-given ``device="cpu"``. Modules keep the JAX package's paths and names.
+given ``device="cpu"``. The model families of the reference's experiments
+are ported with their samplers: the known-covariance Gaussian
+(``models.gaussian``, ``gaussian_conjugate_sampler``), linear regression
+(``models.linreg``, ``linreg_conjugate_sampler``), Poisson regression
+(``models.poisson``, ``poisson_laplace_sampler``) and the unknown-covariance
+Gaussian (``models.mvn``, ``mvn.mvn_niw_sampler``, which the builders run on
+their per-step-draw route). Modules keep the JAX package's paths and names.
 This package imports torch and never jax.
 """
 
@@ -31,10 +37,13 @@ from .coresets import (BatchPSVICoreset, BetaBlackBoxProjector, BetaCoreset,
                        HilbertCoreset, IncrementalConfig, SparseVICoreset,
                        UniformSamplingCoreset, init_state, make_incremental_builder,
                        select_beta, state_from_numpy, state_to_numpy, trimmed_mean)
-from .data import (flip_labels, gen_synthetic_logreg, gen_synthetic_multiclass,
+from .data import (flip_labels, gen_synthetic_gaussian, gen_synthetic_linreg,
+                   gen_synthetic_logreg, gen_synthetic_multiclass, gen_synthetic_poisson,
                    perturb_logreg)
-from .inference import fixed_sampler, logreg_laplace_sampler, multiclass_laplace_sampler
-from .models import logreg, multiclass
+from .inference import (fixed_sampler, gaussian_conjugate_sampler, linreg_conjugate_sampler,
+                        logreg_laplace_sampler, multiclass_laplace_sampler,
+                        poisson_laplace_sampler, prior_gaussian_sampler)
+from .models import gaussian, linreg, logreg, multiclass, mvn, poisson
 from .parallel import (make_mesh, make_sharded_incremental_builder, shard_data,
                        shard_weights)
 from .utils import NumericalPrecisionError, set_tolerance, set_verbosity
@@ -46,8 +55,11 @@ __all__ = [
     "trimmed_mean", "NumericalPrecisionError", "set_tolerance", "set_verbosity",
     "CoresetState", "FixedDraws", "GeneratorDraws", "IncrementalConfig",
     "init_state", "make_incremental_builder", "state_from_numpy",
-    "state_to_numpy", "flip_labels", "gen_synthetic_logreg",
-    "gen_synthetic_multiclass", "perturb_logreg", "fixed_sampler",
-    "logreg_laplace_sampler", "multiclass_laplace_sampler", "logreg", "multiclass", "make_mesh",
+    "state_to_numpy", "flip_labels", "gen_synthetic_gaussian", "gen_synthetic_linreg",
+    "gen_synthetic_logreg", "gen_synthetic_multiclass", "gen_synthetic_poisson",
+    "perturb_logreg", "fixed_sampler", "gaussian_conjugate_sampler",
+    "linreg_conjugate_sampler", "logreg_laplace_sampler", "multiclass_laplace_sampler",
+    "poisson_laplace_sampler", "prior_gaussian_sampler", "gaussian", "linreg", "logreg",
+    "multiclass", "mvn", "poisson", "make_mesh",
     "make_sharded_incremental_builder", "shard_data", "shard_weights",
 ]

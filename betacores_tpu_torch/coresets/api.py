@@ -20,7 +20,7 @@ at construction; ``error()`` draws from a second one, seeded
 
 Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
 item that brings them: ``groups=`` (Queue A item 9), ``ContextualProjector``
-(item 7), ``refine()`` (item 8), ``HilbertCoreset`` (item 8) and
+(item 7b), ``refine()`` (item 8), ``HilbertCoreset`` (item 8) and
 ``BatchPSVICoreset`` (item 9).
 """
 
@@ -70,7 +70,8 @@ class BlackBoxProjector:
     library models, with their kernels); otherwise one is made from the
     loose ``loglikelihood`` (and ``grad_loglikelihood``). ``theta_dim`` is
     the parameter dimension when it is not the rows' (e.g. the multiclass
-    family's K*d)."""
+    family's K*d, the unknown-covariance Gaussian's d + d*d, Poisson
+    regression's D - 1)."""
 
     def __init__(self, sampler, projection_dimension: int, loglikelihood=None,
                  grad_loglikelihood=None, theta_dim: Optional[int] = None, model=None):
@@ -119,7 +120,7 @@ class ContextualProjector:
     contextual = True
 
     def __init__(self, *args, **kwargs):
-        raise _not_ported("ContextualProjector (contextual builds)", "7")
+        raise _not_ported("ContextualProjector (contextual builds)", "7b")
 
 
 def _as_data(data, device: torch.device) -> torch.Tensor:
@@ -262,7 +263,7 @@ class _IncrementalCoreset(Coreset):
         if groups is not None:
             raise _not_ported("groups=", "9")
         if getattr(ll_projector, "contextual", False):
-            raise _not_ported("a contextual projector", "7")
+            raise _not_ported("a contextual projector", "7b")
         self.projector = ll_projector  # before super(): _init_aux reads theta_dim
         super().__init__(data, seed=seed, max_size=max_size, beta=beta, device=device, **kw)
         if learn_beta is not None:
@@ -283,7 +284,7 @@ class _IncrementalCoreset(Coreset):
         # the error draws come from their own stream, so drawing them never
         # shifts the build's; they are drawn once per build
         self._error_keys = KeySequence(seed ^ 0x5EED0, self.device)
-        self._error_draws = self._draw_error()
+        self._error_seed = self._draw_error()
 
     @property
     def selected_groups(self):
@@ -295,28 +296,27 @@ class _IncrementalCoreset(Coreset):
         this instance's key sequence."""
         return self._builder.generator_draws(self.keys())
 
-    def _draw_error(self):
-        """The (z, idx) pair ``error()`` replays until the next build: S
-        noise rows and, under subsampled refinement, the subsample."""
-        gen, st, b = self._error_keys(), self.state, self._builder
-        z = b.sampler.draw_noise(gen, self._cfg.projection_dim, st.wts, st.pts,
-                                 st.sampler_aux)
-        idx = None if b.n_opt is None else draw_subsample(gen, self.data.shape[0], b.n_opt)[0]
-        return z, idx
+    def _draw_error(self) -> int:
+        """The seed of the generator ``error()`` draws its projection from
+        until the next build: every call remakes that generator, so it
+        draws the same S posterior samples and, under subsampled
+        refinement, the same subsample."""
+        return self._error_keys().initial_seed()
 
     def _build(self, itrs: int, sz: int) -> None:
         if self.size() + itrs > sz:
             raise ValueError(f"{self.__class__.__name__}._build(): itrs + current size "
                              f"({self.size()} + {itrs}) exceeds desired size {sz}")
         self.state = self._builder.build(self.state, int(itrs), self._draws(int(itrs)))
-        self._error_draws = self._draw_error()
+        self._error_seed = self._draw_error()
 
     def error(self) -> float:
         """The tangent-space residual norm of the current coreset under the
         projection drawn at the last build (the reference's incremental
         coresets return 0 here, which leaves ``optimize()``'s rollback
         guard vacuous)."""
-        return float(self._builder.error(self.state, self._error_draws))
+        gen = torch.Generator(device=self.device).manual_seed(self._error_seed)
+        return float(self._builder.error(self.state, gen))
 
     def _optimize(self) -> None:
         self.state = self._builder.optimize(self.state,
@@ -336,7 +336,7 @@ class _IncrementalCoreset(Coreset):
         st, (W, I, B) = self._builder.build_trace(self.state, int(itrs),
                                                   self._draws(int(itrs)))
         self.state = st
-        self._error_draws = self._draw_error()
+        self._error_seed = self._draw_error()
         N = self.data.shape[0]
         I_dev = I.to(torch.int64)
         P = self.data[I_dev.clamp(0, N - 1)].cpu().numpy()   # (itrs, cap, D)

@@ -37,6 +37,19 @@ Random draws are separated from compute: ``build`` takes a draws provider
 (``GeneratorDraws`` draws from a ``torch.Generator``; ``FixedDraws``
 replays given tensors, e.g. the JAX package's own draws).
 
+A sampler without a noise split (``draw_noise``/``from_noise``), such as
+the NIW sampler of models/mvn.py, whose gamma shapes change with the
+weights at every step, cannot have a pass's noise drawn ahead. It takes the
+per-step-draw route, the reference's path for such a sampler (its
+``nn_adam`` with per-step keys): select and every refinement step call
+``sampler(generator, S, w, pts, aux)`` and then draw the step's subsample,
+from the generator of a ``GeneratorDraws`` (``FixedDraws`` raises). The
+subsampled pass draws from a generator the pass keeps, into which the
+draws' generator state is copied before the pass and from which it is
+copied back after, so the stream is the one drawing from the draws'
+generator would give; on a CUDA device the pass is captured like the
+composed route, with that generator registered with each graph.
+
 Where the reference's build is one jitted program, a subsampled refinement
 pass here is a device-resident program too: the builder keeps static
 buffers for everything a pass reads or carries (``FusedPass`` of
@@ -102,6 +115,34 @@ def laplace_family(sampler) -> bool:
     ``from_fit``, ``fit_aux``), as the fused step and lagged refits need."""
     return all(getattr(sampler, n, None) is not None
                for n in ("fit", "from_fit", "fit_aux"))
+
+
+def noise_split(sampler) -> bool:
+    """Whether ``sampler`` splits its draws from its transform
+    (``draw_noise``, ``from_noise``); a sampler without the split takes the
+    per-step-draw route."""
+    return all(getattr(sampler, n, None) is not None for n in ("draw_noise", "from_noise"))
+
+
+def require_lagged_fit(sampler, config: IncrementalConfig) -> None:
+    """Raises unless ``sampler`` serves the lagged refits a subsampled
+    ``refit_every > 1`` build asks for (``fit``, ``from_fit``,
+    ``fit_aux``): the reference ignores ``refit_every`` for a sampler
+    without them, the port refuses it."""
+    if config.n_subsample_opt is None or config.refit_every == 1 or config.learn_beta:
+        return
+    for name in ("fit", "from_fit", "fit_aux"):
+        if getattr(sampler, name, None) is None:
+            raise NotImplementedError(f"refit_every > 1 needs a sampler with fit, "
+                                      f"from_fit and fit_aux; this one lacks {name}")
+
+
+def _generator_of(draws) -> torch.Generator:
+    gen = getattr(draws, "generator", None)
+    if gen is None:
+        raise ValueError("a sampler without a noise split draws inside each step: pass "
+                         "draws with a generator (GeneratorDraws), not replayed tensors")
+    return gen
 
 
 def _target_sum(vecs, usub):
@@ -197,12 +238,18 @@ class _ComposedPass:
     utils/opt.py::nn_adam's step on those buffers. Under ``learn_beta`` the
     carry is x = [w, beta], M_buf + 1 long; a builder's configuration is
     fixed, so its passes are all of one kind, and a learn_beta pass never
-    shares buffers or graphs with a weights-only pass of the same size."""
+    shares buffers or graphs with a weights-only pass of the same size.
+
+    On the per-step-draw route (``z_all`` None: a sampler without a noise
+    split) there is no pre-drawn noise or rows: each step calls the
+    sampler on the pass's own generator ``gen`` and then draws its
+    subsample from it."""
 
     def __init__(self, builder: "IncrementalBuilder", st: CoresetState, z_all, runner):
         cfg, smp = builder.config, builder.sampler
         dt, dev = builder.data.dtype, builder.data.device
-        T, n_opt = z_all.shape[0], builder.n_opt
+        T = builder.step_sizes.shape[0] if z_all is None else z_all.shape[0]
+        n_opt = builder.n_opt
         M_buf, D = st.pts.shape
         self.builder, self.runner, self.n_steps = builder, runner, T
         self.learn_beta = cfg.learn_beta
@@ -210,11 +257,17 @@ class _ComposedPass:
         self.lagged = cfg.refit_every > 1 and not self.learn_beta
         # ... and projects the subsample and the buffer separately
         self.joint = not self.learn_beta and builder._joint_rows_identical(n_opt + M_buf)
-        self.rows_all = torch.empty((T, n_opt + (M_buf if self.joint else 0), D),
-                                    dtype=dt, device=dev)
-        self.z_all = torch.empty_like(z_all)
-        self.u_all = (None if builder.u is None
-                      else torch.empty((T, n_opt), dtype=dt, device=dev))
+        self.gen = None
+        if z_all is None:
+            self.gen = torch.Generator(device=dev)
+            runner.generators = (self.gen,)
+            self.rows_all = self.z_all = self.u_all = None
+        else:
+            self.rows_all = torch.empty((T, n_opt + (M_buf if self.joint else 0), D),
+                                        dtype=dt, device=dev)
+            self.z_all = torch.empty_like(z_all)
+            self.u_all = (None if builder.u is None
+                          else torch.empty((T, n_opt), dtype=dt, device=dev))
         self.st = CoresetState(*(torch.empty_like(t) for t in st))
         n_x = M_buf + (1 if self.learn_beta else 0)
         self.x, self.m1, self.m2 = (torch.zeros(n_x, dtype=st.wts.dtype, device=dev)
@@ -230,25 +283,37 @@ class _ComposedPass:
             fit_dtype = torch.promote_types(torch.promote_types(st.wts.dtype, st.pts.dtype),
                                             st.sampler_aux.dtype)
             self.carry = torch.empty_like(st.sampler_aux, dtype=fit_dtype)
-        self.like = signature((*st, z_all))
+        self.weighted = builder.u is not None
+        # a per-step-draw step gathers its rows from the data itself, so a
+        # captured one reads these tensors (``build_with_data`` swaps them)
+        self.reads = (builder.data, builder.u) if z_all is None else None
+        self.like = signature((*st, *(() if z_all is None else (z_all,))))
 
     def serves(self, st, z_all) -> bool:
         """Whether these buffers fit this state, these draws and the
-        builder's data weights (``build_with_data`` may bring or drop them)."""
-        return (self.like == signature((*st, z_all))
-                and (self.u_all is None) == (self.builder.u is None))
+        builder's data and data weights (``build_with_data`` may bring or
+        drop them)."""
+        b = self.builder
+        return (self.like == signature((*st, *(() if z_all is None else (z_all,))))
+                and self.weighted == (b.u is not None)
+                and (self.reads is None or (self.reads[0] is b.data and self.reads[1] is b.u)))
 
-    def fill(self, st: CoresetState, z_all, idx_all) -> None:
+    def fill(self, st: CoresetState, z_all, idx_all, generator=None) -> None:
+        """Copies the state and the pass's draws in: pre-drawn noise and
+        rows, or on the per-step-draw route the state of ``generator``."""
         b, n_opt = self.builder, self.builder.n_opt
         _store(self.st, st)
-        self.z_all.copy_(z_all)
-        self.rows_all[:, :n_opt] = b.data[idx_all]
-        if self.joint:
-            # the buffer is constant over the pass: appended to every
-            # step's rows once, outside the loop
-            self.rows_all[:, n_opt:] = st.pts
-        if self.u_all is not None:
-            self.u_all.copy_(b.u[idx_all])
+        if self.gen is not None:
+            self.gen.set_state(generator.get_state())
+        else:
+            self.z_all.copy_(z_all)
+            self.rows_all[:, :n_opt] = b.data[idx_all]
+            if self.joint:
+                # the buffer is constant over the pass: appended to every
+                # step's rows once, outside the loop
+                self.rows_all[:, n_opt:] = st.pts
+            if self.u_all is not None:
+                self.u_all.copy_(b.u[idx_all])
         M_buf = st.wts.shape[0]
         self.x[:M_buf].copy_(st.wts)
         if self.learn_beta:
@@ -263,19 +328,25 @@ class _ComposedPass:
         sst = self.st
         _store(self.carry, self.builder.sampler.fit(sst.wts, sst.pts, sst.sampler_aux))
 
+    def _drawn_step(self, w):
+        """(samples, rows, usub) of a per-step-draw step: the sampler's
+        draw, then the subsample, from the pass's generator."""
+        b, sst = self.builder, self.st
+        samples, aux = b.sampler(self.gen, b.config.projection_dim, w, sst.pts, self.carry)
+        self.carry.copy_(aux)
+        idx, _ = draw_subsample(self.gen, b.data.shape[0], b.n_opt)
+        rows = b.data.index_select(0, idx)
+        if self.joint:
+            rows = torch.cat([rows, sst.pts])
+        return samples, rows, None if b.u is None else b.u.index_select(0, idx)
+
     def _step(self, refit: bool) -> None:
-        b, sst, smp = self.builder, self.st, self.builder.sampler
-        z = self.z_all.index_select(0, self.i)[0]
-        rows = self.rows_all.index_select(0, self.i)[0]
-        usub = None if self.u_all is None else self.u_all.index_select(0, self.i)[0]
+        b, sst = self.builder, self.st
         w = self.x[:sst.wts.shape[0]]
-        if self.lagged:
-            if refit:
-                _store(self.carry, smp.fit(w, sst.pts, smp.fit_aux(self.carry)))
-            samples = smp.from_fit(self.carry, z)
+        if self.gen is not None:
+            samples, rows, usub = self._drawn_step(w)
         else:
-            samples, aux = smp.from_noise(z, w, sst.pts, self.carry)
-            self.carry.copy_(aux)
+            samples, rows, usub = self._pre_drawn_step(w, refit)
         scaling = b.data.shape[0] / b.n_opt
         if self.learn_beta:
             g = b._joint_grad(self.x, samples, rows, usub, scaling, sst)
@@ -289,6 +360,21 @@ class _ComposedPass:
         self.m1.copy_(m1)
         self.m2.copy_(m2)
         self.i.add_(1)
+
+    def _pre_drawn_step(self, w, refit: bool):
+        """(samples, rows, usub) of a step on pre-drawn noise and rows."""
+        smp = self.builder.sampler
+        z = self.z_all.index_select(0, self.i)[0]
+        rows = self.rows_all.index_select(0, self.i)[0]
+        usub = None if self.u_all is None else self.u_all.index_select(0, self.i)[0]
+        if self.lagged:
+            if refit:
+                _store(self.carry, smp.fit(w, self.st.pts, smp.fit_aux(self.carry)))
+            samples = smp.from_fit(self.carry, z)
+        else:
+            samples, aux = smp.from_noise(z, w, self.st.pts, self.carry)
+            self.carry.copy_(aux)
+        return samples, rows, usub
 
     def run(self) -> None:
         k = self.builder.config.refit_every
@@ -326,6 +412,7 @@ class IncrementalBuilder:
         self.step_sizes = step_sizes
         self.u = data_weights
         self.graph = resolve_graph(graph, data.device)
+        self.per_step = not noise_split(sampler)
         N = data.shape[0]
         self.n_sel = (None if config.n_subsample_select is None
                       else min(N, config.n_subsample_select))
@@ -411,8 +498,13 @@ class IncrementalBuilder:
     def select(self, st: CoresetState, draws: Draws, it: int = 0) -> CoresetState:
         """Reference bcores.py:74-90 / sparsevi.py:74-96."""
         data, S, n_sel = self.data, self.config.projection_dim, self.n_sel
-        z, sub_idcs = draws.select(it, st)
-        samples, aux = self.sampler.from_noise(z, st.wts, st.pts, st.sampler_aux)
+        if self.per_step:
+            gen = _generator_of(draws)
+            samples, aux = self.sampler(gen, S, st.wts, st.pts, st.sampler_aux)
+            sub_idcs = None if n_sel is None else draw_subsample(gen, data.shape[0], n_sel)[0]
+        else:
+            z, sub_idcs = draws.select(it, st)
+            samples, aux = self.sampler.from_noise(z, st.wts, st.pts, st.sampler_aux)
         slot_mask = st.slot_mask
         if n_sel is None:
             # every row is a candidate: the data and the buffer project
@@ -481,11 +573,17 @@ class IncrementalBuilder:
         refits the posterior, projects every row and the buffer separately,
         and takes the exact target sum_n u_n v_n."""
         smp, S = self.sampler, self.config.projection_dim
-        z_all, _ = draws.optimize(it, st)
         learn_beta, M_buf = self.config.learn_beta, st.wts.shape[0]
+        if self.per_step:
+            gen, xs = _generator_of(draws), None
+        else:
+            xs = (draws.optimize(it, st)[0],)
 
-        def grad_fn(x, aux, i, xs_i):
-            samples, aux = smp.from_noise(xs_i[0], x[:M_buf], st.pts, aux)
+        def grad_fn(x, aux, i, xs_i=None):
+            if xs_i is None:
+                samples, aux = smp(gen, S, x[:M_buf], st.pts, aux)
+            else:
+                samples, aux = smp.from_noise(xs_i[0], x[:M_buf], st.pts, aux)
             if learn_beta:
                 return self._joint_grad(x, samples, self.data, self.u, 1.0, st), aux
             vecs, corevecs = self._tangent(self.data, st, samples, joint=False)
@@ -496,7 +594,7 @@ class IncrementalBuilder:
         if key not in self._bias_corrections:       # formed on the host: once per builder
             self._bias_corrections[key] = adam_bias_corrections(self.step_sizes.shape[0], *key)
         x0 = torch.cat([st.wts, st.beta.reshape(1)]) if learn_beta else st.wts
-        x, aux = nn_adam(x0, grad_fn, st.sampler_aux, self.step_sizes, xs=(z_all,),
+        x, aux = nn_adam(x0, grad_fn, st.sampler_aux, self.step_sizes, xs=xs,
                          bias_corrections=self._bias_corrections[key])
         if learn_beta:
             st = st._replace(beta=self._clamp_beta(x[M_buf]))
@@ -507,13 +605,21 @@ class IncrementalBuilder:
         the sampler turns the step's noise into samples (refitting the
         posterior, or every k-th step with ``refit_every``), the subsample
         and the buffer are projected, and the projected-Adam update takes
-        the gradient -(corevecs @ resid) / S (``_ComposedPass``)."""
-        z_all, idx_all = draws.optimize(it, st)
+        the gradient -(corevecs @ resid) / S (``_ComposedPass``). On the
+        per-step-draw route the pass draws from a copy of the draws'
+        generator, whose state is copied back after."""
+        gen = z_all = idx_all = None
+        if self.per_step:
+            gen = _generator_of(draws)
+        else:
+            z_all, idx_all = draws.optimize(it, st)
         p = self._composed
         if p is None or not p.serves(st, z_all):
             p = self._composed = _ComposedPass(self, st, z_all, self._runner())
-        p.fill(st, z_all, idx_all)
+        p.fill(st, z_all, idx_all, gen)
         p.run()
+        if gen is not None:
+            gen.set_state(p.gen.get_state())
         return p.result(st)
 
     def _optimize_fused(self, st: CoresetState, draws: Draws, it: int) -> CoresetState:
@@ -588,8 +694,9 @@ def make_tangent_error(data: torch.Tensor, model, sampler, config: IncrementalCo
     (u_n = 1 without ``data_weights``), over the refinement's subsample or,
     with ``n_subsample_opt=None``, over every row (reference
     incremental.py:606-654). ``draws`` is a ``torch.Generator`` on the
-    data's device, from which the S noise rows and then the subsample are
-    drawn, or a pair (z (S, d), idx (n_opt,) or None) to replay. The same
+    data's device, from which the sampler draws its S samples and then the
+    subsample is drawn, or a pair (z (S, d), idx (n_opt,) or None) to
+    replay through a sampler with a noise split. The same
     draws on two states compare them under the same samples and rows."""
     N, S = data.shape[0], config.projection_dim
     n_opt = None if config.n_subsample_opt is None else min(N, config.n_subsample_opt)
@@ -597,16 +704,15 @@ def make_tangent_error(data: torch.Tensor, model, sampler, config: IncrementalCo
 
     def error(st: CoresetState, draws) -> torch.Tensor:
         if isinstance(draws, torch.Generator):
-            z = sampler.draw_noise(draws, S, st.wts, st.pts, st.sampler_aux)
+            samples, _ = sampler(draws, S, st.wts, st.pts, st.sampler_aux)
             idx = None if n_opt is None else draw_subsample(draws, N, n_opt)[0]
         else:
             z, idx = draws
-            z = z.to(data.device)
+            samples, _ = sampler.from_noise(z.to(data.device), st.wts, st.pts, st.sampler_aux)
             idx = None if idx is None else idx.to(data.device)
         if (idx is None) != (n_opt is None):
             raise ValueError("error: the draws carry a subsample exactly when the "
                              "refinement is subsampled")
-        samples, _ = sampler.from_noise(z, st.wts, st.pts, st.sampler_aux)
         if config.use_beta:
             proj = lambda pts: project_beta(model, pts, samples, st.beta)
         else:
@@ -633,14 +739,16 @@ def make_incremental_builder(
     graph: Optional[bool] = None,
 ) -> IncrementalBuilder:
     """The builder over ``data`` (N, D): select over every row or a
-    subsample, refinement on a subsample or every row, a Laplace-family
-    sampler, optional (N,) base-data weights ``data_weights``. ``graph``:
-    whether the subsampled refinement passes run as replayed CUDA graphs
-    (None: on a CUDA device; True elsewhere raises). A subsampled,
-    unweighted refinement takes the model's fused step when it has one
-    when the sampler is a Laplace family (``fit``, ``from_fit``,
-    ``fit_aux``; ``fit_inv`` when present), else the composed route (which
-    needs ``fit``, ``from_fit`` and ``fit_aux`` for lagged refits).
+    subsample, refinement on a subsample or every row, optional (N,)
+    base-data weights ``data_weights``. ``graph``: whether the subsampled
+    refinement passes run as replayed CUDA graphs (None: on a CUDA device;
+    True elsewhere raises). A subsampled, unweighted refinement takes the
+    model's fused step when it has one when the sampler is a Laplace family
+    (``fit``, ``from_fit``, ``fit_aux``; ``fit_inv`` when present), else the
+    composed route (which needs ``fit``, ``from_fit`` and ``fit_aux`` for
+    lagged refits). A sampler with a noise split (the Laplace, conjugate,
+    fixed and prior samplers) has its noise drawn per pass; one without
+    (the NIW sampler) takes the per-step-draw route (module docstring).
     ``learn_beta`` refines beta too, through the composed or full-data
     route; it needs a model with ``beta_gradient``. A sampler the route
     cannot use raises NotImplementedError rather than taking another
@@ -653,16 +761,14 @@ def make_incremental_builder(
             raise ValueError(f"data_weights must be ({N},), got "
                              f"{tuple(data_weights.shape)}")
         data_weights = data_weights.to(dtype=data.dtype, device=data.device)
-    # full-data refinement and learn_beta refit every step through
-    # from_noise; the fused route takes only Laplace-family samplers
-    needs = ["draw_noise", "from_noise"]
-    if (config.n_subsample_opt is not None and config.refit_every > 1
-            and not config.learn_beta):
-        needs += ["fit", "from_fit", "fit_aux"]
-    for name in needs:
-        if getattr(sampler, name, None) is None:
-            raise NotImplementedError(f"sampler lacks {name}: only Laplace-family "
-                                      "samplers are ported")
+    # full-data refinement and learn_beta refit every step; lagged refits
+    # need a Laplace-family sampler; a sampler without a noise split takes
+    # the per-step-draw route
+    if not noise_split(sampler) and not callable(sampler):
+        raise NotImplementedError("the sampler has neither a noise split (draw_noise, "
+                                  "from_noise) nor a call sampler(generator, n, wts, pts, "
+                                  "aux)")
+    require_lagged_fit(sampler, config)
     if step_sizes is None:
         step_sizes = step_schedule(config.i0, config.opt_itrs, dtype=data.dtype,
                                    device=data.device)

@@ -1,7 +1,7 @@
-"""Evaluation metrics (counterpart of betacores_tpu/evaluation): the
-logistic posterior's test accuracy and predictive log-likelihood over
-posterior samples. The Gaussian metrics wait for the Gaussian family."""
+"""Evaluation metrics (counterpart of betacores_tpu/evaluation)."""
 
-from ..models.logreg import compute_accuracy, predictive_loglik
+from .metrics import (compute_accuracy, gaussian_KL, predictive_loglik, regression_rmse_nll,
+                      reverse_forward_kl)
 
-__all__ = ["compute_accuracy", "predictive_loglik"]
+__all__ = ["compute_accuracy", "gaussian_KL", "predictive_loglik", "regression_rmse_nll",
+           "reverse_forward_kl"]

@@ -1,14 +1,21 @@
 """Posterior samplers (counterpart of betacores_tpu/inference/samplers.py).
 
-The Laplace samplers of logistic (full or diagonal Hessian) and multiclass
-(softmax) regression are ported, and ``fixed_sampler``. They keep the reference's split between drawing noise and
-transforming it, so a builder can draw a whole refinement pass's noise up
-front (or replay another implementation's draws):
+The Laplace samplers of logistic (full or diagonal Hessian), multiclass
+(softmax) and Poisson regression, the exact conjugate samplers of the
+known-covariance Gaussian and of linear regression, ``fixed_sampler`` and
+``prior_gaussian_sampler`` are ported. They keep the reference's split
+between drawing noise and transforming it, so a builder can draw a whole
+refinement pass's noise up front (or replay another implementation's
+draws):
 
     sampler(gen, n, wts, pts, aux) == sampler.from_noise(
         sampler.draw_noise(gen, n, wts, pts, aux), wts, pts, aux)
 
-``aux`` is the previous Laplace mode (warm start).
+``aux`` is the previous Laplace mode (warm start); the conjugate samplers
+pass it through. The noise is drawn in the dtype the transform computes
+in: a mismatch would fork a pre-drawn stream from a per-step one. The NIW
+sampler of the unknown-covariance Gaussian lives with its model
+(models/mvn.py) and has no noise split.
 """
 
 from __future__ import annotations
@@ -17,7 +24,8 @@ import dataclasses
 
 import torch
 
-from ..models import logreg, multiclass
+from ..models import gaussian, linreg, logreg, multiclass, poisson
+from ..models.base import Prior
 from .laplace import (LaplaceApprox, newton_laplace, newton_laplace_diag,
                       sample_laplace_from_noise)
 
@@ -83,23 +91,28 @@ class LogregLaplaceSampler(_LaplaceSampler):
         return self.fit(wts, pts, aux, with_inverse=True)
 
 
-@dataclasses.dataclass(frozen=True)
-class LogregDiagLaplaceSampler(_LaplaceSampler):
-    """The diagonal-Hessian Laplace sampler (the reference's ``graddiag``):
+class _DiagLaplaceSampler(_LaplaceSampler):
+    """A diagonal-Hessian Laplace sampler (the reference's ``graddiag``):
     ``n_newton + 4`` fixed iterations of ``newton_laplace_diag``, and the
-    factor diag(sqrt(-diag_hess)). It has no ``fit_inv``, as in the
+    factor diag(sqrt(-diag_hess)); ``_target`` returns the
+    (log_joint, grad, diag_hess) closures. It has no ``fit_inv``, as in the
     reference: the fused step forms L^-1 from the diagonal factor
     (ops/kernels.py::make_refit_state)."""
-
-    n_newton: int = 8
 
     def fit(self, wts, pts, aux) -> LaplaceApprox:
         dt = _fit_dtype(wts, pts, aux)
         wts, pts, aux = wts.to(dt), pts.to(dt), aux.to(dt)
-        return newton_laplace_diag(lambda th: logreg.log_joint(pts, th, wts),
-                                   lambda th: logreg.grad_th_log_joint(pts, th, wts),
-                                   lambda th: logreg.diag_hess_th_log_joint(pts, th, wts),
-                                   aux, n_iters=self.n_newton + 4)
+        return newton_laplace_diag(*self._target(wts, pts), aux, n_iters=self.n_newton + 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class LogregDiagLaplaceSampler(_DiagLaplaceSampler):
+    n_newton: int = 8
+
+    def _target(self, wts, pts):
+        return (lambda th: logreg.log_joint(pts, th, wts),
+                lambda th: logreg.grad_th_log_joint(pts, th, wts),
+                lambda th: logreg.diag_hess_th_log_joint(pts, th, wts))
 
 
 def logreg_laplace_sampler(diag: bool = False, n_newton: int = 8):
@@ -134,6 +147,103 @@ def multiclass_laplace_sampler(n_classes: int, n_newton: int = 12) -> Multiclass
     return MulticlassLaplaceSampler(n_classes=n_classes, n_newton=n_newton)
 
 
+@dataclasses.dataclass(frozen=True)
+class PoissonLaplaceSampler(_LaplaceSampler):
+    """Laplace sampler for Poisson regression (softplus link). Newton takes
+    the expected (Fisher) Hessian, negative definite everywhere, so the fit
+    is Fisher scoring. It has no ``fit_inv``, as in the reference."""
+
+    n_newton: int = 10
+
+    def _target(self, wts, pts):
+        return (lambda th: poisson.log_joint(pts, th, wts),
+                lambda th: poisson.grad_th_log_joint(pts, th, wts),
+                lambda th: poisson.hess_th_log_joint(pts, th, wts))
+
+
+@dataclasses.dataclass(frozen=True)
+class PoissonDiagLaplaceSampler(_DiagLaplaceSampler):
+    n_newton: int = 10
+
+    def _target(self, wts, pts):
+        return (lambda th: poisson.log_joint(pts, th, wts),
+                lambda th: poisson.grad_th_log_joint(pts, th, wts),
+                lambda th: poisson.diag_hess_th_log_joint(pts, th, wts))
+
+
+def poisson_laplace_sampler(diag: bool = False, n_newton: int = 10):
+    """Laplace sampler for Poisson regression, with the full expected
+    Hessian or (``diag``) its diagonal; pass zeros of dim D - 1 as the
+    initial ``aux``."""
+    if diag:
+        return PoissonDiagLaplaceSampler(n_newton=n_newton)
+    return PoissonLaplaceSampler(n_newton=n_newton)
+
+
+class _ConjugateSampler:
+    """An exact weighted-posterior sampler of a Gaussian posterior:
+    theta = mu + L^-T z from ``_post(prior, wts, pts)``. The noise is drawn
+    in the dtype the posterior computes in, the promotion of the prior's,
+    the weights' and the rows' (as the reference's ``draw_noise`` reads it
+    off the posterior). It has no ``fit``: lagged refits raise."""
+
+    def __init__(self, *prior):
+        self.prior = Prior(*prior)
+
+    def _post(self, prior, wts, pts) -> gaussian.GaussianPosterior:
+        raise NotImplementedError
+
+    def _dtype(self, wts, pts) -> torch.dtype:
+        return torch.promote_types(self.prior.dtype,
+                                   torch.promote_types(wts.dtype, pts.dtype))
+
+    def posterior(self, wts, pts) -> gaussian.GaussianPosterior:
+        dt = self._dtype(wts, pts)
+        return self._post(self.prior.at(dt, pts.device), wts.to(dt), pts.to(dt))
+
+    def draw_noise(self, generator, n, wts, pts, aux):
+        return torch.randn((n, self.prior.tensors[0].shape[0]), generator=generator,
+                           dtype=self._dtype(wts, pts), device=pts.device)
+
+    def from_noise(self, z, wts, pts, aux):
+        return gaussian.sample_gaussian_prec_from_noise(self.posterior(wts, pts), z), aux
+
+    def __call__(self, generator, n, wts, pts, aux):
+        return self.from_noise(self.draw_noise(generator, n, wts, pts, aux), wts, pts, aux)
+
+
+class GaussianConjugateSampler(_ConjugateSampler):
+    """The known-covariance Gaussian's exact weighted posterior."""
+
+    def _post(self, prior, wts, pts):
+        mu0, Sig0inv, Siginv = prior
+        return gaussian.weighted_post(mu0, Sig0inv, Siginv, pts, wts)
+
+
+def gaussian_conjugate_sampler(mu0, Sig0inv, Siginv) -> GaussianConjugateSampler:
+    """Exact weighted-posterior sampler of the known-covariance Gaussian
+    (with the correct factor order, models/gaussian.py)."""
+    return GaussianConjugateSampler(mu0, Sig0inv, Siginv)
+
+
+class LinregConjugateSampler(_ConjugateSampler):
+    """Bayesian linear regression's exact weighted posterior."""
+
+    def __init__(self, mu0, Sig0inv, sigsq):
+        super().__init__(mu0, Sig0inv)
+        self.sigsq = sigsq
+
+    def _post(self, prior, wts, pts):
+        mu0, Sig0inv = prior
+        return linreg.weighted_post(mu0, Sig0inv, self.sigsq, pts, wts)
+
+
+def linreg_conjugate_sampler(mu0, Sig0inv, sigsq) -> LinregConjugateSampler:
+    """Exact weighted-posterior sampler of Bayesian linear regression with
+    noise variance ``sigsq``."""
+    return LinregConjugateSampler(mu0, Sig0inv, sigsq)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class FixedSampler:
     """A deterministic sampler returning the first n rows of a fixed (S, d)
@@ -160,3 +270,31 @@ class FixedSampler:
 def fixed_sampler(samples: torch.Tensor) -> FixedSampler:
     """A sampler that always returns ``samples[:n]``."""
     return FixedSampler(samples)
+
+
+class PriorGaussianSampler:
+    """Draws from a fixed Gaussian N(mu, LSig LSig^T) whatever the coreset
+    (the reference's mis-tuned "realistic" projector). The reference draws
+    in one call; the port splits it like the other samplers
+    (``draw_noise``: z ~ N(0, I) in mu's dtype, ``from_noise``:
+    mu + z @ LSig^T), so the builders take it on their usual routes."""
+
+    def __init__(self, mu, LSig):
+        self.prior = Prior(mu, LSig)
+
+    def draw_noise(self, generator, n, wts, pts, aux):
+        mu = self.prior.tensors[0]
+        return torch.randn((n, mu.shape[0]), generator=generator, dtype=mu.dtype,
+                           device=pts.device)
+
+    def from_noise(self, z, wts, pts, aux):
+        mu, LSig = self.prior.at(self.prior.dtype, z.device)
+        return mu + z @ LSig.T, aux
+
+    def __call__(self, generator, n, wts, pts, aux):
+        return self.from_noise(self.draw_noise(generator, n, wts, pts, aux), wts, pts, aux)
+
+
+def prior_gaussian_sampler(mu, LSig) -> PriorGaussianSampler:
+    """A sampler of the fixed Gaussian N(mu, LSig LSig^T)."""
+    return PriorGaussianSampler(mu, LSig)

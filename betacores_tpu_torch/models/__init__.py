@@ -1,4 +1,4 @@
-from . import logreg, multiclass
+from . import gaussian, linreg, logreg, multiclass, mvn, poisson
 from .base import ModelFns
 
-__all__ = ["logreg", "multiclass", "ModelFns"]
+__all__ = ["gaussian", "linreg", "logreg", "multiclass", "mvn", "poisson", "ModelFns"]

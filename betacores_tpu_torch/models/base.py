@@ -29,6 +29,24 @@ def identity(d: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.eye(d, dtype=dtype, device=device)
 
 
+class Prior:
+    """A sampler's fixed tensors (a prior's mean and scale), kept per dtype
+    and device once made: a captured step then reads them at a fixed
+    address and copies nothing from the host. ``dtype`` is the first
+    tensor's."""
+
+    def __init__(self, *tensors):
+        self.tensors = tuple(torch.as_tensor(t) for t in tensors)
+        self.dtype = self.tensors[0].dtype
+        self._at: dict = {}
+
+    def at(self, dtype: torch.dtype, device) -> tuple:
+        key = (dtype, torch.device(device))
+        if key not in self._at:
+            self._at[key] = tuple(t.to(dtype=dtype, device=device) for t in self.tensors)
+        return self._at[key]
+
+
 class ModelFns(NamedTuple):
     """Function bundle for one model family (the fields the port uses)."""
 

@@ -59,7 +59,8 @@ from typing import Optional
 
 import torch
 
-from ..coresets.incremental import BETA_FLOOR, Draws, IncrementalConfig, laplace_family
+from ..coresets.incremental import (BETA_FLOOR, Draws, IncrementalConfig, laplace_family,
+                                   noise_split, require_lagged_fit)
 from ..coresets.state import CoresetState
 from ..ops.kernels import ADAM_B1, ADAM_B2, ADAM_EPS, FusedPass, adam_sclr_stack
 from ..utils.graphs import PassRunner, capture_stats, resolve_graph
@@ -466,10 +467,15 @@ def make_sharded_incremental_builder(
     multiple of the data-axis size). ``data_weights`` is this rank's block
     of (N,) base-data weights (``shard_weights``): row n counts u_n times
     in the target, and zero-weight rows are never selected. The sampler
-    needs ``draw_noise``/``from_noise``, and ``fit``/``from_fit``/
-    ``fit_aux`` for lagged refits; ``learn_beta`` needs a model with
+    needs ``draw_noise``/``from_noise`` (the Laplace, conjugate, fixed and
+    prior samplers), and ``fit``/``from_fit``/``fit_aux`` for lagged
+    refits; ``learn_beta`` needs a model with
     ``beta_gradient``. ``graph``: whether the fused route's passes run as
     replayed CUDA graphs (None: on a CUDA device; True elsewhere raises)."""
+    if not noise_split(sampler):
+        raise NotImplementedError("the sharded build of a sampler without a noise split "
+                                  "(draw_noise, from_noise), such as the NIW sampler, is "
+                                  "not ported yet (ROADMAP Queue A item 12)")
     n_data, n_samp = require_axes(mesh)
     if config.learn_beta and getattr(model, "beta_gradient", None) is None:
         raise ValueError("learn_beta requires a model with beta_gradient")
@@ -482,14 +488,7 @@ def make_sharded_incremental_builder(
                              f"like the rows: use shard_weights), got "
                              f"{tuple(data_weights.shape)}")
         data_weights = data_weights.to(dtype=data_local.dtype, device=data_local.device)
-    needs = ["draw_noise", "from_noise"]
-    if (config.refit_every > 1 and config.n_subsample_opt is not None
-            and not config.learn_beta):
-        needs += ["fit", "from_fit", "fit_aux"]
-    for name in needs:
-        if getattr(sampler, name, None) is None:
-            raise NotImplementedError(f"sampler lacks {name}: only Laplace-family "
-                                      "samplers are ported")
+    require_lagged_fit(sampler, config)
     if step_sizes is None:
         step_sizes = step_schedule(config.i0, config.opt_itrs, dtype=data_local.dtype,
                                    device=data_local.device)

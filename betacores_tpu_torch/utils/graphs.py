@@ -22,6 +22,11 @@ caller that asks for it) every step runs eagerly, through the same body.
 A capture or a replay that fails raises: nothing falls back to the eager
 loop.
 
+A step that draws from a ``torch.Generator`` of its own (the per-step-draw
+route of coresets/incremental.py) names it in the runner's ``generators``:
+each capture registers it with its graph, so every replay advances it as
+the eager step would and draws what the eager step would draw.
+
 A captured kernel launch runs no Python, so the wrappers' launch counts
 (``counted``) and a mesh's collective counts are taken while capturing
 (which launches nothing, so they are set back) and added at every replay.
@@ -84,13 +89,15 @@ class Captured:
 
 
 def capture(fn: Callable[[], None],
-            calls: Optional[collections.Counter] = None) -> Captured:
-    """``fn()`` captured as one CUDA graph on the current device. Capturing
-    launches nothing, so the counts ``fn`` advanced are set back and kept
-    for the replays."""
+            calls: Optional[collections.Counter] = None, generators=()) -> Captured:
+    """``fn()`` captured as one CUDA graph on the current device, with the
+    ``generators`` it draws from registered. Capturing launches nothing, so
+    the counts ``fn`` advanced are set back and kept for the replays."""
     before = [w.launches for w in _COUNTED]
     calls_before = None if calls is None else collections.Counter(calls)
     graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
     with torch.cuda.graph(graph):
         fn()
     launches = [(w, w.launches - b) for w, b in zip(_COUNTED, before) if w.launches != b]
@@ -120,6 +127,7 @@ class PassRunner:
 
     def __init__(self, graph: bool, calls: Optional[collections.Counter] = None):
         self.graph, self.calls = graph, calls
+        self.generators: tuple = ()     # the steps' own generators
         self.programs: dict = {}        # key -> None (run once, eagerly) or Captured
         self.capture_seconds = 0.0      # host time spent capturing and instantiating
 
@@ -135,7 +143,7 @@ class PassRunner:
             return
         if self.programs[key] is None:
             t0 = time.perf_counter()
-            self.programs[key] = capture(fn, self.calls)
+            self.programs[key] = capture(fn, self.calls, self.generators)
             self.capture_seconds += time.perf_counter() - t0
         self.programs[key].replay()
 

@@ -110,6 +110,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 TOL = 2e-4                      # K1 vs its plain version, float32 (the reference's own)
@@ -125,6 +126,23 @@ MC_M, MC_N_OPT, MC_OPT_ITRS, MC_N_TEST = 60, 200, 200, 10_000
 # K2's instantiation at that shape (K = 5, theta in registers with D = 10)
 MC_MAIN_KERNEL = "multiclass_projection_kernelILi5ELi10E"
 KERNELS = ("logreg_adam_step", "multiclass_projection", "logreg_shard_partials")
+# phase 13: the model families at their reference examples' widths, N scaled to 2^20,
+# each driven for FAM_SELECTIONS selections
+FAM_ROWS, FAM_SELECTIONS = 1 << 20, 3
+# examples/zellner_gaussian.py:38-46
+G_D, G_M, G_S, G_ITRS, G_N_OPT, G_N_SEL, G_BETA, G_I0 = 100, 200, 200, 1000, 200, 1000, 0.1, 0.1
+# and at that example's own N, where its i0 moves the weights within a few
+# selections: BCORES's reverse KL must fall G_GAIN below the prior's (an
+# empty coreset is the prior) and take in no outlier row
+G_EXAMPLE_N, G_EXAMPLE_SELECTIONS, G_GAIN = 5000, 20, 0.01
+# examples/poisson_regression.py:59-66,113-115 (synth_poiss's d = 5)
+P_D, P_M, P_S, P_ITRS, P_N_OPT, P_N_SEL, P_BETA, P_I0 = 5, 50, 100, 300, 200, 500, 0.3, 1.0
+P_F_RATE, P_SHIFT = 0.1, 50.0
+# examples/mvn_unknown_cov.py:38-47,78-81
+V_D, V_M, V_S, V_ITRS, V_N_OPT, V_N_SEL, V_BETA, V_I0 = 4, 30, 64, 150, 200, 500, 0.5, 1.0
+V_F_RATE, V_SHIFT = 0.1, 10.0
+# examples/zellner_neural_linear.py:57-66,140 (its --D, S, steps, rows, i0, beta, M)
+L_D, L_M, L_S, L_ITRS, L_N_OPT, L_N_SEL, L_BETA, L_I0 = 12, 20, 100, 500, 1000, 1000, 0.5, 0.1
 # H100 SXM peaks at its 700 W limit: float32 outside the tensor cores, HBM3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 CLUSTERS = (1, 2, 4, 8, 16)     # K1's and K3's cluster sizes, timed in phases 2 and 8
@@ -138,7 +156,7 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def phase_device() -> str:
+def phase_device() -> tuple:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
                          "False); this smoke test runs only on a card")
@@ -152,7 +170,7 @@ def phase_device() -> str:
         f"CUDA {torch.version.cuda}")
     log(smi)                                          # name, power limit
     log("tf32: off for matmul and cudnn (float32 products in full float32)")
-    return name
+    return name, smi
 
 
 def phase_build() -> None:
@@ -1293,6 +1311,247 @@ def phase_api(seed: int, n: int, selections: int, dev: str = "cuda") -> dict:
     return counts
 
 
+def family_run(tag: str, alg, selections: int, card: str) -> tuple:
+    """Drives one object-API coreset of phase 13 on the card: a warm-up
+    selection (its pass runs each kind of step eagerly once, then captures
+    it), one selection captured and the same selection again with
+    ``graph=False`` from the same state and draws (which must agree as
+    phase 4's builds do), ``selections - 1`` more captured, then one
+    select and one captured refinement pass alone. Prints s per selection,
+    us per captured and eager step, ms per select and the fill; returns the
+    two step times in us."""
+    import copy
+
+    from betacores_tpu_torch import make_incremental_builder
+
+    def timed(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end) / 1e3
+
+    b = alg._builder
+    T = b.step_sizes.shape[0]
+    _, warm = timed(lambda: alg.build(1, 1))
+    st1, keys = alg.state, copy.deepcopy(alg.keys)
+    _, first = timed(lambda: alg.build(1, 2))
+    eb = make_incremental_builder(alg.data, b.model, b.sampler, b.config,
+                                  step_sizes=b.step_sizes, graph=False)
+    st_e, eager = timed(lambda: eb.build(st1, 1, eb.generator_draws(keys())))
+    agree = check_graph_equals_eager(tag, alg.state, st_e)
+    _, rest = timed(lambda: alg.build(selections - 1, selections + 1))
+    draws = b.generator_draws(torch.Generator(device=alg.device).manual_seed(selections))
+    st_s, sel = timed(lambda: b.select(alg.state, draws))
+    _, opt = timed(lambda: b.optimize(st_s, draws))
+    w, m = check_state(alg.state)
+    log(f"{tag}: {selections} selections captured, {(first + rest) / selections:.3f} s per "
+        f"selection (warm-up {warm:.3f} s, eager {eager:.3f} s); per Adam step "
+        f"{opt / T * 1e6:.1f} us captured (a pass alone), "
+        f"{(eager - sel) / T * 1e6:.1f} us eager; select {sel * 1e3:.2f} ms; m={m} of "
+        f"{selections + 1} selections (fill {m / (selections + 1):.2f}), "
+        f"{int((w > 0).sum())} points of positive weight; {card}")
+    log(f"{tag}, captured == eager: {agree}")
+    return opt / T * 1e6, (eager - sel) / T * 1e6
+
+
+def phase_families(seed: int, card: str, n: int = FAM_ROWS, selections: int = FAM_SELECTIONS,
+                   dev: str = "cuda") -> str:
+    """Phase 13: the known-covariance Gaussian, Poisson, unknown-covariance
+    Gaussian and linear-regression families through the object API, each at
+    its reference example's widths over n rows made on the card from
+    ``seed``, with no kernel of this repo on their path (the reference
+    computes their projections as plain XLA); the K1, K2 and K3 launches
+    of the phase must all be 0. Returns one short line of the captured and
+    eager us a step per family and the Gaussian reverse KLs."""
+    import betacores_tpu_torch as bc
+    from betacores_tpu_torch.evaluation import regression_rmse_nll, reverse_forward_kl
+    from betacores_tpu_torch.models import gaussian, linreg, mvn, poisson
+    from betacores_tpu_torch.ops import kernels
+
+    wrappers = (kernels.logreg_adam_step, kernels.multiclass_projection,
+                kernels.logreg_shard_step_partials)
+    for k in wrappers:
+        k.launches = 0
+    t_phase = time.perf_counter()
+    # on the card the classes take their default device, the card
+    on = {} if dev == "cuda" else {"device": dev}
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    f64 = torch.float64
+    eye = lambda d, dt=torch.float32: torch.eye(d, dtype=dt, device=dev)
+
+    # the contaminated Gaussian of examples/zellner_gaussian.py
+    d = G_D
+    X, Xc, Sig = bc.gen_synthetic_gaussian(gen, N=n, d=d)
+    Siginv, logdet = torch.linalg.inv(Sig), float(torch.linalg.slogdet(Sig)[1])
+    mu0 = torch.zeros(d, device=dev)
+    model, smp = gaussian.bundle(Siginv, logdet), bc.gaussian_conjugate_sampler(mu0, eye(d), Siginv)
+    prior64 = (mu0.double(), eye(d, f64), Siginv.double())
+    post_full = gaussian.weighted_post(*prior64, X.double(), torch.ones(n, dtype=f64, device=dev))
+    del X
+    log(f"families, Gaussian data: N={n} clean + {Xc.shape[0] - n} outlier rows x d={d} "
+        f"on {Xc.device} ({Xc.numel() * 4 / 1e6:.0f} MB)")
+    common = dict(n_subsample_select=G_N_SEL, n_subsample_opt=G_N_OPT, opt_itrs=G_ITRS,
+                  step_sched=lambda i: G_I0 / (1.0 + i), seed=seed, max_size=G_M, **on)
+    kl, us = {}, {}
+    for tag, alg in (("BCORES", bc.BetaCoreset(Xc, bc.BetaBlackBoxProjector(smp, G_S, model=model),
+                                               beta=G_BETA, **common)),
+                     ("SVI", bc.SparseVICoreset(Xc, bc.BlackBoxProjector(smp, G_S, model=model),
+                                                **common))):
+        us[f"Gaussian {tag}"] = family_run(f"families, Gaussian {tag}", alg, selections, card)
+        w, p = (torch.as_tensor(a, device=dev) for a in alg.get()[:2])
+        kl[tag] = reverse_forward_kl(gaussian.weighted_post(*prior64, p.double(), w.double()),
+                                     post_full)
+    kl["prior"] = reverse_forward_kl(gaussian.weighted_post(
+        *prior64, torch.zeros((1, d), dtype=f64, device=dev),
+        torch.zeros(1, dtype=f64, device=dev)), post_full)
+    log("families, Gaussian reverse / forward KL to the clean-data posterior: " + ", ".join(
+        f"{k} {float(r):.6g} / {float(f):.6g}" for k, (r, f) in kl.items()))
+    if not all(bool(torch.isfinite(torch.stack(v)).all()) for v in kl.values()):
+        raise AssertionError("a Gaussian KL is not finite")
+    if not float(kl["BCORES"][0]) < float(kl["SVI"][0]):
+        raise AssertionError("the BCORES coreset's reverse KL is not below SVI's")
+    del Xc, post_full
+    torch.cuda.empty_cache()
+
+    # BCORES at the example's own N: there the example's i0 moves the weights
+    # far enough within G_EXAMPLE_SELECTIONS for a coreset that does nothing
+    # (the prior) to fail
+    t0 = time.perf_counter()
+    X, Xc, _ = bc.gen_synthetic_gaussian(gen, N=G_EXAMPLE_N, d=d)
+    post_n = gaussian.weighted_post(*prior64, X.double(),
+                                    torch.ones(G_EXAMPLE_N, dtype=f64, device=dev))
+    alg = bc.BetaCoreset(Xc, bc.BetaBlackBoxProjector(smp, G_S, model=model), beta=G_BETA,
+                         **common)
+    alg.build(G_EXAMPLE_SELECTIONS, G_EXAMPLE_SELECTIONS)
+    w, p, idx = (torch.as_tensor(a, device=dev) for a in alg.get()[:3])
+    r_b = float(reverse_forward_kl(gaussian.weighted_post(*prior64, p.double(), w.double()),
+                                   post_n)[0])
+    r_0 = float(reverse_forward_kl(gaussian.weighted_post(
+        *prior64, torch.zeros((1, d), dtype=f64, device=dev),
+        torch.zeros(1, dtype=f64, device=dev)), post_n)[0])
+    n_out = int((idx >= G_EXAMPLE_N).sum())
+    log(f"families, Gaussian BCORES at the example's N={G_EXAMPLE_N} (+{Xc.shape[0] - G_EXAMPLE_N} "
+        f"outlier rows), {G_EXAMPLE_SELECTIONS} selections captured, "
+        f"{time.perf_counter() - t0:.2f} s with the data (host clock): reverse KL {r_b:.6g} against the prior's {r_0:.6g} "
+        f"({100 * (1 - r_b / r_0):.2f} % below, the check asks {100 * G_GAIN:g} %), total "
+        f"weight {float(w.sum()):.6g} on {len(w)} points, {n_out} of them outlier rows; {card}")
+    if not r_b <= (1.0 - G_GAIN) * r_0:
+        raise AssertionError(f"BCORES at N={G_EXAMPLE_N}: reverse KL {r_b:.6g} is not "
+                             f"{100 * G_GAIN:g} % below the prior's {r_0:.6g}")
+    if n_out:
+        raise AssertionError(f"BCORES at N={G_EXAMPLE_N} took in {n_out} outlier rows")
+    del X, Xc, post_n, alg
+
+    # Poisson regression, examples/poisson_regression.py on synthetic counts
+    d = P_D
+    X, y, _, th = bc.gen_synthetic_poisson(gen, N=n, d=d)
+    bad = torch.randperm(n, generator=gen, device=dev)[:int(P_F_RATE * n)]
+    y = y.clone()
+    y[bad] += P_SHIFT
+    Z = torch.cat([X, y[:, None]], dim=1)
+    y_max = float(y.max())
+    model = poisson.bundle(gaussian_mass=y_max > 30.0, k_max=int(min(y_max * 2 + 20, 128)))
+    log(f"families, Poisson data: N={n} x d={d}, {len(bad)} counts shifted by +{P_SHIFT:g}, "
+        f"max count {y_max:g} (gaussian_mass={y_max > 30.0}, "
+        f"k_max={int(min(y_max * 2 + 20, 128))})")
+    prj = bc.BetaBlackBoxProjector(bc.poisson_laplace_sampler(), P_S, theta_dim=d, model=model)
+    for refit_every in (1, 4):
+        alg = bc.BetaCoreset(Z, prj, beta=P_BETA, n_subsample_select=P_N_SEL,
+                             n_subsample_opt=P_N_OPT, opt_itrs=P_ITRS,
+                             step_sched=lambda i: P_I0 / (1.0 + i), seed=seed,
+                             max_size=P_M, refit_every=refit_every, **on)
+        us[f"Poisson refit {refit_every}"] = family_run(
+            f"families, Poisson refit_every={refit_every}", alg, selections, card)
+    # the exact mass term at 2^20 rows x 100 samples x k_max = 64, in row chunks
+    thetas = th + 0.3 * torch.randn((100, d), generator=gen, device=dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    got = poisson.beta_likelihood(Z, thetas, P_BETA, k_max=64)
+    end.record()
+    end.synchronize()
+    want = poisson.beta_likelihood(Z[:2048].double(), thetas.double(), P_BETA, k_max=64)
+    err = float((got[:2048].double() - want).abs().max())
+    tol = 1e-4 * float(want.abs().max())
+    if got.shape != (n, 100) or not bool(torch.isfinite(got).all()) or not err <= tol:
+        raise AssertionError(f"the exact Poisson mass over {n} rows: shape {tuple(got.shape)}, "
+                             f"error {err:.3e} against float64 (tolerance {tol:.3e})")
+    log(f"families, Poisson exact-mass beta-likelihood ({n} x 100 x 65, "
+        f"{poisson.MASS_CHUNK_ELEMENTS} elements a chunk): {start.elapsed_time(end):.2f} ms "
+        f"(CUDA events), max |error| on 2048 rows against float64 {err:.3e}; {card}")
+    del X, y, Z, got
+    torch.cuda.empty_cache()
+
+    # the unknown-covariance Gaussian of examples/mvn_unknown_cov.py
+    d = V_D
+    A = 0.3 * torch.randn((d, d), generator=gen, device=dev)
+    L_true = torch.linalg.cholesky(A @ A.T + eye(d))
+    X = 2.0 + torch.randn((n, d), generator=gen, device=dev) @ L_true.T
+    Xout = V_SHIFT + 0.5 * torch.randn((int(V_F_RATE * n), d), generator=gen, device=dev)
+    Xc = torch.cat([X, Xout])
+    prior = (torch.zeros(d, device=dev), 1.0, 2.0 * eye(d), d + 4.0)
+    prj = bc.BetaBlackBoxProjector(mvn.mvn_niw_sampler(*prior), V_S, theta_dim=d + d * d,
+                                   model=mvn.bundle(d))
+    alg = bc.BetaCoreset(Xc, prj, beta=V_BETA, n_subsample_select=V_N_SEL,
+                         n_subsample_opt=V_N_OPT, opt_itrs=V_ITRS,
+                         step_sched=lambda i: V_I0 / (1.0 + i), seed=seed, max_size=V_M,
+                         **on)
+    if not alg._builder.per_step:
+        raise AssertionError("the NIW sampler did not take the per-step-draw route")
+    us["MVN"] = family_run("families, MVN (NIW, per-step draws)", alg, selections, card)
+    w, p = (torch.as_tensor(a, device=dev, dtype=f64) for a in alg.get()[:2])
+    prior64 = (prior[0].double(), 1.0, prior[2].double(), float(prior[3]))
+    post = lambda pts, wts: mvn.weighted_post(*prior64, pts, wts)
+    clean = post(X.double(), torch.ones(n, dtype=f64, device=dev))
+    kls = {"BCORES": mvn.niw_kl(post(p, w), clean),
+           "all rows": mvn.niw_kl(post(Xc.double(), torch.ones(len(Xc), dtype=f64, device=dev)),
+                                  clean)}
+    log("families, MVN KL(NIW || clean-data NIW): " + ", ".join(
+        f"{k} {float(v):.6g}" for k, v in kls.items()))
+    if not all(bool(torch.isfinite(v)) for v in kls.values()):
+        raise AssertionError("an MVN KL is not finite")
+    del X, Xout, Xc
+    torch.cuda.empty_cache()
+
+    # linear regression with examples/zellner_neural_linear.py's widths
+    X, y, _ = bc.gen_synthetic_linreg(gen, N=n + N_TEST, D=L_D)
+    Z, Xt, yt = torch.cat([X[:n], y[:n]], dim=1), X[n:], y[n:]
+    mean, std = float(y[:n].mean()), float(y[:n].std())
+    sigsq = max(std ** 2, 1e-3)
+    F = X.shape[1]
+    mu0, Sig0inv = mean * torch.ones(F, device=dev), eye(F) / (std ** 2 + mean ** 2)
+    prj = bc.BetaBlackBoxProjector(bc.linreg_conjugate_sampler(mu0, Sig0inv, sigsq), L_S,
+                                   model=linreg.bundle(sigsq), theta_dim=F)
+    alg = bc.BetaCoreset(Z, prj, beta=L_BETA, n_subsample_select=L_N_SEL,
+                         n_subsample_opt=L_N_OPT, opt_itrs=L_ITRS,
+                         step_sched=lambda i: L_I0 / (1.0 + i), seed=seed, max_size=L_M,
+                         **on)
+    us["linreg"] = family_run("families, linear regression", alg, selections, card)
+    w, p = (torch.as_tensor(a, device=dev) for a in alg.get()[:2])
+    scores = {}
+    for tag, (pts, wts) in (("BCORES", (p, w)), ("all rows", (Z, torch.ones(n, device=dev)))):
+        post = linreg.weighted_post(mu0, Sig0inv, sigsq, pts, wts)
+        ths = gaussian.sample_gaussian_prec(gen, post, 100)
+        scores[tag] = [float(v) for v in regression_rmse_nll(Xt, yt, ths, sigsq)]
+    log(f"families, linear regression on {N_TEST} held-out rows (sigsq {sigsq:.6g}): " + ", ".join(
+        f"{k} RMSE {r:.6g}, NLL {v:.6g}" for k, (r, v) in scores.items()))
+    if not all(np.isfinite(v).all() for v in scores.values()):
+        raise AssertionError("a linear-regression score is not finite")
+    del X, y, Z, Xt, yt
+    torch.cuda.empty_cache()
+    counts = {k.__name__: k.launches for k in wrappers}
+    if any(counts.values()):
+        raise AssertionError(f"phase 13 launched a kernel: {counts}")
+    log(f"families: phase 13 in {time.perf_counter() - t_phase:.1f} s; kernel launches {counts} "
+        f"(none of the repo's kernels is on these families' path)")
+    return ("families, us a step captured/eager: " + ", ".join(
+        f"{k} {c:.1f}/{e:.1f}" for k, (c, e) in us.items())
+        + "; Gaussian reverse KL BCORES/SVI/prior " + "/".join(
+            f"{float(kl[k][0]):.6g}" for k in ("BCORES", "SVI", "prior"))
+        + f", at the example's N BCORES/prior {r_b:.6g}/{r_0:.6g}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1303,7 +1562,7 @@ def main() -> int:
     args = ap.parse_args()
 
     t_start = time.perf_counter()
-    name = phase_device()
+    name, card = phase_device()
     phase_build()
     k1 = phase_kernel(args.seed)
     k2 = phase_mc_kernel(args.seed)
@@ -1316,13 +1575,15 @@ def main() -> int:
     phase_sharded_self_check(args.seed)
     phase_bench(args.seed, N_ROWS)
     api = phase_api(args.seed, N_ROWS, args.api_selections)
+    families = phase_families(args.seed, card)
     entries = [("logreg_adam_step", "logreg_adam_step.cu", "pallas_kernels.py:173",
                 {"launches": main_path["launches"] + api["K1"]}, k1),
                ("multiclass_projection", "multiclass_projection.cu", "pallas_kernels.py:330",
                 {"launches": mc_path["launches"] + api["K2"]}, k2),
                ("logreg_shard_step_partials", "logreg_shard_partials.cu", "pallas_kernels.py:249",
                 sharded, k3)]
-    log(f"chip_smoke: phases 0-12 in {time.perf_counter() - t_start:.1f} s")
+    log(families)
+    log(f"chip_smoke: phases 0-13 in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"betacores_tpu_torch/csrc/{src}",
          "replaces": f"betacores_tpu/ops/{tpu}", "launches": path["launches"], **k}

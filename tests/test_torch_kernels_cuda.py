@@ -284,19 +284,26 @@ def test_cuda_step_kernels_are_bit_identical_across_launches(cuda_device, kernel
 @pytest.mark.parametrize("kernel", ["K1", "K3"])
 def test_cuda_one_wrapper_call_is_one_launch(cuda_device, kernel):
     """One wrapper call puts exactly one kernel on the card (the profiler's
-    device events) and adds one to the wrapper's count."""
+    device events) and adds one to the wrapper's count: three calls under
+    the profiler give three kernels of the wrapper's name and three counts.
+    A first profiler session is opened and discarded (the tracer's first
+    session in a process may miss its first device events)."""
     call, wrapper = _step_launch(kernel, cuda_device, MAIN)
     call()
     torch.cuda.synchronize()
-    before = wrapper.launches
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
         call()
         torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
+    before = wrapper.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+    assert wrapper.launches == before + 3
     device_kernels = [e.name for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA]
     name = "logreg_adam_step_kernel" if kernel == "K1" else "logreg_shard_partials_kernel"
-    assert len(device_kernels) == 1 and name in device_kernels[0], device_kernels
+    assert len(device_kernels) == 3 and all(name in k for k in device_kernels), device_kernels
 
 
 # ---------------------------------------------------------------------------
@@ -476,3 +483,62 @@ def test_cuda_float64_multiclass_block_computes(cuda_device, use_beta):
     assert kernels.multiclass_projection.launches == before + 2
     assert got.dtype == torch.float64 and got.shape == (N, S)
     assert want.dtype == torch.float32 and torch.equal(got, want.double())
+
+
+def _family_builder(family, device, graph):
+    """(builder, initial state) of a small build of a model family without
+    a kernel: the known-covariance Gaussian (conjugate sampler, composed
+    route) or the unknown-covariance Gaussian (NIW sampler, per-step-draw
+    route)."""
+    from betacores_tpu_torch import (IncrementalConfig, gaussian, gaussian_conjugate_sampler,
+                                     init_state, make_incremental_builder, mvn)
+
+    rng = np.random.default_rng(11)
+    d = 4 if family == "gaussian" else 3
+    X = np.vstack([rng.normal(size=(600, d)) * 1.7, rng.normal(size=(60, d)) + 8.0])
+    X = torch.from_numpy(X.astype(np.float32)).to(device)
+    cfg = IncrementalConfig(projection_dim=32, n_subsample_select=128, n_subsample_opt=64,
+                            opt_itrs=25, i0=1.0, use_beta=True, dedup_select=True)
+    eye = torch.eye(d, device=device)
+    if family == "gaussian":
+        model = gaussian.bundle(eye / 3.0, d * float(np.log(3.0)))
+        smp, td = gaussian_conjugate_sampler(torch.zeros(d, device=device), eye, eye / 3.0), d
+    else:
+        model, td = mvn.bundle(d), d + d * d
+        smp = mvn.mvn_niw_sampler(torch.zeros(d, device=device), 1.0, 2.0 * eye, d + 4.0)
+    b = make_incremental_builder(X, model, smp, cfg, graph=graph)
+    return b, init_state(16, d, beta=0.5, device=device,
+                         sampler_aux=torch.zeros(td, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["gaussian", "niw"])
+def test_cuda_captured_family_build_equals_eager(cuda_device, family):
+    """Four selections of the Gaussian composed pass and of the NIW
+    per-step-draw pass (its steps draw the NIW gamma, normals and
+    subsample from the pass's generator, registered with each graph),
+    replayed as graphs, equal the same selections dispatched from Python
+    from the same generator seed: the same indices and m, weights within
+    1e-6 max|w|. A replay after other draws gives another build, and the
+    first seed again the first build bit for bit."""
+    out = {}
+    for graph in (None, False):
+        b, st0 = _family_builder(family, cuda_device, graph)
+        assert b.graph is (graph is None) and b.per_step is (family == "niw")
+        out[graph] = b.build(st0, 4, b.generator_draws(
+            torch.Generator(device=cuda_device).manual_seed(7)))
+        torch.cuda.synchronize()
+    got, ref = out[None], out[False]
+    assert int(got.m) == int(ref.m) == 4 and torch.equal(got.idcs, ref.idcs)
+    scale = float(ref.wts.abs().max())
+    assert scale > 0 and float((got.wts - ref.wts).abs().max()) <= 1e-6 * scale
+    b, st0 = _family_builder(family, cuda_device, None)
+    draws = lambda seed: b.generator_draws(torch.Generator(device=cuda_device).manual_seed(seed))
+    b.build(st0, 2, draws(1))                          # eager, then captured
+    first = b.build(st0, 2, draws(2))                  # replayed
+    other = b.build(st0, 2, draws(3))
+    again = b.build(st0, 2, draws(2))
+    torch.cuda.synchronize()
+    assert b.capture_stats()[0] >= 1
+    assert not torch.equal(first.wts, other.wts)
+    assert torch.equal(first.wts, again.wts) and torch.equal(first.idcs, again.idcs)

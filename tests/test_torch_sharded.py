@@ -26,14 +26,17 @@ import torch
 
 from betacores_tpu.coresets.incremental import IncrementalConfig as JConfig
 from betacores_tpu.coresets.state import init_state as jinit_state
-from betacores_tpu.inference.samplers import (logreg_laplace_sampler as jlr_sampler,
+from betacores_tpu.inference.samplers import (gaussian_conjugate_sampler as jg_sampler,
+                                              logreg_laplace_sampler as jlr_sampler,
                                               multiclass_laplace_sampler as jmc_sampler)
+from betacores_tpu.models import gaussian as jgauss
 from betacores_tpu.models import logreg as jlogreg
 from betacores_tpu.models import multiclass as jmc
 from betacores_tpu.parallel import (make_mesh as jmake_mesh,
                                     make_sharded_incremental_builder as jsharded,
                                     shard_data as jshard_data,
                                     shard_weights as jshard_weights)
+from oracle import models as om
 from test_torch_incremental import _assert_same_build, _np_state
 from torch_dist_worker import run_world
 
@@ -44,6 +47,7 @@ N_SEL = N_OPT = 150
 T, ITRS, BETA, I0 = 20, 6, 0.2, 0.5
 K, D_MC, N_MC = 3, 4, 601
 N_ZERO = 1000          # the weighted case gives rows from here on weight 0
+N_G, D_G = 601, 4      # the Gaussian case: tests/test_parallel.py's problem, one row longer
 
 
 def _problem():
@@ -62,6 +66,17 @@ def _mc_problem():
     X = rng.normal(size=(N_MC, D_MC))
     y = np.argmax(X @ Th.T + rng.gumbel(size=(N_MC, K)), axis=1)
     return np.c_[X, y].astype(np.float32)
+
+
+def _gauss_problem():
+    """tests/test_parallel.py's known-covariance Gaussian (Sig = 3 I), in
+    float32, with the model spec of the conjugate sampler's prior."""
+    rng = np.random.default_rng(11)
+    Sig = 3.0 * np.eye(D_G)
+    X = rng.multivariate_normal(np.zeros(D_G), Sig, N_G).astype(np.float32)
+    spec = ("gaussian", np.zeros(D_G, np.float32), np.eye(D_G, dtype=np.float32),
+            np.linalg.inv(Sig).astype(np.float32), float(np.linalg.slogdet(Sig)[1]))
+    return X, spec
 
 
 def replay_sharded_draws(key, st, itrs, smp, n_true, n_data, n_samples, n_steps,
@@ -108,6 +123,8 @@ CASES = {
     "multiclass": (("multiclass", K), dict(refit_every=2), False),
     # small steps keep beta off its clamps for the first iterations
     "learn_beta": ("logreg", dict(learn_beta=True, i0=0.01), False),
+    # the conjugate sampler on the composed route, as tests/test_parallel.py
+    "gaussian": ("gaussian", dict(use_beta=False, i0=1.0), False),
 }
 
 
@@ -116,6 +133,12 @@ def _jax_case(name, n_data, n_samp, key):
     if model == "logreg":
         Z, bundle, smp = _problem(), jlogreg.bundle(), jlr_sampler()
         st0 = jinit_state(M, D, beta=BETA, sampler_aux=jnp.zeros(D, jnp.float32))
+    elif model == "gaussian":
+        Z, model = _gauss_problem()
+        _, mu0, Sig0inv, Siginv, logdet = model
+        bundle = jgauss.bundle(jnp.asarray(Siginv), logdet)
+        smp = jg_sampler(jnp.asarray(mu0), jnp.asarray(Sig0inv), jnp.asarray(Siginv))
+        st0 = jinit_state(M, D_G, beta=BETA, sampler_aux=jnp.zeros(D_G, jnp.float32))
     else:
         Z, bundle, smp = _mc_problem(), jmc.bundle(K), jmc_sampler(K)
         st0 = jinit_state(M, D_MC + 1, beta=BETA,
@@ -206,6 +229,34 @@ def test_multiclass_composed_matches_jax(mesh_run):
     want, ranks, _ = mesh_run
     assert ranks[0]["jobs"]["multiclass"]["route"] == "composed"
     _assert_same_build(_every_rank(ranks, "multiclass"), want["multiclass"])
+
+
+def test_gaussian_build_matches_jax_and_reaches_its_quality(mesh_run):
+    """The conjugate Gaussian sampler on the composed route: against the
+    JAX sharded build under its draws, and to the quality
+    tests/test_parallel.py asks of the JAX build: real rows, at least four
+    kept points, and a reverse KL to the full posterior under 0.3 of the
+    prior's."""
+    want, ranks, _ = mesh_run
+    assert ranks[0]["jobs"]["gaussian"]["route"] == "composed"
+    got = _every_rank(ranks, "gaussian")
+    _assert_same_build(got, want["gaussian"])
+    X, (_, mu0, Sig0inv, Siginv, _) = _gauss_problem()
+    X, mu0, Sig0inv, Siginv = (a.astype(np.float64) for a in (X, mu0, Sig0inv, Siginv))
+    m, w, p = int(got["m"]), got["wts"].astype(np.float64), got["pts"].astype(np.float64)
+    idcs = got["idcs"][:m]
+    assert (idcs >= 0).all() and (idcs < N_G).all()
+    np.testing.assert_array_equal(X[idcs].astype(np.float32), got["pts"][:m])
+    mup, Sigp = om.gauss_weighted_post(mu0, Sig0inv, Siginv, X, np.ones(N_G))
+
+    def rkl(w, p):
+        muw, Sigw = om.gauss_weighted_post(mu0, Sig0inv, Siginv, np.atleast_2d(p),
+                                           np.atleast_1d(w))
+        return om.gaussian_KL(muw, Sigw, mup, np.linalg.inv(Sigp))
+
+    keep = w > 0
+    assert keep.sum() >= 4
+    assert rkl(w[keep], p[keep]) < 0.3 * rkl(np.zeros(1), np.zeros((1, D_G)))
 
 
 def test_generator_draws_keep_ranks_in_step(mesh_run):

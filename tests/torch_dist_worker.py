@@ -10,8 +10,9 @@ within a time limit, so a hung collective fails one test rather than the
 suite.
 
 A job is a dict of plain data:
-  data (N, D) float32, weights (N,) or None, model "logreg" or
-  ("multiclass", K), cfg (IncrementalConfig's keyword arguments), state
+  data (N, D) float32, weights (N,) or None, model "logreg",
+  ("multiclass", K) or ("gaussian", mu0, Sig0inv, Siginv, logdetSig) with
+  numpy arrays (the conjugate sampler), cfg (IncrementalConfig's keyword arguments), state
   (a CoresetState as numpy arrays), itrs, and the draws: either
   sel / opt lists as for ``coresets.FixedDraws`` with the subsample indices
   given per data shard (a list indexed by ax_d, or None), or
@@ -37,12 +38,18 @@ TIMEOUT_S = 60
 
 
 def _model(spec):
-    from betacores_tpu_torch.inference import (logreg_laplace_sampler,
+    from betacores_tpu_torch.inference import (gaussian_conjugate_sampler,
+                                               logreg_laplace_sampler,
                                                multiclass_laplace_sampler)
-    from betacores_tpu_torch.models import logreg, multiclass
+    from betacores_tpu_torch.models import gaussian, logreg, multiclass
 
     if spec == "logreg":
         return logreg.bundle(), logreg_laplace_sampler()
+    if spec[0] == "gaussian":
+        _, mu0, Sig0inv, Siginv, logdet = spec
+        t = torch.from_numpy
+        return (gaussian.bundle(t(Siginv), logdet),
+                gaussian_conjugate_sampler(t(mu0), t(Sig0inv), t(Siginv)))
     _, K = spec
     return multiclass.bundle(K), multiclass_laplace_sampler(K)
 
