@@ -27,11 +27,15 @@ are ported with their samplers: the known-covariance Gaussian
 (``models.linreg``, ``linreg_conjugate_sampler``), Poisson regression
 (``models.poisson``, ``poisson_laplace_sampler``) and the unknown-covariance
 Gaussian (``models.mvn``, ``mvn.mvn_niw_sampler``, which the builders run on
-their per-step-draw route). Modules keep the JAX package's paths and names.
+their per-step-draw route). The Hilbert coresets are ported too: the sparse
+NNLS solvers (``snnls``), ``HilbertCoreset``, the weight polish ``refine()``
+(``coresets.refine_weights``) and the sharded Hilbert build
+(``parallel.ShardedHilbertCoreset``). Modules keep the JAX package's paths
+and names.
 This package imports torch and never jax.
 """
 
-from . import coresets, data, evaluation, inference, models, ops, parallel, utils
+from . import coresets, data, evaluation, inference, models, ops, parallel, snnls, utils
 from .coresets import (BatchPSVICoreset, BetaBlackBoxProjector, BetaCoreset,
                        BlackBoxProjector, CoresetState, FixedDraws, GeneratorDraws,
                        HilbertCoreset, IncrementalConfig, SparseVICoreset,
@@ -49,7 +53,8 @@ from .parallel import (make_mesh, make_sharded_incremental_builder, shard_data,
 from .utils import NumericalPrecisionError, set_tolerance, set_verbosity
 
 __all__ = [
-    "coresets", "data", "evaluation", "inference", "models", "ops", "parallel", "utils",
+    "coresets", "data", "evaluation", "inference", "models", "ops", "parallel", "snnls",
+    "utils",
     "BatchPSVICoreset", "BetaBlackBoxProjector", "BetaCoreset", "BlackBoxProjector",
     "HilbertCoreset", "SparseVICoreset", "UniformSamplingCoreset", "select_beta",
     "trimmed_mean", "NumericalPrecisionError", "set_tolerance", "set_verbosity",

@@ -5,6 +5,7 @@ from .api import (BatchPSVICoreset, BetaBlackBoxProjector, BetaCoreset,
 from .incremental import (FixedDraws, GeneratorDraws, IncrementalBuilder,
                           IncrementalConfig, make_incremental_builder,
                           make_tangent_error)
+from .refine import refine_weights
 from .select_beta import driver_select_beta, padded_scorer, select_beta, trimmed_mean
 from .state import (CoresetState, get, init_state, state_from_numpy,
                     state_to_numpy, warm_start_state)
@@ -15,6 +16,6 @@ __all__ = ["BatchPSVICoreset", "BetaBlackBoxProjector", "BetaCoreset",
            "weighted_coreset_draws",
            "FixedDraws", "GeneratorDraws", "IncrementalBuilder",
            "IncrementalConfig", "make_incremental_builder", "make_tangent_error",
-           "driver_select_beta", "padded_scorer", "select_beta", "trimmed_mean",
+           "refine_weights", "driver_select_beta", "padded_scorer", "select_beta", "trimmed_mean",
            "CoresetState", "get", "init_state", "state_from_numpy", "state_to_numpy",
            "warm_start_state"]

@@ -18,9 +18,11 @@ at construction; ``error()`` draws from a second one, seeded
 ``seed ^ 0x5EED0``, once per build, so the before/after comparison inside
 ``optimize()`` shares one projection.
 
-Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item that brings them: ``groups=`` (Queue A item 9), ``ContextualProjector``
-(item 7b), ``refine()`` (item 8), ``HilbertCoreset`` (item 8) and
+``HilbertCoreset`` projects once and solves with a solver of
+``betacores_tpu_torch.snnls``; ``refine()`` polishes an incremental
+coreset's weights (coresets/refine.py). Not ported yet, and raising
+``NotImplementedError`` that names the ROADMAP item that brings them:
+``groups=`` (Queue A item 9), ``ContextualProjector`` (item 7b) and
 ``BatchPSVICoreset`` (item 9).
 """
 
@@ -32,13 +34,16 @@ import numpy as np
 import torch
 
 from ..models.base import ModelFns, beta_gradient_from_autodiff
-from ..ops.projection import draw_subsample
+from ..ops.projection import draw_subsample, project_ll
+from ..snnls.giga import GIGA
 from ..utils import errors
+from ..utils.device import resolve_device
 from ..utils.errors import NumericalPrecisionError
 from ..utils.logging import get_logger
 from ..utils.prng import KeySequence
 from . import state as state_lib
 from .incremental import IncrementalConfig, make_incremental_builder
+from .refine import refine_weights
 
 
 def _round_capacity(sz: int) -> int:
@@ -49,15 +54,6 @@ def _steps_to_i0(step_sched, opt_itrs: int) -> np.ndarray:
     """A reference-style ``step_sched(i)`` callable evaluated into the
     learning-rate array, in float64 on the host (cast once by the caller)."""
     return np.asarray([float(step_sched(i)) for i in range(opt_itrs)], dtype=np.float64)
-
-
-def resolve_device(device) -> torch.device:
-    """``device``, or the card when None. Without CUDA the card raises: an
-    entry point never carries on on the CPU unless asked to."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
-    return dev
 
 
 def _not_ported(what: str, item: str):
@@ -277,6 +273,7 @@ class _IncrementalCoreset(Coreset):
             opt_itrs=opt_itrs, use_beta=self._use_beta, learn_beta=self._learn_beta,
             beta_cap=beta_cap, refit_every=refit_every, dedup_select=dedup_select)
         u = None if data_weights is None else torch.as_tensor(data_weights)
+        self._data_weights = u
         self._builder = make_incremental_builder(self.data, ll_projector.model,
                                                  ll_projector.sampler, self._cfg,
                                                  step_sizes=step_sizes, data_weights=u,
@@ -322,8 +319,21 @@ class _IncrementalCoreset(Coreset):
         self.state = self._builder.optimize(self.state,
                                             self._builder.generator_draws(self.keys()))
 
+    def _refine_draws(self):
+        """The draws of one ``refine()``: the next generator of this
+        instance's key sequence (``refine_weights`` draws the samples and
+        then the subsample from it)."""
+        return self.keys()
+
     def refine(self, n_samples: int = 500, n_subsample=None) -> None:
-        raise _not_ported("refine() (it needs snnls/nnls.py)", "8")
+        """The quasi-Newton weight polish on a frozen S_big-sample
+        projection (coresets/refine.py), kept only if it tightens that
+        objective. Meant for clean-data KL builds: coresets/refine.py says
+        why not to polish a contaminated beta build."""
+        self.state = refine_weights(self._refine_draws(), self.data, self.projector.model,
+                                    self.projector.sampler, self.state,
+                                    n_samples=n_samples, n_subsample=n_subsample,
+                                    use_beta=self._use_beta, data_weights=self._data_weights)
 
     def build_trace(self, itrs: int):
         """``itrs`` incremental iterations, returning each iteration's
@@ -375,10 +385,86 @@ class BetaCoreset(_IncrementalCoreset):
 
 
 class HilbertCoreset(Coreset):
-    """Hilbert coreset by sparse NNLS. Not ported yet."""
+    """Projects once into a fixed tangent space, then solves a sparse NNLS
+    (the reference's coreset/hilbert.py): S samples drawn from the empty
+    coreset's posterior, every row (or ``n_subsample`` rows drawn uniformly)
+    projected with ``project_ll``, and the ``snnls`` solver (GIGA by
+    default, or any class of ``betacores_tpu_torch.snnls``) run on the
+    (S, n) block against the sum of its columns. Rows of zero projection,
+    and with ``data_weights`` u rows of u = 0, leave the pool; the target
+    is then sum_n u_n v_n over every drawn row."""
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("HilbertCoreset (it needs snnls/)", "8")
+    def __init__(self, data, ll_projector, n_subsample=None, snnls=GIGA, seed: int = 0,
+                 data_weights=None, device=None, **kw):
+        self.projector = ll_projector  # before super(): _init_aux reads theta_dim
+        super().__init__(data, seed=seed, device=device, **kw)
+        N = self.data.shape[0]
+        n_sub = None if n_subsample is None else min(N, n_subsample)
+        samples, sub_idcs = self._draws(n_sub)
+        x = self.data if sub_idcs is None else self.data[sub_idcs]
+        # on the device: the (n, S) block never crosses to the host
+        vecs = project_ll(ll_projector.model, x, samples)
+        keep = torch.linalg.norm(vecs, dim=1) > 0.0
+        b = None                       # None: the sum of the kept columns
+        if data_weights is not None:
+            u = torch.as_tensor(data_weights).to(dtype=self.data.dtype, device=self.device)
+            if tuple(u.shape) != (N,):
+                raise ValueError(f"data_weights must be ({N},), got {tuple(u.shape)}")
+            u_sel = u if sub_idcs is None else u[sub_idcs]
+            b = u_sel @ vecs
+            keep = keep & (u_sel > 0)
+        keep = torch.nonzero(keep)[:, 0]
+        if keep.shape[0] != vecs.shape[0]:
+            vecs = vecs[keep]
+        rows = keep if sub_idcs is None else sub_idcs[keep]
+        self._row_map = rows.cpu().numpy()
+        self.snnls = snnls(vecs.T, vecs.sum(dim=0) if b is None else b)
+
+    def _draws(self, n_subsample: Optional[int]):
+        """This instance's one draws method: (S posterior samples drawn from
+        the empty coreset, ``n_subsample`` uniform row indices or None), from
+        the next two generators of its key sequence."""
+        prj = self.projector
+        d = self.data.shape[1]
+        empty_w = torch.zeros(1, dtype=self.data.dtype, device=self.device)
+        empty_p = torch.zeros((1, d), dtype=self.data.dtype, device=self.device)
+        samples, _ = prj.sampler(self.keys(), prj.projection_dimension, empty_w, empty_p,
+                                 self._init_aux())
+        if n_subsample is None:
+            return samples, None
+        return samples, draw_subsample(self.keys(), self.data.shape[0], n_subsample)[0]
+
+    def reset(self) -> None:
+        self.snnls.reset()
+        super().reset()
+
+    def _sync_state(self) -> None:
+        w = self.snnls.weights()
+        keep = w > 0
+        wts, idcs = w[keep], self._row_map[keep]
+        cap = max(self.state.wts.shape[0], _round_capacity(len(wts)))
+        # one gather at the buffer's capacity, as the reference's
+        pad_idcs = np.zeros(cap, dtype=np.int64)
+        pad_idcs[:len(idcs)] = idcs
+        pts = self.data[torch.from_numpy(pad_idcs).to(self.device)].cpu().numpy()[:len(idcs)]
+        self.state = state_lib.warm_start_state(cap, wts.astype(pts.dtype), idcs, pts,
+                                                beta=self._beta0, sampler_aux=self._init_aux(),
+                                                device=self.device)
+
+    def _build(self, itrs: int, sz: int) -> None:
+        if self.snnls.size() + itrs > sz:
+            raise ValueError(
+                f"HilbertCoreset._build(): itrs + current size exceeds desired size {sz}")
+        self.snnls.build(itrs)
+        self.reached_numeric_limit = self.snnls.reached_numeric_limit
+        self._sync_state()
+
+    def _optimize(self) -> None:
+        self.snnls.optimize()
+        self._sync_state()
+
+    def error(self) -> float:
+        return self.snnls.error()
 
 
 class BatchPSVICoreset(Coreset):

@@ -92,7 +92,30 @@ toolkit. Phases, each of which raises on failure:
      ``bc.BetaCoreset`` of phase 6 for 2 selections (K2 once per select);
      and the held-out test accuracy of each logistic coreset's Laplace
      posterior side by side. Every run prints its seconds per selection
-     and per Adam step.
+     and per Adam step;
+ 13. the model families (``phase_families``): the Gaussian, Poisson,
+     unknown-covariance Gaussian and linear-regression builds through the
+     object API at their examples' widths over 2^20 rows, captured and
+     eager, with no kernel of the repo on their path;
+ 14. the Hilbert slice (``phase_hilbert``), in float32: the Hilbert
+     coresets of examples/zellner_gaussian.py (d = 100, S = 200, M = 200)
+     over 2^20 rows plus outliers, GIGAO and GIGAR by
+     ``snnls.build_trace(200)`` (the error never rises and ends below
+     ||b||; a trace row equals a build of that length; one GIGA build of
+     200 under ``torch.cuda.set_sync_debug_mode("error")``, so a host read
+     in the greedy loop fails) and IHTO by one AccIHT ``build(200)``;
+     ``refine()`` of the Gaussian ``SparseVICoreset`` at S_big = 500 with
+     its reverse KL before and after; ``ShardedHilbertCoreset`` on a (1, 1)
+     NCCL mesh in ll and beta (0.3) modes, which must take the
+     single-device GIGA's columns with weights within 1e-6 max|w|; Frank-
+     Wolfe, OMP and LAR at the example's N = 5000, whose columns must be the
+     CPU float64 solver's at every iteration (LAR's in float64: float32
+     departs), and the sampling solvers folding the same draws as the CPU;
+     the multiclass ``HilbertCoreset`` of examples/multiclass.py's widths
+     (one K2 launch) with its held-out accuracy; ``refine()`` of a
+     multiclass ``SparseVICoreset`` over every row (one more K2 launch, at
+     S = 500, which is timed and held against its plain version). Every run
+     prints its seconds and ms per greedy iteration.
 
 The last two lines of standard output are a JSON object describing the
 kernels (K1 and K3 add ``bound_us`` and ``floor_us``, K2 ``floor_ms``), then
@@ -104,6 +127,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import subprocess
 import sys
@@ -145,6 +169,11 @@ V_F_RATE, V_SHIFT = 0.1, 10.0
 L_D, L_M, L_S, L_ITRS, L_N_OPT, L_N_SEL, L_BETA, L_I0 = 12, 20, 100, 500, 1000, 1000, 0.5, 0.1
 # H100 SXM peaks at its 700 W limit: float32 outside the tensor cores, HBM3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# phase 14, the Hilbert slice at the same Gaussian's widths: the example's
+# --pihat-noise (GIGAR's mis-tuning), the trace row held against a build,
+# the SparseVI selections refine() polishes, refine()'s S_big, the sharded
+# build's beta and the other solvers' budget at the example's N
+H_PIHAT, H_ROW, H_SVI_SELECTIONS, H_REFINE_S, H_BETA, H_OTHER_M = 0.75, 50, 3, 500, 0.3, 50
 CLUSTERS = (1, 2, 4, 8, 16)     # K1's and K3's cluster sizes, timed in phases 2 and 8
 N_TEST = 10_000                 # held-out rows of the object API's accuracy check
 # operations per likelihood value (csrc/logreg_common.cuh::Likelihood),
@@ -1552,6 +1581,320 @@ def phase_families(seed: int, card: str, n: int = FAM_ROWS, selections: int = FA
         + f", at the example's N BCORES/prior {r_b:.6g}/{r_0:.6g}")
 
 
+def _synced(fn):
+    """(fn(), seconds of host clock), the card synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _first_departure(got, want):
+    """The first iteration (from 1) after which two (itrs, N) traces hold
+    different columns, or None."""
+    diff = ((got > 0) != (want > 0)).any(dim=1)
+    return int(torch.nonzero(diff)[0, 0]) + 1 if bool(diff.any()) else None
+
+
+def phase_hilbert(seed: int, card: str, n: int = FAM_ROWS, dev: str = "cuda") -> dict:
+    """Phase 14: the Hilbert slice (snnls/, HilbertCoreset, refine() and the
+    sharded Hilbert build) at full width, in float32 on data made on the card
+    from ``seed``. Returns K2's launches in the phase and one summary line."""
+    import betacores_tpu_torch as bc
+    from betacores_tpu_torch import snnls
+    from betacores_tpu_torch.evaluation import reverse_forward_kl
+    from betacores_tpu_torch.models import gaussian, multiclass
+    from betacores_tpu_torch.ops import kernels
+    from betacores_tpu_torch.ops.projection import project_beta
+    from betacores_tpu_torch.parallel import (ShardedHilbertCoreset, make_mesh, shard_data,
+                                              world_of_one)
+
+    t_phase = time.perf_counter()
+    on = {} if dev == "cuda" else {"device": dev}
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    f64 = torch.float64
+    eye = lambda d, dt=torch.float32: torch.eye(d, dtype=dt, device=dev)
+    k2 = kernels.multiclass_projection
+    k2_total, summary = 0, []
+
+    def gaussian_setup(N):
+        """examples/zellner_gaussian.py's data over N clean rows, its model,
+        the clean and the contaminated posteriors (float64) and its two
+        Hilbert projectors: GIGAO's (the clean posterior) and GIGAR's
+        (mis-tuned, the example's lines 86-95)."""
+        d = G_D
+        X, Xc, Sig = bc.gen_synthetic_gaussian(gen, N=N, d=d)
+        Siginv, logdet = torch.linalg.inv(Sig), float(torch.linalg.slogdet(Sig)[1])
+        prior64 = (torch.zeros(d, dtype=f64, device=dev), eye(d, f64), Siginv.double())
+        ones = lambda m: torch.ones(m, dtype=f64, device=dev)
+        post = gaussian.weighted_post(*prior64, X.double(), ones(N))
+        post_c = gaussian.weighted_post(*prior64, Xc.double(), ones(Xc.shape[0]))
+        mu, cov = post.mu.float(), post.cov.float()
+        U = float(torch.rand((), generator=gen, device=dev))
+        muhat = U * mu
+        muhat = muhat + H_PIHAT * torch.linalg.norm(muhat) * torch.randn(
+            (d,), generator=gen, device=dev)
+        Sighat = (U * cov + (1.0 - U) * eye(d)) * math.exp(
+            -2 * H_PIHAT * abs(float(torch.randn((), generator=gen, device=dev))))
+        model = gaussian.bundle(Siginv, logdet)
+        prj = {"GIGAO": bc.BlackBoxProjector(bc.prior_gaussian_sampler(
+                   mu, torch.linalg.cholesky(cov)), G_S, model=model),
+               "GIGAR": bc.BlackBoxProjector(bc.prior_gaussian_sampler(
+                   muhat, torch.linalg.cholesky(Sighat)), G_S, model=model)}
+        return X, Xc, model, prior64, post, post_c, prj
+
+    def rkl(w, p, prior64, post):
+        return float(reverse_forward_kl(gaussian.weighted_post(
+            *prior64, torch.as_tensor(p, device=dev).double().reshape(-1, G_D),
+            torch.as_tensor(w, device=dev).double()), post)[0])
+
+    # --- the Gaussian Hilbert coresets at the example's widths, N = 2^20 ---
+    X, Xc, model, prior64, post, post_c, prj = gaussian_setup(n)
+    kl0 = {k: rkl(torch.zeros(1), torch.zeros((1, G_D)), prior64, p)
+           for k, p in (("clean", post), ("contaminated", post_c))}
+    log(f"hilbert, Gaussian data: N={n} clean + {Xc.shape[0] - n} outlier rows x d={G_D}, "
+        f"S={G_S}, M={G_M}; the prior's reverse KL to the clean / contaminated posterior "
+        f"{kl0['clean']:.6g} / {kl0['contaminated']:.6g}")
+    for tag in ("GIGAO", "GIGAR"):
+        alg, t_proj = _synced(lambda: bc.HilbertCoreset(Xc, prj[tag], seed=seed, **on))
+        W, t_tr = _synced(lambda: alg.snnls.build_trace(G_M))
+        A, b = alg.snnls.A, alg.snnls.b
+        err = torch.stack([torch.linalg.norm(A @ W[m] - b) for m in range(G_M)])
+        rises = int((err[1:] > err[:-1] * (1 + 1e-6)).sum())
+        alg._sync_state()                     # the example's route (:198-206)
+        w, p, _ = alg.get()
+        kl = {k: rkl(w, p, prior64, q) for k, q in (("clean", post), ("contaminated", post_c))}
+        log(f"hilbert, {tag}: projection of {Xc.shape[0]} rows {t_proj:.3f} s; GIGA "
+            f"build_trace({G_M}) {t_tr:.3f} s, {t_tr / G_M * 1e3:.3f} ms per greedy "
+            f"iteration (host clock); error {float(err[0]):.6g} -> {float(err[-1]):.6g}, "
+            f"{rises} rises; {len(w)} points, reverse KL to the clean / contaminated "
+            f"posterior {kl['clean']:.6g} / {kl['contaminated']:.6g}; {card}")
+        # GIGA's own objective: it never rises, and ends below the empty
+        # coreset's ||b||. (Its posterior is far from both posteriors at these
+        # widths, as the JAX package's GIGA under the same samples: the KLs
+        # are printed, not checked.)
+        if rises or not bool(torch.isfinite(err).all()) or not err[-1] < torch.linalg.norm(b):
+            raise AssertionError(f"{tag}: the error rose along the trace ({rises} times) or "
+                                 f"ended at {float(err[-1]):.6g}, not below ||b||")
+        summary.append(f"{tag} {t_tr / G_M * 1e3:.3f} ms/it")
+        if tag == "GIGAO":
+            # a trace row is the weights of a build of that many iterations
+            again = bc.HilbertCoreset(Xc, prj[tag], seed=seed, **on)
+            _, t_b = _synced(lambda: again.snnls.build(H_ROW))
+            wb = again.snnls.w
+            scale = float(wb.abs().max())
+            if not (torch.equal(wb > 0, W[H_ROW - 1] > 0)
+                    and float((wb - W[H_ROW - 1]).abs().max()) <= GRAPH_TOL * scale):
+                raise AssertionError(f"trace row {H_ROW - 1} is not build({H_ROW})'s weights")
+            log(f"hilbert, {tag}: build({H_ROW}) {t_b:.3f} s equals trace row {H_ROW - 1}")
+            del again
+            # the greedy loop reads nothing on the host
+            pre = snnls.giga_precompute(A, b)
+            step = lambda w: snnls.giga_step(pre, w, 1e-12)
+            error = lambda w: torch.linalg.norm(A @ w - b)
+            w0 = torch.zeros(A.shape[1], device=dev)
+            torch.cuda.synchronize()
+            if dev == "cuda":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                t0 = time.perf_counter()
+                st = snnls.build(step, error, w0, G_M)
+                t_loop = time.perf_counter() - t0
+            finally:
+                if dev == "cuda":
+                    torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            t_run = time.perf_counter() - t0
+            if not torch.equal(st.w, W[G_M - 1]):
+                raise AssertionError("the sync-debug build differs from the trace")
+            log(f"hilbert, GIGA build({G_M}) under set_sync_debug_mode('error'): no host read "
+                f"in the loop; {t_loop:.3f} s to enqueue, {t_run:.3f} s to finish "
+                f"({t_run / G_M * 1e3:.3f} ms per greedy iteration), equal to the trace")
+            del pre
+        del alg, W, A, b
+    torch.cuda.empty_cache()
+    # AccIHT (IHTO), one build of the whole budget
+    alg = bc.HilbertCoreset(Xc, prj["GIGAO"], seed=seed, snnls=snnls.AccIHT, **on)
+    _, t_iht = _synced(lambda: alg.build(G_M, G_M))
+    w, p, _ = alg.get()
+    kl = rkl(w, p, prior64, post_c)
+    log(f"hilbert, IHTO: AccIHT build({G_M}) {t_iht:.3f} s ({alg.snnls.inner_itrs} IHT steps "
+        f"after {G_M} GIGA steps), {len(w)} points, error {alg.error():.6g}, reverse KL to the "
+        f"contaminated posterior {kl:.6g}; {card}")
+    summary.append(f"IHTO {t_iht:.2f} s")
+    del alg
+
+    # refine() on the Gaussian SparseVICoreset of phase 13
+    svi = bc.SparseVICoreset(Xc, bc.BlackBoxProjector(bc.gaussian_conjugate_sampler(
+        prior64[0].float(), eye(G_D), prior64[2].float()), G_S, model=model),
+        n_subsample_select=G_N_SEL, n_subsample_opt=G_N_OPT, opt_itrs=G_ITRS,
+        step_sched=lambda i: G_I0 / (1.0 + i), seed=seed, max_size=G_M, **on)
+    _, t_svi = _synced(lambda: svi.build(H_SVI_SELECTIONS, H_SVI_SELECTIONS))
+    before = svi.state.wts.clone()
+    w, p, _ = svi.get()
+    kl_b = rkl(w, p, prior64, post)
+    _, t_ref = _synced(lambda: svi.refine(n_samples=H_REFINE_S))
+    w, p, _ = svi.get()
+    kl_a = rkl(w, p, prior64, post)
+    after = svi.state.wts
+    if bool((after < 0).any()) or bool(((after > 0) & (before <= 0)).any()):
+        raise AssertionError("refine() left the support or made a weight negative")
+    log(f"hilbert, refine() of the Gaussian SparseVICoreset ({H_SVI_SELECTIONS} selections, "
+        f"{t_svi:.2f} s): n_samples={H_REFINE_S} over all {Xc.shape[0]} rows {t_ref:.3f} s; "
+        f"reverse KL to the clean posterior {kl_b:.6g} -> {kl_a:.6g}; support "
+        f"{int((before > 0).sum())} -> {int((after > 0).sum())}; {card}")
+    summary.append(f"Gaussian refine {t_ref:.2f} s, rKL {kl_b:.6g} -> {kl_a:.6g}")
+    del svi
+
+    # the sharded Hilbert build on the (1, 1) NCCL mesh against the single
+    # device, over the clean rows: on the outliers the beta-likelihood
+    # underflows to zero projections, which GIGA refuses, and filtering them
+    # would change the reductions' lengths and so their float32 rounding
+    zero = torch.zeros((1, G_D), device=dev)
+    samples, _ = prj["GIGAO"].sampler(gen, G_S, zero[:, 0], zero, zero[0])
+    with world_of_one("nccl" if dev == "cuda" else "gloo"):
+        mesh = make_mesh(1, 1)
+        for beta in (None, H_BETA):
+            if beta is None:
+                ref = bc.HilbertCoreset(X, bc.BlackBoxProjector(bc.fixed_sampler(samples), G_S,
+                                                                model=model), **on).snnls
+            else:
+                vecs = project_beta(model, X, samples,
+                                    torch.tensor(beta, dtype=torch.float32, device=dev))
+                ref = snnls.GIGA(vecs.T, vecs.sum(dim=0))
+                del vecs
+            _, t_ref = _synced(lambda: ref.build(G_M))
+            w_ref = ref.w
+            sh = ShardedHilbertCoreset(*shard_data(X, mesh), model, samples, mesh, beta=beta)
+            _, t_sh = _synced(lambda: sh.build(G_M))
+            w_sh = torch.as_tensor(sh.weights(), device=dev)
+            scale = float(w_ref.abs().max())
+            gap = float((w_sh - w_ref).abs().max())
+            mode = "ll" if beta is None else f"beta={beta}"
+            log(f"hilbert, ShardedHilbertCoreset ({mode}, NCCL (1, 1) mesh): build({G_M}) "
+                f"{t_sh:.3f} s ({t_sh / G_M * 1e3:.3f} ms per greedy iteration, "
+                f"{mesh.calls['psum']} psums, {mesh.calls['all_gather']} all_gathers so far) "
+                f"against the single-device GIGA's {t_ref:.3f} s; {int((w_sh > 0).sum())} "
+                f"points, the same as GIGA's; max |w gap| {gap:.3e} of "
+                f"max|w| {scale:.6g}; {card}")
+            if not (torch.equal(w_sh > 0, w_ref > 0) and gap <= GRAPH_TOL * scale):
+                raise AssertionError(f"the sharded Hilbert build ({mode}) differs from GIGA")
+            summary.append(f"sharded {mode} {t_sh / G_M * 1e3:.3f} ms/it")
+            del ref, sh, w_ref
+    del X, Xc, samples, prj
+    torch.cuda.empty_cache()
+
+    # --- the other solvers at the example's own N, against the CPU in float64 ---
+    _, Xc5, _, _, _, _, prj5 = gaussian_setup(G_EXAMPLE_N)
+    alg = bc.HilbertCoreset(Xc5, prj5["GIGAO"], seed=seed, **on)
+    A, b = alg.snnls.A, alg.snnls.b
+    A64, b64 = A.double().cpu(), b.double().cpu()
+    for name in ("FrankWolfe", "OrthoPursuit", "LAR"):
+        cls = getattr(snnls, name)
+        want = cls(A64, b64).build_trace(H_OTHER_M)
+        got, t_card = _synced(lambda: cls(A, b).build_trace(H_OTHER_M))
+        got64 = cls(A.double(), b.double()).build_trace(H_OTHER_M).cpu()
+        gap = float((got.double().cpu() - want).abs().max() / want.abs().max())
+        first32, first64 = _first_departure(got.cpu(), want), _first_departure(got64, want)
+        log(f"hilbert, {name} at N={Xc5.shape[0]}: build_trace({H_OTHER_M}) {t_card:.3f} s "
+            f"({t_card / H_OTHER_M * 1e3:.3f} ms per greedy iteration); against the CPU "
+            f"float64 solver the card's columns depart after iteration {first32} in float32 "
+            f"(weights within {gap:.3e} of its max|w|), {first64} in float64")
+        # LAR's events are ratios of FISTA re-solves, which float32 resolves
+        # to about 1e-4: its float32 path departs from float64's (after
+        # iteration 20 of 50 on this problem on the CPU), so LAR is held to
+        # the CPU in float64 only
+        if first64 is not None or (first32 is not None and name != "LAR"):
+            raise AssertionError(f"{name}: the card's columns depart from the CPU's")
+        summary.append(f"{name} {t_card / H_OTHER_M * 1e3:.2f} ms/it")
+    for name in ("ImportanceSampling", "UniformSampling"):
+        cls = getattr(snnls, name)
+        on_card, on_cpu = cls(A, b, seed=seed), cls(A64, b64, seed=seed)
+        draws = snnls.sampling_draws(torch.Generator(device=dev).manual_seed(seed),
+                                     on_card.ps, 64)
+        c1, w1 = snnls.sampling_fold(on_card.ps, on_card.counts, draws, H_OTHER_M)
+        c2, w2 = snnls.sampling_fold(on_cpu.ps, on_cpu.counts, draws.cpu(), H_OTHER_M)
+        gap = float((w1.double().cpu() - w2).abs().max() / w2.abs().max())
+        if not torch.equal(c1.double().cpu(), c2) or not gap <= 1e-5:
+            raise AssertionError(f"{name}: the card's fold differs from the CPU's ({gap:.3e})")
+        _, t_card = _synced(lambda: on_card.build(H_OTHER_M))
+        log(f"hilbert, {name} at N={Xc5.shape[0]}: the same counts as the CPU under the same "
+            f"{H_OTHER_M} draws, weights within {gap:.3e}; build({H_OTHER_M}) {t_card * 1e3:.2f} ms")
+    del alg, A, b, Xc5
+
+    # --- the multiclass Hilbert coreset at examples/multiclass.py's widths ---
+    K, d = MC_K, MC_D
+    Xm, ym, Zm = bc.gen_synthetic_multiclass(gen, n + MC_N_TEST, d=d, n_classes=K)
+    Zc, _ = bc.flip_labels(gen, Zm[:n], K, MC_F_RATE)
+    Xt, yt = Xm[n:], ym[n:]
+    del Xm, ym, Zm
+    mprj = bc.BlackBoxProjector(bc.multiclass_laplace_sampler(K), S,
+                                model=multiclass.bundle(K), theta_dim=K * d)
+    k2.launches = 0
+    alg, t_proj = _synced(lambda: bc.HilbertCoreset(Zc, mprj, seed=seed, **on))
+    launches = k2.launches
+    if dev == "cuda" and launches != 1:
+        raise AssertionError(f"the multiclass Hilbert projection launched K2 {launches} times")
+    k2_total += launches
+    _, t_b = _synced(lambda: alg.build(MC_M, MC_M))
+    w, p, _ = alg.get()
+    lj = multiclass.make_log_joint(K)
+    ths = laplace_thetas(w, p, K * d, gen, log_joint=lj,
+                         grad=multiclass.make_grad_th_log_joint(K),
+                         hess=multiclass.make_hess_th_log_joint(K))
+    acc = float(multiclass.compute_accuracy(Xt, yt, ths, K))
+    log(f"hilbert, multiclass HilbertCoreset: N={n}, K={K}, d={d}, S={S}: projection "
+        f"{t_proj:.3f} s ({launches} K2 launch), GIGA build({MC_M}) {t_b:.3f} s "
+        f"({t_b / MC_M * 1e3:.3f} ms per greedy iteration), {len(w)} points; held-out "
+        f"accuracy of its Laplace posterior {acc:.4f} ({MC_N_TEST} rows); {card}")
+    if not 0.0 <= acc <= 1.0:
+        raise AssertionError(f"accuracy {acc} outside [0, 1]")
+    summary.append(f"multiclass GIGA {t_b / MC_M * 1e3:.3f} ms/it, accuracy {acc:.4f}")
+    del alg
+
+    # refine() over every row of a multiclass SparseVICoreset: K2 once more, at S_big
+    svi = bc.SparseVICoreset(Zc, mprj, n_subsample_select=None, n_subsample_opt=MC_N_OPT,
+                             opt_itrs=MC_OPT_ITRS, seed=seed, max_size=MC_M, **on)
+    k2.launches = 0
+    svi.build(2, 2)
+    k2_total += k2.launches
+    before = svi.state.wts.clone()
+    k2.launches = 0
+    _, t_ref = _synced(lambda: svi.refine(n_samples=H_REFINE_S))
+    launches = k2.launches
+    if dev == "cuda" and launches != 1:
+        raise AssertionError(f"refine() over every row launched K2 {launches} times")
+    k2_total += launches
+    after = svi.state.wts
+    if bool((after < 0).any()) or bool(((after > 0) & (before <= 0)).any()):
+        raise AssertionError("refine() left the support or made a weight negative")
+    log(f"hilbert, refine() of the multiclass SparseVICoreset: n_samples={H_REFINE_S} over "
+        f"all {n} rows {t_ref:.3f} s ({launches} K2 launch), weights "
+        f"{before[before > 0].tolist()} -> {after[before > 0].tolist()}; {card}")
+    # K2 at that shape (S = 500, the ll variant refine() takes), against its plain version
+    ths = torch.randn((H_REFINE_S, K * d), generator=gen, device=dev)
+    got = k2(Zc, ths, K, 1.0, False)
+    want = kernels.multiclass_projection_plain(Zc[:8192], ths, K, 1.0, False)
+    err = float((got[:8192] - want).abs().max())
+    if not err <= MC_TOL:
+        raise AssertionError(f"K2 at S={H_REFINE_S}: off its plain version by {err:.3e}")
+    t_k2, plan = 0.0, "not built"
+    if dev == "cuda":
+        t_k2 = _time_ms(lambda: k2(Zc, ths, K, 1.0, False), 20)
+        plan = kernels.mc_plan_built(d, K, H_REFINE_S, torch.cuda.get_device_properties(
+            dev).shared_memory_per_block_optin)
+    bound = mc_bound(n, H_REFINE_S, K, d, False)
+    log(f"hilbert, K2 at N={n}, S={H_REFINE_S}, K={K}, d={d} (ll): {t_k2:.4f} ms (CUDA events), "
+        f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, max|kernel-plain| on 8192 "
+        f"rows {err:.3e}; plan {plan}; {card}")
+    summary.append(f"K2 at S={H_REFINE_S} {t_k2:.4f} ms")
+    del svi, Zc, Xt, yt, got, want
+    torch.cuda.empty_cache()
+    log(f"hilbert: phase 14 in {time.perf_counter() - t_phase:.1f} s; {k2_total} K2 launches")
+    return {"K2": k2_total, "line": "hilbert: " + ", ".join(summary)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1576,14 +1919,16 @@ def main() -> int:
     phase_bench(args.seed, N_ROWS)
     api = phase_api(args.seed, N_ROWS, args.api_selections)
     families = phase_families(args.seed, card)
+    hilbert = phase_hilbert(args.seed, card)
     entries = [("logreg_adam_step", "logreg_adam_step.cu", "pallas_kernels.py:173",
                 {"launches": main_path["launches"] + api["K1"]}, k1),
                ("multiclass_projection", "multiclass_projection.cu", "pallas_kernels.py:330",
-                {"launches": mc_path["launches"] + api["K2"]}, k2),
+                {"launches": mc_path["launches"] + api["K2"] + hilbert["K2"]}, k2),
                ("logreg_shard_step_partials", "logreg_shard_partials.cu", "pallas_kernels.py:249",
                 sharded, k3)]
     log(families)
-    log(f"chip_smoke: phases 0-13 in {time.perf_counter() - t_start:.1f} s")
+    log(hilbert["line"])
+    log(f"chip_smoke: phases 0-14 in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"betacores_tpu_torch/csrc/{src}",
          "replaces": f"betacores_tpu/ops/{tpu}", "launches": path["launches"], **k}

@@ -332,21 +332,16 @@ def test_entry_points_need_a_card_or_the_cpu(det, monkeypatch):
             make()
 
 
-@pytest.mark.parametrize("what", ["groups", "contextual", "refine", "hilbert", "bpsvi"])
+@pytest.mark.parametrize("what", ["groups", "contextual", "bpsvi"])
 def test_unported_parts_name_their_roadmap_item(det, what):
     Z, samples = det
     prj = _projectors(samples, False)[1]
-    item = {"groups": "item 9", "contextual": "item 7", "refine": "item 8",
-            "hilbert": "item 8", "bpsvi": "item 9"}[what]
+    item = {"groups": "item 9", "contextual": "item 7", "bpsvi": "item 9"}[what]
     with pytest.raises(NotImplementedError, match=item):
         if what == "groups":
             bc.SparseVICoreset(Z, prj, groups=[[0, 1], [2]], device="cpu")
         elif what == "contextual":
             bc.coresets.ContextualProjector(None, S, None)
-        elif what == "refine":
-            bc.SparseVICoreset(Z, prj, device="cpu").refine()
-        elif what == "hilbert":
-            bc.HilbertCoreset(Z, prj, device="cpu")
         else:
             bc.BatchPSVICoreset(Z, prj, device="cpu")
 

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain versions, on the card: K1,
 the fused refinement step (betacores_tpu_torch/csrc/logreg_adam_step.cu),
 K2, the multiclass projection (csrc/multiclass_projection.cu), and K3, the
-sharded step's shard-local partials (csrc/logreg_shard_partials.cu). This
-file imports no JAX, so it runs where the card is:
+sharded step's shard-local partials (csrc/logreg_shard_partials.cu); and
+the sparse NNLS solvers on the card (the CPU's columns, no host read in the
+greedy loop, ``nnls_on_support`` at column N - 1). This file imports no
+JAX, so it runs where the card is:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
@@ -542,3 +544,96 @@ def test_cuda_captured_family_build_equals_eager(cuda_device, family):
     assert b.capture_stats()[0] >= 1
     assert not torch.equal(first.wts, other.wts)
     assert torch.equal(first.wts, again.wts) and torch.equal(first.idcs, again.idcs)
+
+
+@pytest.mark.cuda
+def test_cuda_argmax_takes_the_first_maximum_and_nan(cuda_device):
+    """The greedy solvers' select rests on torch.argmax returning the first
+    maximum and treating NaN as the maximum, as jnp.argmax does."""
+    for dt in (torch.float32, torch.float64):
+        x = torch.tensor([1.0, 3.0, 3.0, 2.0, 3.0], dtype=dt, device=cuda_device)
+        assert int(torch.argmax(x)) == 1
+        x[3] = float("nan")
+        assert int(torch.argmax(x)) == 3
+        big = torch.zeros(1 << 20, dtype=dt, device=cuda_device)
+        big[[5, 70000, 900000]] = 2.0
+        assert int(torch.argmax(big)) == 5
+
+
+def _snnls_problem(device, dtype=torch.float64, D=20, N=500):
+    g = torch.Generator().manual_seed(3)
+    A = torch.randn((D, N), generator=g, dtype=dtype)
+    b = A.abs() @ torch.rand(N, generator=g, dtype=dtype)
+    return A.to(device), b.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["GIGA", "FrankWolfe", "OrthoPursuit", "LAR", "AccIHT"])
+def test_cuda_solver_picks_the_cpu_columns(cuda_device, name):
+    """A greedy build on the card takes the columns the same build takes on
+    the CPU, in the same order, with weights within 1e-9 of max|w|
+    (float64, a problem without ties)."""
+    from betacores_tpu_torch import snnls
+
+    traces = []
+    for dev in ("cpu", cuda_device):
+        A, b = _snnls_problem(dev)
+        traces.append(getattr(snnls, name)(A, b).build_trace(12).cpu().numpy())
+    cpu, card = traces
+    np.testing.assert_array_equal(card > 0, cpu > 0)
+    np.testing.assert_allclose(card, cpu, rtol=0, atol=1e-9 * np.abs(cpu).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["GIGA", "FrankWolfe", "OrthoPursuit", "LAR", "AccIHT"])
+def test_cuda_greedy_loop_reads_nothing_on_the_host(cuda_device, name):
+    """The build loop (snnls.build over a solver's step) runs under
+    torch.cuda.set_sync_debug_mode("error"): any host read inside it
+    raises. The latch is read after the loop."""
+    from betacores_tpu_torch import snnls
+
+    A, b = _snnls_problem(cuda_device, torch.float32)
+    w0 = torch.zeros(A.shape[1], dtype=A.dtype, device=cuda_device)
+    err = lambda w: torch.linalg.norm(A @ w - b)
+    K = min(A.shape)
+    if name == "GIGA":
+        pre = snnls.giga_precompute(A, b)
+        step = lambda w: snnls.giga_step(pre, w, 1e-12)
+    elif name == "FrankWolfe":
+        pre = snnls.fw_precompute(A, b)
+        step = lambda w: snnls.fw_step(pre, w)
+    elif name == "OrthoPursuit":
+        pre = snnls.orthopursuit.OMPPre(A, A / torch.linalg.norm(A, dim=0), b)
+        step = lambda w: snnls.omp_step(pre, w, K)
+    elif name == "LAR":
+        pre = snnls.lar.LARPre(A, A / torch.linalg.norm(A, dim=0), b)
+        step = lambda w: snnls.lar_step(pre, w, K)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        if name == "AccIHT":
+            w, _ = snnls.iht.aiht_solve_hybrid(A, b, 8, w0, 20, 1e-12)
+        else:
+            w = snnls.build(step, err, w0, 8).w
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int((w > 0).sum()) > 0 and bool(torch.isfinite(w).all())
+
+
+@pytest.mark.cuda
+def test_cuda_nnls_on_support_keeps_the_last_column(cuda_device):
+    """Column N - 1 in a support narrower than the block: on the card the
+    padding slots' adds of 0 leave its weight, as on the CPU."""
+    from betacores_tpu_torch import snnls
+
+    g = torch.Generator().manual_seed(5)
+    D, N = 10, 12
+    A = torch.randn((D, N), generator=g, dtype=torch.float64)
+    sup = torch.zeros(N, dtype=torch.bool)
+    sup[[2, 7, N - 1]] = True
+    b = A[:, sup] @ torch.tensor([0.5, 1.5, 2.0], dtype=torch.float64)
+    cpu = snnls.nnls_on_support(A, b, sup, 5, n_iters=2000)
+    card = snnls.nnls_on_support(A.to(cuda_device), b.to(cuda_device), sup.to(cuda_device),
+                                 5, n_iters=2000).cpu()
+    assert float(card[N - 1]) > 1.0
+    np.testing.assert_allclose(card.numpy(), cpu.numpy(), rtol=0, atol=1e-10)

@@ -23,7 +23,9 @@ refinement route, the collective counts of the build, and with ``trace``
 the per-iteration (wts, idcs, beta) as numpy arrays. A job with
 ``kind="mesh"`` instead reports the rank's mesh bookkeeping: its axes,
 psums and all_gathers of its rank over both axes, and its blocks of
-``data`` and ``weights``.
+``data`` and ``weights``; one with ``kind="hilbert"`` runs a
+``ShardedHilbertCoreset`` over ``data`` with given ``samples`` (and
+``beta``), its ``build_trace(trace)`` and then ``build(itrs)``.
 """
 
 from __future__ import annotations
@@ -77,6 +79,23 @@ def mesh_report(job, mesh):
             "u_block": shard_weights(torch.from_numpy(job["weights"]), mesh).numpy()}
 
 
+def hilbert_report(job, mesh):
+    """A ShardedHilbertCoreset over ``data`` with ``samples`` (and ``beta``):
+    ``trace`` iterations of ``build_trace`` (this rank's block of each row),
+    then ``itrs`` more of ``build``; the weights, error, size and get() after
+    each, and the latch."""
+    from betacores_tpu_torch.parallel import ShardedHilbertCoreset, shard_data
+
+    data, n_true = shard_data(torch.from_numpy(job["data"]), mesh)
+    model, _ = _model(job["model"])
+    sh = ShardedHilbertCoreset(data, n_true, model, torch.from_numpy(job["samples"]), mesh,
+                               beta=job.get("beta"))
+    out = {"trace": sh.build_trace(job["trace"]).numpy(), "w_trace": sh.weights()}
+    sh.build(job["itrs"])
+    return dict(out, w=sh.weights(), error=sh.error(), size=sh.size(), get=sh.get(),
+                latched=sh.reached_numeric_limit)
+
+
 def run_job(job, mesh):
     from betacores_tpu_torch.coresets import (IncrementalConfig, state_from_numpy,
                                              state_to_numpy)
@@ -85,6 +104,8 @@ def run_job(job, mesh):
 
     if job.get("kind") == "mesh":
         return mesh_report(job, mesh)
+    if job.get("kind") == "hilbert":
+        return hilbert_report(job, mesh)
     data, n_true = shard_data(torch.from_numpy(job["data"]), mesh)
     u = job.get("weights")
     u = None if u is None else shard_weights(torch.from_numpy(u), mesh)
