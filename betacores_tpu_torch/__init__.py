@@ -30,17 +30,25 @@ Gaussian (``models.mvn``, ``mvn.mvn_niw_sampler``, which the builders run on
 their per-step-draw route). The Hilbert coresets are ported too: the sparse
 NNLS solvers (``snnls``), ``HilbertCoreset``, the weight polish ``refine()``
 (``coresets.refine_weights``) and the sharded Hilbert build
-(``parallel.ShardedHilbertCoreset``). Modules keep the JAX package's paths
-and names.
+(``parallel.ShardedHilbertCoreset``). Group (batch) selection is ported
+(``groups=`` on ``BetaCoreset``, ``SparseVICoreset`` and
+``UniformSamplingCoreset``; ``coresets.make_group_incremental_builder``,
+whose multiclass select runs the projection kernel over every row), with
+the pseudo-coresets (``BatchPSVICoreset``, ``DiffPrivBatchPSVICoreset``,
+``PseudoSparseVICoreset``) and group data valuation (``valuation``:
+distributional and truncated Monte-Carlo Shapley). Modules keep the JAX
+package's paths and names.
 This package imports torch and never jax.
 """
 
-from . import coresets, data, evaluation, inference, models, ops, parallel, snnls, utils
+from . import (coresets, data, evaluation, inference, models, ops, parallel, snnls, utils,
+               valuation)
 from .coresets import (BatchPSVICoreset, BetaBlackBoxProjector, BetaCoreset,
-                       BlackBoxProjector, CoresetState, FixedDraws, GeneratorDraws,
-                       HilbertCoreset, IncrementalConfig, SparseVICoreset,
-                       UniformSamplingCoreset, init_state, make_incremental_builder,
-                       select_beta, state_from_numpy, state_to_numpy, trimmed_mean)
+                       BlackBoxProjector, CoresetState, DiffPrivBatchPSVICoreset,
+                       FixedDraws, GeneratorDraws, HilbertCoreset, IncrementalConfig,
+                       PseudoSparseVICoreset, SparseVICoreset, UniformSamplingCoreset,
+                       init_state, make_incremental_builder, select_beta, state_from_numpy,
+                       state_to_numpy, trimmed_mean)
 from .data import (flip_labels, gen_synthetic_gaussian, gen_synthetic_linreg,
                    gen_synthetic_logreg, gen_synthetic_multiclass, gen_synthetic_poisson,
                    perturb_logreg)
@@ -54,8 +62,8 @@ from .utils import NumericalPrecisionError, set_tolerance, set_verbosity
 
 __all__ = [
     "coresets", "data", "evaluation", "inference", "models", "ops", "parallel", "snnls",
-    "utils",
-    "BatchPSVICoreset", "BetaBlackBoxProjector", "BetaCoreset", "BlackBoxProjector",
+    "utils", "valuation",
+    "BatchPSVICoreset", "DiffPrivBatchPSVICoreset", "PseudoSparseVICoreset", "BetaBlackBoxProjector", "BetaCoreset", "BlackBoxProjector",
     "HilbertCoreset", "SparseVICoreset", "UniformSamplingCoreset", "select_beta",
     "trimmed_mean", "NumericalPrecisionError", "set_tolerance", "set_verbosity",
     "CoresetState", "FixedDraws", "GeneratorDraws", "IncrementalConfig",

@@ -20,10 +20,12 @@ at construction; ``error()`` draws from a second one, seeded
 
 ``HilbertCoreset`` projects once and solves with a solver of
 ``betacores_tpu_torch.snnls``; ``refine()`` polishes an incremental
-coreset's weights (coresets/refine.py). Not ported yet, and raising
-``NotImplementedError`` that names the ROADMAP item that brings them:
-``groups=`` (Queue A item 9), ``ContextualProjector`` (item 7b) and
-``BatchPSVICoreset`` (item 9).
+coreset's weights (coresets/refine.py). ``groups=`` (lists of member
+indices) selects whole groups (coresets/groups.py) in ``BetaCoreset``,
+``SparseVICoreset`` and ``UniformSamplingCoreset``; ``BatchPSVICoreset``
+builds a pseudo-coreset in one shot (coresets/bpsvi.py). Not ported yet,
+and raising ``NotImplementedError`` that names the ROADMAP item that
+brings it: ``ContextualProjector`` (item 7b).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from ..models.base import ModelFns, beta_gradient_from_autodiff
-from ..ops.projection import draw_subsample, project_ll
+from ..ops.projection import Groups, draw_subsample, project_ll
 from ..snnls.giga import GIGA
 from ..utils import errors
 from ..utils.device import resolve_device
@@ -42,6 +44,8 @@ from ..utils.errors import NumericalPrecisionError
 from ..utils.logging import get_logger
 from ..utils.prng import KeySequence
 from . import state as state_lib
+from .bpsvi import BPSVIConfig, make_bpsvi_builder
+from .groups import init_group_state, make_group_incremental_builder
 from .incremental import IncrementalConfig, make_incremental_builder
 from .refine import refine_weights
 
@@ -244,7 +248,11 @@ class Coreset:
 
 class _IncrementalCoreset(Coreset):
     """Shared eager wrapper of SparseVI and beta-Cores over
-    coresets/incremental.py's builder."""
+    coresets/incremental.py's builder, or with ``groups`` (lists of member
+    indices) over coresets/groups.py's: whole groups are selected, every
+    member appended, and the buffer holds every member of every group
+    unless ``max_size`` says otherwise. ``initialized`` leaves a warm
+    start's slots out of the group select's take-new comparison."""
 
     _use_beta = False
     _learn_beta = False
@@ -253,13 +261,14 @@ class _IncrementalCoreset(Coreset):
                  opt_itrs: int = 100, step_sched: Callable = lambda i: 1.0 / (1.0 + i),
                  beta: float = 0.5, learn_beta: Optional[bool] = None,
                  beta_cap: float = 1.0, seed: int = 0, max_size: int = 0, groups=None,
-                 data_weights=None, refit_every: int = 1,
+                 initialized: bool = False, data_weights=None, refit_every: int = 1,
                  dedup_select: bool = False, device=None, graph: Optional[bool] = None,
                  **kw):
-        if groups is not None:
-            raise _not_ported("groups=", "9")
         if getattr(ll_projector, "contextual", False):
             raise _not_ported("a contextual projector", "7b")
+        if groups is not None and not max_size:
+            # group appends add up to the largest group's size per iteration
+            max_size = sum(len(g) for g in groups)
         self.projector = ll_projector  # before super(): _init_aux reads theta_dim
         super().__init__(data, seed=seed, max_size=max_size, beta=beta, device=device, **kw)
         if learn_beta is not None:
@@ -272,12 +281,22 @@ class _IncrementalCoreset(Coreset):
             n_subsample_select=n_subsample_select, n_subsample_opt=n_subsample_opt,
             opt_itrs=opt_itrs, use_beta=self._use_beta, learn_beta=self._learn_beta,
             beta_cap=beta_cap, refit_every=refit_every, dedup_select=dedup_select)
-        u = None if data_weights is None else torch.as_tensor(data_weights)
+        u = None if data_weights is None else torch.as_tensor(data_weights).to(
+            dtype=self.data.dtype, device=self.device)
         self._data_weights = u
-        self._builder = make_incremental_builder(self.data, ll_projector.model,
-                                                 ll_projector.sampler, self._cfg,
-                                                 step_sizes=step_sizes, data_weights=u,
-                                                 graph=graph)
+        self.groups = groups
+        if groups is None:
+            self._builder = make_incremental_builder(self.data, ll_projector.model,
+                                                     ll_projector.sampler, self._cfg,
+                                                     step_sizes=step_sizes, data_weights=u,
+                                                     graph=graph)
+        else:
+            self._builder = make_group_incremental_builder(
+                self.data, Groups.from_lists(groups, self.device), ll_projector.model,
+                ll_projector.sampler, self._cfg, step_sizes=step_sizes, data_weights=u,
+                graph=graph)
+            self._gstate = init_group_state(self.state, len(groups),
+                                            initialized=int(self.state.m) if initialized else 0)
         # the error draws come from their own stream, so drawing them never
         # shifts the build's; they are drawn once per build
         self._error_keys = KeySequence(seed ^ 0x5EED0, self.device)
@@ -285,7 +304,15 @@ class _IncrementalCoreset(Coreset):
 
     @property
     def selected_groups(self):
-        return []
+        """Indices of the groups selected so far."""
+        if self.groups is None:
+            return []
+        return torch.nonzero(self._gstate.selected)[:, 0].tolist()
+
+    def reset(self) -> None:
+        super().reset()
+        if self.groups is not None:
+            self._gstate = init_group_state(self.state, len(self.groups))
 
     def _draws(self, itrs: int):
         """The draws provider of one ``build``/``build_trace`` of ``itrs``
@@ -301,11 +328,21 @@ class _IncrementalCoreset(Coreset):
         return self._error_keys().initial_seed()
 
     def _build(self, itrs: int, sz: int) -> None:
-        if self.size() + itrs > sz:
-            raise ValueError(f"{self.__class__.__name__}._build(): itrs + current size "
-                             f"({self.size()} + {itrs}) exceeds desired size {sz}")
-        self.state = self._builder.build(self.state, int(itrs), self._draws(int(itrs)))
+        if self.groups is not None:
+            gst = self._gstate._replace(core=self.state)
+            self._gstate = self._builder.build(gst, int(itrs), self._draws(int(itrs)))
+            self.state = self._gstate.core
+        else:
+            if self.size() + itrs > sz:
+                raise ValueError(f"{self.__class__.__name__}._build(): itrs + current size "
+                                 f"({self.size()} + {itrs}) exceeds desired size {sz}")
+            self.state = self._builder.build(self.state, int(itrs), self._draws(int(itrs)))
         self._error_seed = self._draw_error()
+
+    def _ensure_capacity(self, sz: int) -> None:
+        # group mode allocates its whole buffer at construction
+        if self.groups is None:
+            super()._ensure_capacity(sz)
 
     def error(self) -> float:
         """The tangent-space residual norm of the current coreset under the
@@ -316,8 +353,10 @@ class _IncrementalCoreset(Coreset):
         return float(self._builder.error(self.state, gen))
 
     def _optimize(self) -> None:
-        self.state = self._builder.optimize(self.state,
-                                            self._builder.generator_draws(self.keys()))
+        # group mode refines inside its build only, as the reference's
+        if self.groups is None:
+            self.state = self._builder.optimize(self.state,
+                                                self._builder.generator_draws(self.keys()))
 
     def _refine_draws(self):
         """The draws of one ``refine()``: the next generator of this
@@ -329,22 +368,33 @@ class _IncrementalCoreset(Coreset):
         """The quasi-Newton weight polish on a frozen S_big-sample
         projection (coresets/refine.py), kept only if it tightens that
         objective. Meant for clean-data KL builds: coresets/refine.py says
-        why not to polish a contaminated beta build."""
+        why not to polish a contaminated beta build. Group mode polishes
+        the appended members point by point."""
         self.state = refine_weights(self._refine_draws(), self.data, self.projector.model,
                                     self.projector.sampler, self.state,
                                     n_samples=n_samples, n_subsample=n_subsample,
                                     use_beta=self._use_beta, data_weights=self._data_weights)
 
-    def build_trace(self, itrs: int):
+    def build_trace(self, itrs: int, return_selected: bool = False):
         """``itrs`` incremental iterations, returning each iteration's
         compact coreset ``[(wts, pts, idcs, beta)] * itrs`` (what a
         ``for m: build(1, m); get()`` loop gives, from the same draws).
         Advances this coreset to the final size. Warm-start slots with
-        indices outside the data report their own coordinates."""
-        self._ensure_capacity(int(self.state.m) + itrs)
+        indices outside the data report their own coordinates. Group mode
+        with ``return_selected`` returns ``(out, selected)`` too, the
+        (itrs, G) bool trace whose columns turn on in selection order."""
+        if self.groups is None:
+            if return_selected:
+                raise ValueError("return_selected: group mode only")
+            self._ensure_capacity(int(self.state.m) + itrs)
         pts0 = self.state.pts.cpu().numpy()      # after growth: the warm slots
-        st, (W, I, B) = self._builder.build_trace(self.state, int(itrs),
-                                                  self._draws(int(itrs)))
+        if self.groups is None:
+            st, (W, I, B) = self._builder.build_trace(self.state, int(itrs),
+                                                      self._draws(int(itrs)))
+        else:
+            gst, (W, I, B, Sel) = self._builder.build_trace(
+                self._gstate._replace(core=self.state), int(itrs), self._draws(int(itrs)))
+            self._gstate, st = gst, gst.core
         self.state = st
         self._error_seed = self._draw_error()
         N = self.data.shape[0]
@@ -359,6 +409,8 @@ class _IncrementalCoreset(Coreset):
         for m in range(itrs):
             keep = W[m] > 0
             out.append((W[m][keep], P[m][keep], I[m][keep], float(B[m])))
+        if return_selected:
+            return out, Sel.cpu().numpy()
         return out
 
 
@@ -468,10 +520,53 @@ class HilbertCoreset(Coreset):
 
 
 class BatchPSVICoreset(Coreset):
-    """Batch pseudo-coreset. Not ported yet."""
+    """Batch pseudo-coreset (coresets/bpsvi.py): ``build(itrs, sz)``
+    builds sz pseudo-points in one shot (``itrs`` is ignored, as in the
+    reference), with one builder per size. The build replaces the whole
+    buffer, so no slot of an earlier, larger build stays behind;
+    ``optimize()`` does nothing (the build is the optimization)."""
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("BatchPSVICoreset", "9")
+    def __init__(self, data, ll_projector, opt_itrs: int = 100, n_subsample_opt=None,
+                 step_sched: Callable = lambda m: (lambda i: 1.0 / (1.0 + i)),
+                 seed: int = 0, data_weights=None, device=None,
+                 graph: Optional[bool] = None, **kw):
+        self.projector = ll_projector  # before super(): _init_aux reads theta_dim
+        super().__init__(data, seed=seed, device=device, **kw)
+        self.opt_itrs = opt_itrs
+        self.n_subsample_opt = n_subsample_opt
+        self.step_sched = step_sched
+        self.graph = graph
+        self._data_weights = (None if data_weights is None else torch.as_tensor(
+            data_weights).to(dtype=self.data.dtype, device=self.device))
+        self._builders: dict = {}
+
+    def _builder_for(self, sz: int):
+        if sz not in self._builders:
+            steps = torch.from_numpy(_steps_to_i0(self.step_sched(sz), self.opt_itrs))
+            cfg = BPSVIConfig(projection_dim=self.projector.projection_dimension,
+                              n_subsample_opt=self.n_subsample_opt, opt_itrs=self.opt_itrs)
+            self._builders[sz] = make_bpsvi_builder(
+                self.data, self.projector.model, self.projector.sampler, cfg,
+                step_sizes=steps, data_weights=self._data_weights, graph=self.graph)
+        return self._builders[sz]
+
+    def _draws(self, sz: int):
+        """The draws of one build: the next generator of this instance's
+        key sequence."""
+        return self.keys()
+
+    def _build(self, itrs: int, sz: int) -> None:
+        wts, pts, idcs = self._builder_for(sz)(self._draws(sz), sz, self._init_aux())
+        self._ensure_capacity(sz)
+        st = self.state
+        w_buf, p_buf = torch.zeros_like(st.wts), torch.zeros_like(st.pts)
+        i_buf = torch.full_like(st.idcs, -1)
+        w_buf[:sz], p_buf[:sz], i_buf[:sz] = wts, pts, idcs.to(i_buf.dtype)
+        self.state = st._replace(wts=w_buf, pts=p_buf, idcs=i_buf,
+                                 m=torch.full((), sz, dtype=torch.int32, device=self.device))
+
+    def _optimize(self) -> None:
+        pass
 
 
 def uniform_coreset_draws(generator: torch.Generator, n: int, N: int) -> np.ndarray:
@@ -508,12 +603,16 @@ class UniformSamplingCoreset(Coreset):
     The draws come from a host ``torch.Generator`` seeded with ``seed`` and
     a counter of draws made, so ``build_trace`` and a ``build(1, m)`` loop
     give the same stream, and ``reset`` rewinds it. Selection is host
-    bookkeeping; the device state is made lazily when it is read."""
+    bookkeeping; the device state is made lazily when it is read.
+
+    With ``groups`` (lists of member indices) each draw is a group
+    (uniform, or with ``data_weights`` in proportion to the group's mass,
+    zero-mass groups never drawn); a group drawn for the first time adds
+    every member once (with ``data_weights``, each member of u > 0 with
+    multiplicity u_n)."""
 
     def __init__(self, data, seed: int = 0, groups=None, data_weights=None, device=None,
                  **kw):
-        if groups is not None:
-            raise _not_ported("groups=", "9")
         self._dirty = False
         super().__init__(data, seed=seed, device=device, **kw)
         self._seed = seed
@@ -525,13 +624,24 @@ class UniformSamplingCoreset(Coreset):
                                  f"got {uw.shape}")
             if not uw.sum() > 0:
                 raise ValueError("data_weights: total mass must be positive")
+            self._u = uw
             self._u_total = float(uw.sum())
             self._u_pos = np.flatnonzero(uw > 0)
             # the CDF over the positive support, once, in float64
             cdf = np.cumsum(uw[self._u_pos])
             self._u_cdf = cdf / cdf[-1]
         else:
-            self._u_total = self._u_pos = self._u_cdf = None
+            self._u = self._u_total = self._u_pos = self._u_cdf = None
+        self._g_pos = self._g_cdf = None
+        if groups is not None and self._u is not None:
+            mass = np.array([self._u[g].sum() for g in groups])
+            if not mass.sum() > 0:
+                raise ValueError("data_weights: every group has zero mass")
+            self._g_pos = np.flatnonzero(mass > 0)
+            gcdf = np.cumsum(mass[self._g_pos])
+            self._g_cdf = gcdf / gcdf[-1]
+        self.groups = groups
+        self.selected_groups: list[int] = []
         self.cts: dict[int, int] = {}
         if kw.get("wts") is not None and kw.get("idcs") is not None:
             self._warm = (np.asarray(kw["idcs"], dtype=np.int64).copy(),
@@ -557,6 +667,7 @@ class UniformSamplingCoreset(Coreset):
 
     def reset(self) -> None:
         self.cts = {}
+        self.selected_groups = []
         self._dirty = False
         self._warm = None
         self._rewind()
@@ -582,14 +693,37 @@ class UniformSamplingCoreset(Coreset):
             return uniform_coreset_draws(self._gen, itrs, self.data.shape[0])
         return self._u_pos[weighted_coreset_draws(self._gen, itrs, cdf=self._u_cdf)]
 
+    def _draw_groups(self, itrs: int) -> np.ndarray:
+        """The next ``itrs`` drawn groups of this instance's stream (the
+        same counter as the points')."""
+        self._n_drawn += itrs
+        if self._g_cdf is None:
+            return uniform_coreset_draws(self._gen, itrs, len(self.groups))
+        return self._g_pos[weighted_coreset_draws(self._gen, itrs, cdf=self._g_cdf)]
+
+    def _append_group(self, g: int) -> None:
+        """Every member of a group drawn for the first time, once (with
+        data weights: the u > 0 members, with multiplicity u_n)."""
+        if g in self.selected_groups:
+            return
+        self.selected_groups.append(g)
+        for f in self.groups[g]:
+            mult = 1.0 if self._u is None else float(self._u[int(f)])
+            if mult > 0:
+                self.cts[int(f)] = self.cts.get(int(f), 0) + mult
+
     def _total(self) -> float:
         return float(self.data.shape[0]) if self._u_total is None else self._u_total
 
     def _build(self, itrs: int, sz: int) -> None:
-        if self.size() + itrs > sz:
-            raise ValueError("UniformSamplingCoreset._build(): size overrun")
-        for f in self._draw_points(itrs):
-            self.cts[int(f)] = self.cts.get(int(f), 0) + 1
+        if self.groups is not None:
+            for g in self._draw_groups(itrs):
+                self._append_group(int(g))
+        else:
+            if self.size() + itrs > sz:
+                raise ValueError("UniformSamplingCoreset._build(): size overrun")
+            for f in self._draw_points(itrs):
+                self.cts[int(f)] = self.cts.get(int(f), 0) + 1
         if self.cts:
             self._dirty = True
 
@@ -602,12 +736,22 @@ class UniformSamplingCoreset(Coreset):
         widcs = np.zeros(0, dtype=np.int64) if self._warm is None else self._warm[0]
         n_warm = len(widcs)
         snaps = []
-        for f in self._draw_points(itrs):
+
+        def add_point(f):
             self.cts[int(f)] = self.cts.get(int(f), 0) + 1
+
+        if self.groups is None:
+            draws, add = self._draw_points(itrs), add_point
+        else:
+            draws, add = self._draw_groups(itrs), lambda g: self._append_group(int(g))
+        for f in draws:
+            add(f)
             idcs = np.fromiter(self.cts.keys(), dtype=np.int64)
             cts = np.concatenate([np.ones(n_warm), np.fromiter(self.cts.values(),
                                                                dtype=np.float64)])
-            snaps.append((np.concatenate([widcs, idcs]), total * cts / cts.sum()))
+            # only empty groups drawn so far: no weight
+            wts = total * cts / cts.sum() if cts.sum() > 0 else np.zeros(n_warm)
+            snaps.append((np.concatenate([widcs, idcs]), wts))
         self._dirty = True
         all_idcs = np.fromiter(self.cts.keys(), dtype=np.int64)
         row_of = {int(i): r for r, i in enumerate(all_idcs)}

@@ -60,7 +60,9 @@ captured as a CUDA graph and replayed (utils/graphs.py). ``graph`` says
 whether: ``None`` (the default) captures on a CUDA device and runs the same
 body eagerly on the CPU, ``False`` always runs it eagerly, ``True`` off a
 CUDA device raises. A capture that fails raises. Select, the draws and
-full-data refinement (one (N, S) projection per step) stay eager.
+this builder's full-data refinement (one (N, S) projection per step) stay
+eager; the group builder (coresets/groups.py) runs its full-data pass
+through ``_ComposedPass`` and so captures it too.
 """
 
 from __future__ import annotations
@@ -174,13 +176,17 @@ class GeneratorDraws:
     n_opt: Optional[int]              # None: refinement projects every row
     n_steps: int
     n_samples: int
+    # the range select draws its candidates from (None: the rows; the
+    # group builder's candidates are groups)
+    n_candidates: Optional[int] = None
 
     def select(self, it, st):
         z = self.sampler.draw_noise(self.generator, self.n_samples, st.wts,
                                     st.pts, st.sampler_aux)
         if self.n_sel is None:
             return z, None
-        idx, _ = draw_subsample(self.generator, self.n_total, self.n_sel)
+        n = self.n_total if self.n_candidates is None else self.n_candidates
+        idx, _ = draw_subsample(self.generator, n, self.n_sel)
         return z, idx
 
     def optimize(self, it, st):
@@ -243,7 +249,12 @@ class _ComposedPass:
     On the per-step-draw route (``z_all`` None: a sampler without a noise
     split) there is no pre-drawn noise or rows: each step calls the
     sampler on the pass's own generator ``gen`` and then draws its
-    subsample from it."""
+    subsample from it.
+
+    Under full-data refinement (``n_opt`` None, the group builder's
+    exact-gradient pass, coresets/groups.py) a step draws no subsample: it
+    projects every row of the builder's data and takes the target
+    ``u @ vecs`` with the builder's target weights ``u``."""
 
     def __init__(self, builder: "IncrementalBuilder", st: CoresetState, z_all, runner):
         cfg, smp = builder.config, builder.sampler
@@ -253,19 +264,22 @@ class _ComposedPass:
         M_buf, D = st.pts.shape
         self.builder, self.runner, self.n_steps = builder, runner, T
         self.learn_beta = cfg.learn_beta
+        self.full = n_opt is None
         # the reference's learn_beta branch refits every step
         self.lagged = cfg.refit_every > 1 and not self.learn_beta
         # ... and projects the subsample and the buffer separately
-        self.joint = not self.learn_beta and builder._joint_rows_identical(n_opt + M_buf)
+        self.joint = (not self.learn_beta and not self.full
+                      and builder._joint_rows_identical(n_opt + M_buf))
         self.gen = None
+        self.rows_all = self.z_all = self.u_all = None
         if z_all is None:
             self.gen = torch.Generator(device=dev)
             runner.generators = (self.gen,)
-            self.rows_all = self.z_all = self.u_all = None
         else:
+            self.z_all = torch.empty_like(z_all)
+        if z_all is not None and not self.full:
             self.rows_all = torch.empty((T, n_opt + (M_buf if self.joint else 0), D),
                                         dtype=dt, device=dev)
-            self.z_all = torch.empty_like(z_all)
             self.u_all = (None if builder.u is None
                           else torch.empty((T, n_opt), dtype=dt, device=dev))
         self.st = CoresetState(*(torch.empty_like(t) for t in st))
@@ -284,9 +298,9 @@ class _ComposedPass:
                                             st.sampler_aux.dtype)
             self.carry = torch.empty_like(st.sampler_aux, dtype=fit_dtype)
         self.weighted = builder.u is not None
-        # a per-step-draw step gathers its rows from the data itself, so a
+        # a per-step-draw or full-data step reads the data itself, so a
         # captured one reads these tensors (``build_with_data`` swaps them)
-        self.reads = (builder.data, builder.u) if z_all is None else None
+        self.reads = (builder.data, builder.u) if z_all is None or self.full else None
         self.like = signature((*st, *(() if z_all is None else (z_all,))))
 
     def serves(self, st, z_all) -> bool:
@@ -307,6 +321,7 @@ class _ComposedPass:
             self.gen.set_state(generator.get_state())
         else:
             self.z_all.copy_(z_all)
+        if self.rows_all is not None:
             self.rows_all[:, :n_opt] = b.data[idx_all]
             if self.joint:
                 # the buffer is constant over the pass: appended to every
@@ -334,6 +349,8 @@ class _ComposedPass:
         b, sst = self.builder, self.st
         samples, aux = b.sampler(self.gen, b.config.projection_dim, w, sst.pts, self.carry)
         self.carry.copy_(aux)
+        if self.full:
+            return samples, b.data, b.u
         idx, _ = draw_subsample(self.gen, b.data.shape[0], b.n_opt)
         rows = b.data.index_select(0, idx)
         if self.joint:
@@ -347,7 +364,7 @@ class _ComposedPass:
             samples, rows, usub = self._drawn_step(w)
         else:
             samples, rows, usub = self._pre_drawn_step(w, refit)
-        scaling = b.data.shape[0] / b.n_opt
+        scaling = 1.0 if self.full else b.data.shape[0] / b.n_opt
         if self.learn_beta:
             g = b._joint_grad(self.x, samples, rows, usub, scaling, sst)
         else:
@@ -363,10 +380,13 @@ class _ComposedPass:
 
     def _pre_drawn_step(self, w, refit: bool):
         """(samples, rows, usub) of a step on pre-drawn noise and rows."""
-        smp = self.builder.sampler
+        b, smp = self.builder, self.builder.sampler
         z = self.z_all.index_select(0, self.i)[0]
-        rows = self.rows_all.index_select(0, self.i)[0]
-        usub = None if self.u_all is None else self.u_all.index_select(0, self.i)[0]
+        if self.full:
+            rows, usub = b.data, b.u
+        else:
+            rows = self.rows_all.index_select(0, self.i)[0]
+            usub = None if self.u_all is None else self.u_all.index_select(0, self.i)[0]
         if self.lagged:
             if refit:
                 _store(self.carry, smp.fit(w, self.st.pts, smp.fit_aux(self.carry)))

@@ -96,3 +96,18 @@ def state_from_numpy(arrays: Mapping[str, np.ndarray],
 def state_to_numpy(state: CoresetState) -> dict:
     """The inverse of ``state_from_numpy``: field name -> numpy array."""
     return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
+
+
+def group_state_from_numpy(arrays: Mapping[str, object],
+                           device: torch.device | str = "cuda"):
+    """A group state (coresets/groups.py::GroupCoresetState) from numpy
+    arrays: ``arrays["core"]`` as ``state_from_numpy`` takes it,
+    ``selected`` (G,) and ``initialized`` (e.g. a JAX ``GroupCoresetState``
+    passed through ``np.asarray`` field by field). The arrays are copied."""
+    from .groups import GroupCoresetState
+
+    return GroupCoresetState(
+        core=state_from_numpy(arrays["core"], device),
+        selected=torch.tensor(np.array(arrays["selected"]), dtype=torch.bool, device=device),
+        initialized=torch.tensor(np.array(arrays["initialized"]), dtype=torch.int32,
+                                 device=device))

@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py [--seed 0] [--selections 5] [--mc-selections 3]
                           [--sharded-selections 3] [--api-selections 5]
+                          [--group-selections 3]
 
 Run from the root of a checkout, on a machine with a card and the CUDA
 toolkit. Phases, each of which raises on failure:
@@ -115,7 +116,26 @@ toolkit. Phases, each of which raises on failure:
      (one K2 launch) with its held-out accuracy; ``refine()`` of a
      multiclass ``SparseVICoreset`` over every row (one more K2 launch, at
      S = 500, which is timed and held against its plain version). Every run
-     prints its seconds and ms per greedy iteration.
+     prints its seconds and ms per greedy iteration;
+ 15. group selection, the pseudo-coresets and data valuation
+     (``phase_groups``): (a) examples/group_selection.py on the repo's
+     movielens data and groups (corrupted as the example does), the group
+     ``BetaCoreset`` (one-hot group reduction) by ``build_trace(...,
+     return_selected=True)``, distributional and truncated Monte-Carlo
+     Shapley with the Laplace value function, and the BCORES order's prefix
+     accuracies; (b) the logistic group build of
+     examples/bench_group_pass.py --end-to-end (N = 1M, 100 groups of 10,000,
+     exact-gradient refinement, scatter reduction) for --group-selections
+     selections after a warm-up, captured and then eager under the same
+     draws; (c) a multiclass group build at examples/multiclass.py's widths
+     (N = 2^20, 128 groups of 8192, a 4-group buffer) whose every select and
+     refinement step launches K2 over every row and over the buffer, then
+     that build at N = 9000 on the card against the CPU; (d) BPSVI at
+     examples/zellner_logreg.py's widths over 1M rows
+     (``BatchPSVICoreset.build(1, 100)``, ``bpsvi_build_batch`` over sizes
+     10, 50, 100, each lane equal to its standalone masked build); (e)
+     DP-BPSVI at examples/dp_bpsvi.py's defaults with its epsilon, and
+     ``PseudoSparseVICoreset`` for 5 selections on that data.
 
 The last two lines of standard output are a JSON object describing the
 kernels (K1 and K3 add ``bound_us`` and ``floor_us``, K2 ``floor_ms``), then
@@ -174,6 +194,20 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # the SparseVI selections refine() polishes, refine()'s S_big, the sharded
 # build's beta and the other solvers' budget at the example's N
 H_PIHAT, H_ROW, H_SVI_SELECTIONS, H_REFINE_S, H_BETA, H_OTHER_M = 0.75, 50, 3, 500, 0.3, 50
+# phase 15: examples/group_selection.py's defaults (M groups, S, Adam steps,
+# refinement rows, beta, corruption rate) and its Shapley runs (T, cap, groups
+# a permutation; TMC's T)
+GRP_M, GRP_S, GRP_ITRS, GRP_N_OPT, GRP_BETA, GRP_F_RATE = 10, 100, 200, 500, 0.2, 0.1
+SHAP_T, SHAP_CAP, SHAP_GROUPS, TMC_T = 50, 50, 20, 5
+# examples/bench_group_pass.py --end-to-end (N, G, the buffer's M groups, steps),
+# and its multiclass counterpart at examples/multiclass.py's widths
+GB_N, GB_G, GB_M, GB_ITRS, GB_BETA = 1_000_000, 100, 20, 100, 0.1
+GC_N, GC_G, GC_BUF_GROUPS, GC_ITRS = 1 << 20, 128, 4, 200
+# examples/zellner_logreg.py's BPSVI (M, steps) and the batch's lane sizes
+BP_M, BP_ITRS, BP_SIZES = 100, 500, (10, 50, 100)
+# examples/dp_bpsvi.py's defaults, and PSVI's selections on its data
+DP_N, DP_D, DP_M, DP_ITRS, DP_N_OPT, DP_NM, DP_DELTA = 5000, 10, 30, 300, 500, 1.0, 1e-5
+PSVI_SELECTIONS = 5
 CLUSTERS = (1, 2, 4, 8, 16)     # K1's and K3's cluster sizes, timed in phases 2 and 8
 N_TEST = 10_000                 # held-out rows of the object API's accuracy check
 # operations per likelihood value (csrc/logreg_common.cuh::Likelihood),
@@ -1895,6 +1929,339 @@ def phase_hilbert(seed: int, card: str, n: int = FAM_ROWS, dev: str = "cuda") ->
     return {"K2": k2_total, "line": "hilbert: " + ", ".join(summary)}
 
 
+def movielens_groups(trial: int = 0, f_rate: float = GRP_F_RATE):
+    """examples/group_selection.py:56-100 on the repo's movielens data,
+    inline with numpy: whitened covariates (``std_cov``), the 100 groups of
+    the pickle, each group's rows corrupted in proportion to its
+    demographic fraction (half the columns replaced by N(0, 10) noise and
+    the label flipped), the test set rebalanced and whitened alike.
+    Returns float32 (Z, Xt, Yt) and the group lists."""
+    import pickle
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent / "data"
+    with np.load(root / "movielens_grouped.npz") as npz:
+        X, Y, Xt, Yt = (np.asarray(npz[k], dtype=np.float64) for k in ("X", "y", "Xt", "yt"))
+    if set(np.unique(Y)) <= {0.0, 1.0}:
+        Y, Yt = 2.0 * Y - 1.0, 2.0 * Yt - 1.0
+
+    def std_cov(X, Y, mean=None, cov=None):
+        X = np.array(X, copy=True)
+        if mean is None:
+            mean = X[:, :-1].mean(axis=0)
+            cov = np.cov(X[:, :-1], rowvar=False) + 1e-12 * np.eye(X.shape[1] - 1)
+        L = np.linalg.cholesky(np.atleast_2d(cov))
+        X[:, :-1] = np.linalg.solve(L, (X[:, :-1] - mean).T).T
+        return X, Y, mean, cov
+
+    X, Y, mean, cov = std_cov(X, Y)
+    with open(root / "vq_groups_sensemake_movielens_grouped.pk", "rb") as fh:
+        groups, demos = pickle.load(fh)
+    groups = [[int(k) for k in g if int(k) < X.shape[0]] for g in groups]
+    rng = np.random.default_rng(trial)
+    for g, dem in zip(groups, demos):
+        o = int(len(g) * min(dem[0] * f_rate * 3, 0.9))
+        if o > 0:
+            rows = rng.choice(g, size=o, replace=False)
+            for c in rng.choice(X.shape[1], max(X.shape[1] // 2, 1), replace=False):
+                X[rows, c] = rng.normal(0, 10, size=o)
+            Y[rows] = -Y[rows]
+    Z = Y[:, None] * X
+    # the majority test label truncated for a balanced test set
+    rnd = np.random.default_rng(42).uniform()
+    n_pos = (Yt == 1).sum()
+    if not 0.45 * len(Yt) <= n_pos <= 0.55 * len(Yt):
+        maj = 1.0 if n_pos > len(Yt) - n_pos else -1.0
+        keep_min = np.where(Yt == -maj)[0]
+        keep_maj = np.where(Yt == maj)[0][:len(keep_min) + int(0.01 * len(keep_min) * rnd)]
+        keep = np.concatenate([keep_maj, keep_min])
+        Xt, Yt = Xt[keep], Yt[keep]
+    Xt, Yt, _, _ = std_cov(Xt, Yt, mean, cov)
+    return Z.astype(np.float32), Xt.astype(np.float32), Yt.astype(np.float32), groups
+
+
+def phase_groups(seed: int, card: str, selections: int, dev: str = "cuda") -> dict:
+    """Phase 15: group (batch) selection, the BPSVI family and group data
+    valuation at full width (the module docstring's a-e). Returns K2's
+    launches in the phase and one summary line."""
+    import betacores_tpu_torch as bc
+    from betacores_tpu_torch.coresets import (bpsvi_build_batch, group_ids_from_groups,
+                                              init_group_state, make_group_incremental_builder)
+    from betacores_tpu_torch.models import gaussian
+    from betacores_tpu_torch.ops import kernels
+    from betacores_tpu_torch.ops.projection import Groups
+    from betacores_tpu_torch.valuation import (logreg_laplace_value_fn, make_dshapley,
+                                               make_tmc_shapley)
+
+    t_phase = time.perf_counter()
+    on = {} if dev == "cuda" else {"device": dev}
+    gen = torch.Generator(device=dev).manual_seed(seed + 15)
+    k2 = kernels.multiclass_projection
+    summary = []
+
+    # --- a. examples/group_selection.py on the repo's movielens groups ---
+    Z, Xt, Yt, glists = movielens_groups()
+    Zd, Xtd, Ytd = (torch.from_numpy(a).to(dev) for a in (Z, Xt, Yt))
+    G, N = len(glists), Z.shape[0]
+    log(f"groups a, movielens: N={N} x d={Z.shape[1]}, {G} groups, {len(Yt)} test rows "
+        f"after rebalancing")
+    prj = bc.BetaBlackBoxProjector(bc.logreg_laplace_sampler(), GRP_S, model=bc.logreg.bundle())
+    alg = bc.BetaCoreset(Zd, prj, beta=GRP_BETA, learn_beta=False, opt_itrs=GRP_ITRS,
+                         n_subsample_select=None, n_subsample_opt=GRP_N_OPT, groups=glists,
+                         seed=seed, **on)
+    if alg._builder.onehot is None:
+        raise AssertionError("the movielens group build should take the one-hot reduction")
+    order, prev, itrs = [], np.zeros(G, dtype=bool), 0
+    t0 = time.perf_counter()
+    for _ in range(4):                  # the example's loop: until M distinct groups
+        _, sel = alg.build_trace(GRP_M, return_selected=True)
+        itrs += GRP_M
+        for row in sel:
+            order.extend(np.flatnonzero(row & ~prev).tolist())
+            prev = row
+        if len(order) >= GRP_M:
+            break
+    torch.cuda.synchronize()
+    t_bcores = time.perf_counter() - t0
+    order = order[:GRP_M]
+    check_state(alg.state)
+    log(f"groups a, BCORES(groups=) order {order}: {itrs} selections in {t_bcores:.3f} s, "
+        f"{t_bcores / itrs:.4f} s per selection, {t_bcores / (itrs * GRP_ITRS) * 1e6:.1f} us "
+        f"per Adam step (with select); m={int(alg.state.m)}; {card}")
+    gp = Groups.from_lists(glists, dev)
+    gid = group_ids_from_groups(gp, N)
+    value_fn = logreg_laplace_value_fn(n_samples=256)
+    vargs = (Zd, Xtd, Ytd)
+    fits = [0]
+
+    class Counted:
+        draw = value_fn.draw
+
+        def __call__(self, *a):
+            fits[0] += 1
+            return value_fn(*a)
+
+    dshap = make_dshapley(gid, gp, Counted(), max_groups=min(SHAP_GROUPS, G),
+                          group_cap=SHAP_CAP, value_args=vargs)
+    phis, secs = _synced(lambda: dshap(gen, SHAP_T))
+    n_fits, fits[0] = fits[0], 0
+    if not bool(torch.isfinite(phis).all()):
+        raise AssertionError(f"DShapley: non-finite values {phis.tolist()}")
+    d_order = torch.argsort(phis, descending=True)[:GRP_M].tolist()
+    log(f"groups a, DShapley (T={SHAP_T}, cap {SHAP_CAP}, {min(SHAP_GROUPS, G)} groups a "
+        f"permutation): top {d_order}; {n_fits} fits in {secs:.3f} s, "
+        f"{secs / n_fits * 1e3:.2f} ms per fit; {card}")
+    full_value = float(value_fn(value_fn.draw(gen, *vargs), (gid < G).float(), *vargs))
+    tmc = make_tmc_shapley(gid, gp, Counted(), full_value=full_value, group_cap=SHAP_CAP,
+                           value_args=vargs)
+    phis_t, secs = _synced(lambda: tmc(gen, TMC_T))
+    n_fits = fits[0]
+    if not bool(torch.isfinite(phis_t).all()) or not 0 < n_fits <= TMC_T * G:
+        raise AssertionError(f"TMC: {n_fits} fits, values {phis_t.tolist()}")
+    log(f"groups a, TMC (T={TMC_T}, full-data value {full_value:.4f}): top "
+        f"{torch.argsort(phis_t, descending=True)[:GRP_M].tolist()}; {n_fits} fits of "
+        f"{TMC_T * G} (the rest truncated) in {secs:.3f} s, {secs / n_fits * 1e3:.2f} ms "
+        f"per fit; {card}")
+    mask, accs = torch.zeros(N, dtype=torch.bool, device=dev), []
+    for g in order:
+        mask[glists[g]] = True
+        accs.append(float(value_fn(value_fn.draw(gen, *vargs), mask.float(), *vargs)))
+    if not all(0.0 <= a <= 1.0 for a in accs):
+        raise AssertionError(f"prefix accuracies outside [0, 1]: {accs}")
+    log(f"groups a, prefix accuracies of the BCORES order: "
+        f"{', '.join(f'{a:.4f}' for a in accs)}")
+    summary.append(f"movielens BCORES {t_bcores / itrs:.3f} s/selection, final acc "
+                   f"{accs[-1]:.4f}")
+    del alg, Zd, Xtd, Ytd, dshap, tmc
+
+    # --- b. the group build of examples/bench_group_pass.py --end-to-end ---
+    X, y, _ = bc.gen_synthetic_logreg(gen, GB_N, d=N_FEAT)
+    X, y, Zb, _ = bc.perturb_logreg(gen, X, y, f_rate=0.1)
+    del X, y
+    per = GB_N // GB_G
+    gp = Groups.from_lists([range(g * per, (g + 1) * per) for g in range(GB_G)], dev)
+    cfg = bc.IncrementalConfig(projection_dim=S, n_subsample_select=None, n_subsample_opt=None,
+                               opt_itrs=GB_ITRS, i0=1.0, use_beta=True)
+    make = lambda graph: make_group_incremental_builder(
+        Zb, gp, bc.logreg.bundle(), bc.logreg_laplace_sampler(), cfg, graph=graph)
+    builder = make(None)
+    if builder.onehot is not None:
+        raise AssertionError("N G 4 bytes above the gate: the build should scatter")
+    gst0 = init_group_state(bc.init_state((GB_M + 1) * per, N_FEAT, beta=GB_BETA, device=dev),
+                            GB_G)
+    _, t_warm = _synced(lambda: builder.build(gst0, 1, builder.generator_draws(gen)))
+    gen_state = gen.get_state()
+    got, secs = _synced(lambda: builder.build(gst0, selections, builder.generator_draws(gen)))
+    eager = make(False)
+    gen.set_state(gen_state)
+    ref, secs_e = _synced(lambda: eager.build(gst0, selections, eager.generator_draws(gen)))
+    check_state(got.core)
+    if not torch.equal(got.selected, ref.selected):
+        raise AssertionError("group build: captured and eager select other groups")
+    same = check_graph_equals_eager("group build", got.core, ref.core)
+    steps = selections * GB_ITRS
+    log(f"groups b, logistic group build: N={GB_N}, G={GB_G} groups of {per}, buffer "
+        f"{(GB_M + 1) * per} slots, S={S}, exact-gradient refinement ({GB_ITRS} steps); "
+        f"warm-up selection {t_warm:.2f} s; {selections} selections captured {secs:.3f} s "
+        f"({secs / selections:.4f} s per selection, {secs / steps * 1e3:.3f} ms per Adam step), "
+        f"eager {secs_e:.3f} s ({secs_e / steps * 1e3:.3f} ms per step); selected "
+        f"{torch.nonzero(got.selected)[:, 0].tolist()}, m={int(got.core.m)}; {card}")
+    log(f"groups b, captured == eager: {same}")
+    summary.append(f"logistic group build {secs / selections:.3f} s/selection captured, "
+                   f"{secs_e / selections:.3f} eager")
+    del builder, eager, got, ref, Zb, gp
+    torch.cuda.empty_cache()
+
+    # --- c. the multiclass group build: K2 in select and in every step ---
+    K, d = MC_K, MC_D
+    _, _, Zm = bc.gen_synthetic_multiclass(gen, GC_N, d=d, n_classes=K)
+    Zm, _ = bc.flip_labels(gen, Zm, K, MC_F_RATE)
+    per = GC_N // GC_G
+    gp = Groups.from_lists([range(g * per, (g + 1) * per) for g in range(GC_G)], dev)
+    cfg = bc.IncrementalConfig(projection_dim=S, n_subsample_select=None, n_subsample_opt=None,
+                               opt_itrs=GC_ITRS, i0=1.0, use_beta=True)
+    builder = make_group_incremental_builder(Zm, gp, bc.multiclass.bundle(K),
+                                             bc.multiclass_laplace_sampler(K), cfg)
+    gst0 = init_group_state(bc.init_state(GC_BUF_GROUPS * per, d + 1, beta=MC_BETA, device=dev,
+                                          sampler_aux=torch.zeros(K * d, device=dev)), GC_G)
+    _, t_warm = _synced(lambda: builder.build(gst0, 1, builder.generator_draws(gen)))
+    k2.launches = 0
+    got, secs = _synced(lambda: builder.build(gst0, selections, builder.generator_draws(gen)))
+    launches = k2.launches
+    # select: every row and the buffer; each step: every row and the buffer
+    per_sel = 2 + 2 * GC_ITRS if kernels.maybe_fused(GC_BUF_GROUPS * per) else 1 + GC_ITRS
+    if dev == "cuda" and launches != selections * per_sel:
+        raise AssertionError(f"multiclass group build: K2 launched {launches} times, want "
+                             f"{selections * per_sel}")
+    check_state(got.core)
+    steps = selections * GC_ITRS
+    log(f"groups c, multiclass group build: N={GC_N}, K={K}, d={d}, G={GC_G} groups of {per}, "
+        f"buffer {GC_BUF_GROUPS * per} slots, S={S}, {GC_ITRS} exact-gradient steps; warm-up "
+        f"{t_warm:.2f} s; {selections} selections {secs:.3f} s ({secs / selections:.4f} s per "
+        f"selection, {secs / steps * 1e3:.3f} ms per Adam step); {launches} K2 launches "
+        f"(replayed ones counted); selected {torch.nonzero(got.selected)[:, 0].tolist()}; "
+        f"{card}")
+    summary.append(f"multiclass group build {secs / selections:.3f} s/selection, "
+                   f"{launches} K2")
+    del builder, got, Zm, gp
+    torch.cuda.empty_cache()
+    group_self_check(seed, dev)
+
+    # --- d. BPSVI at examples/zellner_logreg.py's widths over the headline's rows ---
+    X, y, _ = bc.gen_synthetic_logreg(gen, N_ROWS, d=N_FEAT)
+    X, y, Zp, _ = bc.perturb_logreg(gen, X, y, f_rate=0.1)
+    del X, y
+    sched = lambda m: (lambda i: 1.0 / (1.0 + i))
+    prj = bc.BlackBoxProjector(bc.logreg_laplace_sampler(), S, model=bc.logreg.bundle())
+    bp = bc.BatchPSVICoreset(Zp, prj, opt_itrs=BP_ITRS, n_subsample_opt=N_OPT,
+                             step_sched=sched, seed=seed, max_size=BP_M, **on)
+    _, secs = _synced(lambda: bp.build(1, BP_M))
+    w, p, i = bp.get()
+    if not np.isfinite(w).all() or not np.isfinite(p).all() or len(w) < 1:
+        raise AssertionError("BPSVI: non-finite or empty coreset")
+    log(f"groups d, BatchPSVICoreset.build(1, {BP_M}) over N={N_ROWS}: {secs:.3f} s, "
+        f"{secs / BP_ITRS * 1e6:.1f} us per Adam step (captured after the first); "
+        f"{len(w)} positive weights, sum(w)={w.sum():.1f}; {card}")
+    builder = bp._builder_for(BP_M)
+    aux0 = torch.zeros(N_FEAT, device=dev)
+    lane_draws = [builder.draws(gen, BP_M, aux0) for _ in BP_SIZES]
+    (W, P, I), secs = _synced(lambda: bpsvi_build_batch(builder, lane_draws, BP_SIZES, BP_M,
+                                                        aux0))
+    errs = []
+    for lane, sz in enumerate(BP_SIZES):
+        w1, p1, _ = builder.build(lane_draws[lane], BP_M, aux0,
+                                  torch.arange(BP_M, device=dev) < sz)
+        scale = float(w1.abs().max())
+        err = float((W[lane] - w1).abs().max())
+        if not err <= 1e-6 * scale or bool((W[lane, sz:] != 0).any()):
+            raise AssertionError(f"BPSVI lane {sz}: off its standalone build by {err:.3e} "
+                                 f"(max|w| {scale:.3e}) or a masked slot weighs")
+        errs.append(err)
+    log(f"groups d, bpsvi_build_batch over sizes {BP_SIZES} (lanes in turn): {secs:.3f} s, "
+        f"{secs / len(BP_SIZES):.3f} s per lane; each lane == its standalone masked build "
+        f"(max |dw| {max(errs):.3e}); {card}")
+    summary.append(f"BPSVI {secs / len(BP_SIZES) / BP_ITRS * 1e6:.0f} us/step")
+    del bp, builder, Zp, W, P, I
+    torch.cuda.empty_cache()
+
+    # --- e. DP-BPSVI at examples/dp_bpsvi.py's defaults, and PSVI on its data ---
+    Xd = torch.randn((DP_N, DP_D), generator=gen, device=dev) + 1.0
+    eye = torch.eye(DP_D, device=dev)
+    prj = bc.BlackBoxProjector(bc.gaussian_conjugate_sampler(torch.zeros(DP_D, device=dev),
+                                                             eye, eye), S,
+                               model=gaussian.bundle(eye, 0.0))
+    dp = bc.DiffPrivBatchPSVICoreset(Xd, prj, opt_itrs=DP_ITRS, n_subsample_opt=DP_N_OPT,
+                                     step_sched=sched, noise_multiplier=DP_NM, delta=DP_DELTA,
+                                     seed=seed, **on)
+    _, secs = _synced(lambda: dp.build(1, DP_M))
+    w, p = dp.get()
+    eps = dp.epsilon(DP_DELTA)
+    if not np.isfinite(p).all() or len(w) < 1 or not 0 < eps < float("inf"):
+        raise AssertionError(f"DP-BPSVI: {len(w)} points, eps {eps}")
+    log(f"groups e, DP-BPSVI: N={DP_N}, d={DP_D}, M={DP_M}, {DP_ITRS} steps on Poisson "
+        f"batches of {DP_N_OPT} rows, noise multiplier {DP_NM}: eps = {eps:.4f} at delta = "
+        f"{DP_DELTA}; {secs:.3f} s, {secs / DP_ITRS * 1e6:.1f} us per Adam step; {len(w)} "
+        f"positive weights; {card}")
+    psvi = bc.PseudoSparseVICoreset(Xd, prj, n_subsample_opt=DP_N_OPT, opt_itrs=DP_ITRS,
+                                    step_sched=sched(0), seed=seed, max_size=DP_M, **on)
+    _, secs = _synced(lambda: psvi.build(PSVI_SELECTIONS, PSVI_SELECTIONS))
+    w, p, i = psvi.get()
+    if not np.isfinite(p).all() or len(w) < 1:
+        raise AssertionError("PSVI: non-finite or empty coreset")
+    log(f"groups e, PseudoSparseVICoreset: {PSVI_SELECTIONS} selections in {secs:.3f} s, "
+        f"{secs / PSVI_SELECTIONS:.4f} s per selection, "
+        f"{secs / (PSVI_SELECTIONS * DP_ITRS) * 1e6:.1f} us per Adam step; m="
+        f"{int(psvi.state.m)}; {card}")
+    summary.append(f"DP eps {eps:.3f}")
+    log(f"groups: phase 15 in {time.perf_counter() - t_phase:.1f} s; {launches} K2 launches")
+    return {"K2": launches, "line": "groups: " + ", ".join(summary)}
+
+
+def group_self_check(seed: int, dev: str = "cuda") -> None:
+    """A small multiclass group build (N = 9000 > FUSED_MIN_ROWS, every
+    step over every row, so each select and step launches K2 on the card)
+    equals the same build on the CPU (K2's plain version) under one set of
+    draws, in both select modes."""
+    import betacores_tpu_torch as bc
+    from betacores_tpu_torch.coresets import (FixedDraws, init_group_state,
+                                              make_group_incremental_builder)
+    from betacores_tpu_torch.ops import kernels
+    from betacores_tpu_torch.ops.projection import Groups
+
+    N, K, d, S_s, itrs, T = 9000, 3, 4, 32, 3, 20
+    gen = torch.Generator().manual_seed(seed)
+    _, _, Z = bc.gen_synthetic_multiclass(gen, N, d=d, n_classes=K)
+    Z, _ = bc.flip_labels(gen, Z, K, MC_F_RATE)
+    lists = [range(g * 100, (g + 1) * 100) for g in range(N // 100 - 1)]
+    for dedup, refit_every in ((False, 1), (True, 4)):
+        cfg = bc.IncrementalConfig(projection_dim=S_s, n_subsample_select=None,
+                                   n_subsample_opt=None, opt_itrs=T, i0=0.5, use_beta=True,
+                                   dedup_select=dedup, refit_every=refit_every)
+        out = {}
+        for where in ("cpu", dev):
+            b = make_group_incremental_builder(Z.to(where), Groups.from_lists(lists, where),
+                                               bc.multiclass.bundle(K),
+                                               bc.multiclass_laplace_sampler(K), cfg)
+            gst0 = init_group_state(bc.init_state(400, d + 1, beta=MC_BETA, device=where,
+                                                  sampler_aux=torch.zeros(K * d,
+                                                                          device=where)),
+                                    len(lists))
+            if where == "cpu":
+                rec = b.generator_draws(gen)
+                draws = FixedDraws([rec.select(i, gst0.core) for i in range(itrs)],
+                                   [rec.optimize(i, gst0.core) for i in range(itrs)])
+            before = kernels.multiclass_projection.launches
+            out[where] = (b.build(gst0, itrs, draws),
+                          kernels.multiclass_projection.launches - before)
+        tag = f"group self-check [dedup_select={dedup}, refit_every={refit_every}]"
+        if dev != "cpu" and out[dev][1] != itrs * (1 + T):
+            raise AssertionError(f"{tag}: K2 launched {out[dev][1]} times, want {itrs * (1 + T)}")
+        if not torch.equal(out[dev][0].selected.cpu(), out["cpu"][0].selected):
+            raise AssertionError(f"{tag}: the card selects other groups than the CPU")
+        log(f"{tag}: build on the card == build on the CPU "
+            f"({check_same_build(tag, out[dev][0].core, out['cpu'][0].core)})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1902,6 +2269,7 @@ def main() -> int:
     ap.add_argument("--mc-selections", type=int, default=3)
     ap.add_argument("--sharded-selections", type=int, default=3)
     ap.add_argument("--api-selections", type=int, default=5)
+    ap.add_argument("--group-selections", type=int, default=3)
     args = ap.parse_args()
 
     t_start = time.perf_counter()
@@ -1920,15 +2288,18 @@ def main() -> int:
     api = phase_api(args.seed, N_ROWS, args.api_selections)
     families = phase_families(args.seed, card)
     hilbert = phase_hilbert(args.seed, card)
+    groups = phase_groups(args.seed, card, args.group_selections)
     entries = [("logreg_adam_step", "logreg_adam_step.cu", "pallas_kernels.py:173",
                 {"launches": main_path["launches"] + api["K1"]}, k1),
                ("multiclass_projection", "multiclass_projection.cu", "pallas_kernels.py:330",
-                {"launches": mc_path["launches"] + api["K2"] + hilbert["K2"]}, k2),
+                {"launches": mc_path["launches"] + api["K2"] + hilbert["K2"] + groups["K2"]},
+                k2),
                ("logreg_shard_step_partials", "logreg_shard_partials.cu", "pallas_kernels.py:249",
                 sharded, k3)]
     log(families)
     log(hilbert["line"])
-    log(f"chip_smoke: phases 0-14 in {time.perf_counter() - t_start:.1f} s")
+    log(groups["line"])
+    log(f"chip_smoke: phases 0-15 in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"betacores_tpu_torch/csrc/{src}",
          "replaces": f"betacores_tpu/ops/{tpu}", "launches": path["launches"], **k}

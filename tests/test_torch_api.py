@@ -334,16 +334,17 @@ def test_entry_points_need_a_card_or_the_cpu(det, monkeypatch):
 
 @pytest.mark.parametrize("what", ["groups", "contextual", "bpsvi"])
 def test_unported_parts_name_their_roadmap_item(det, what):
+    """Group mode and BPSVI are ported (tests/test_torch_groups.py,
+    tests/test_torch_bpsvi.py); their sharded builds are item 12."""
     Z, samples = det
-    prj = _projectors(samples, False)[1]
-    item = {"groups": "item 9", "contextual": "item 7", "bpsvi": "item 9"}[what]
+    item = {"groups": "item 12", "contextual": "item 7", "bpsvi": "item 12"}[what]
     with pytest.raises(NotImplementedError, match=item):
         if what == "groups":
-            bc.SparseVICoreset(Z, prj, groups=[[0, 1], [2]], device="cpu")
+            bc.parallel.make_sharded_group_builder(Z, [[0, 1], [2]])
         elif what == "contextual":
             bc.coresets.ContextualProjector(None, S, None)
         else:
-            bc.BatchPSVICoreset(Z, prj, device="cpu")
+            bc.parallel.make_sharded_bpsvi_batch(Z)
 
 
 # --- UniformSamplingCoreset ---------------------------------------------------

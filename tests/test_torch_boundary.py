@@ -18,7 +18,10 @@ def _run(args, cwd=ROOT):
 
 def test_import_loads_no_jax():
     r = _run(["-c", "import sys, betacores_tpu_torch, betacores_tpu_torch.ops.kernels, "
-                    "betacores_tpu_torch.ops._build, betacores_tpu_torch.parallel\n"
+                    "betacores_tpu_torch.ops._build, betacores_tpu_torch.parallel, "
+                    "betacores_tpu_torch.valuation, betacores_tpu_torch.valuation.shapley, "
+                    "betacores_tpu_torch.coresets.groups, betacores_tpu_torch.coresets.bpsvi, "
+                    "betacores_tpu_torch.coresets.psvi, betacores_tpu_torch.coresets.dpbpsvi\n"
                     "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
                     " or m == 'betacores_tpu' or m.startswith('betacores_tpu.')]\n"
                     "assert not bad, bad\n"
@@ -27,7 +30,12 @@ def test_import_loads_no_jax():
 
 
 def test_port_sources_never_import_jax():
-    for path in (ROOT / "betacores_tpu_torch").rglob("*.py"):
+    paths = list((ROOT / "betacores_tpu_torch").rglob("*.py"))
+    # the group, pseudo-coreset and valuation slice is among them
+    names = {p.relative_to(ROOT / "betacores_tpu_torch").as_posix() for p in paths}
+    assert {"valuation/__init__.py", "valuation/shapley.py", "coresets/groups.py",
+            "coresets/bpsvi.py", "coresets/psvi.py", "coresets/dpbpsvi.py"} <= names
+    for path in paths:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:

@@ -63,19 +63,22 @@ def _jax_state():
     return jinit_state(M, D, beta=BETA, sampler_aux=jnp.zeros(D, jnp.float32))
 
 
-def replay_jax_draws(key, st, itrs, smp, n_rows, n_samples, n_steps, n_sel, n_opt):
+def replay_jax_draws(key, st, itrs, smp, n_rows, n_samples, n_steps, n_sel, n_opt,
+                     n_cand=None):
     """The draws ``build(key, st, itrs)`` of the JAX package makes with
     sampler ``smp``, as torch tensors: per iteration (z_sel, idx_sel) and
     (z_all, idx_all). ``n_sel=None`` is full-candidate select, which draws
     no subsample (idx_sel None); ``n_opt=None`` is full-data refinement,
-    whose steps draw their noise from the same keys (idx_all None)."""
+    whose steps draw their noise from the same keys (idx_all None).
+    ``n_cand`` is the range of select's candidates when it is not the rows
+    (the group builder draws groups)."""
     noise = lambda k: smp.draw_noise(k, n_samples, st.wts, st.pts, st.sampler_aux)
     sel, opt = [], []
     for i in range(itrs):
         k1, k2 = jax.random.split(jax.random.fold_in(key, i))
         k_samp, k_sub = jax.random.split(k1)
         sel.append((noise(k_samp), None if n_sel is None
-                    else jdraw_subsample(k_sub, n_rows, n_sel)[0]))
+                    else jdraw_subsample(k_sub, n_cand or n_rows, n_sel)[0]))
         pair = jax.vmap(jax.random.split)(jax.random.split(k2, n_steps))
         z_all = jax.vmap(noise)(pair[:, 0])
         idx_all = None if n_opt is None else jax.vmap(

@@ -637,3 +637,88 @@ def test_cuda_nnls_on_support_keeps_the_last_column(cuda_device):
                                  5, n_iters=2000).cpu()
     assert float(card[N - 1]) > 1.0
     np.testing.assert_allclose(card.numpy(), cpu.numpy(), rtol=0, atol=1e-10)
+
+
+def _group_problem(device, N=9000, K=3, d=4, per=100):
+    """A multiclass problem of N >= FUSED_MIN_ROWS rows in groups of
+    ``per`` rows (the last rows in no group), its group builder's pieces."""
+    from betacores_tpu_torch import flip_labels, gen_synthetic_multiclass
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    _, _, Z = gen_synthetic_multiclass(gen, N, d=d, n_classes=K)
+    Z, _ = flip_labels(gen, Z, K, 0.2)
+    groups = [list(range(g * per, (g + 1) * per)) for g in range(N // per - 1)]
+    return Z, groups
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_beta", [False, True])
+def test_cuda_multiclass_group_select_goes_through_k2(cuda_device, use_beta):
+    """The group select of a multiclass build over N = 9000 rows projects
+    every row through K2 (one launch a select) and selects what the same
+    select through the plain projection selects on the card; the group
+    vectors agree within K2's 2e-5 per row times the group's rows."""
+    from betacores_tpu_torch import (IncrementalConfig, init_state, multiclass,
+                                     multiclass_laplace_sampler)
+    from betacores_tpu_torch.coresets import (FixedDraws, init_group_state,
+                                              make_group_incremental_builder)
+    from betacores_tpu_torch.ops.projection import Groups
+
+    K, d, S = 3, 4, 32
+    Z, groups = _group_problem(cuda_device, K=K, d=d)
+    gp = Groups.from_lists(groups, device=cuda_device)
+    cfg = IncrementalConfig(projection_dim=S, opt_itrs=5, i0=0.5, use_beta=use_beta)
+    fused = multiclass.bundle(K)
+    plain = fused._replace(fused_ll_projection=None, fused_beta_projection=None)
+    smp = multiclass_laplace_sampler(K)
+    z = torch.randn((S, K * d), generator=torch.Generator(device=cuda_device).manual_seed(1),
+                    device=cuda_device)
+    draws = FixedDraws([(z, None)], [])
+    out = {}
+    for name, model in (("kernel", fused), ("plain", plain)):
+        b = make_group_incremental_builder(Z, gp, model, smp, cfg)
+        gst = init_group_state(init_state(400, d + 1, beta=0.3, device=cuda_device,
+                                          sampler_aux=torch.zeros(K * d, device=cuda_device)),
+                               len(groups))
+        before = kernels.multiclass_projection.launches
+        got = b.select(gst, draws)
+        samples, _ = smp.from_noise(z, gst.core.wts, gst.core.pts, gst.core.sampler_aux)
+        gv = b.group_vecs(samples, gst.core.beta)
+        torch.cuda.synchronize()
+        out[name] = (got, gv, kernels.multiclass_projection.launches - before)
+    assert out["kernel"][2] == 2 and out["plain"][2] == 0
+    assert torch.equal(out["kernel"][0].selected, out["plain"][0].selected)
+    assert torch.equal(out["kernel"][0].core.idcs, out["plain"][0].core.idcs)
+    assert int(out["kernel"][0].core.m) == 100
+    err = float((out["kernel"][1] - out["plain"][1]).abs().max())
+    assert err <= 2e-5 * 100, err
+
+
+@pytest.mark.cuda
+def test_cuda_scatter_group_reduction_matches_onehot(cuda_device, monkeypatch):
+    """The scatter reduction (index_put_ with accumulate) equals the
+    one-hot product within float32 summation error, and rounds the same in
+    every call."""
+    from betacores_tpu_torch import multiclass, multiclass_laplace_sampler
+    from betacores_tpu_torch.coresets import IncrementalConfig, make_group_incremental_builder
+    from betacores_tpu_torch.coresets import groups as groups_mod
+    from betacores_tpu_torch.ops.projection import Groups
+
+    Z, groups = _group_problem(cuda_device, N=1 << 16, per=512)
+    gp = Groups.from_lists(groups, device=cuda_device)
+    cfg = IncrementalConfig(projection_dim=100, opt_itrs=2)
+    make = lambda: make_group_incremental_builder(Z, gp, multiclass.bundle(3),
+                                                  multiclass_laplace_sampler(3), cfg)
+    onehot = make()
+    monkeypatch.setattr(groups_mod, "ONEHOT_MAX_BYTES", 0)
+    scatter = make()
+    assert onehot.onehot is not None and scatter.onehot is None
+    vecs = torch.randn((Z.shape[0], 100), generator=torch.Generator(device=cuda_device)
+                       .manual_seed(0), device=cuda_device)
+    a, b1, b2 = onehot.group_reduce(vecs), scatter.group_reduce(vecs), scatter.group_reduce(vecs)
+    ref = torch.zeros((len(groups) + 1, 100), dtype=torch.float64, device=cuda_device)
+    ref.index_add_(0, scatter.gid, vecs.double())
+    torch.cuda.synchronize()
+    assert torch.equal(b1, b2)
+    for got in (a, b1):
+        assert float((got.double() - ref[:len(groups)]).abs().max()) <= 1e-4
