@@ -36,8 +36,13 @@ NNLS solvers (``snnls``), ``HilbertCoreset``, the weight polish ``refine()``
 whose multiclass select runs the projection kernel over every row), with
 the pseudo-coresets (``BatchPSVICoreset``, ``DiffPrivBatchPSVICoreset``,
 ``PseudoSparseVICoreset``) and group data valuation (``valuation``:
-distributional and truncated Monte-Carlo Shapley). Modules keep the JAX
-package's paths and names.
+distributional and truncated Monte-Carlo Shapley). The neural-linear model
+is ported (``models.neural_linear``: an encoder under an exact Bayesian
+last layer, trained with ``torch.optim``), with the contextual builds it
+drives (``coresets.ContextualProjector`` and ``alg.ctx``; the builders'
+``contextual=``) and the example's data helpers (``data.standardize``,
+``make_random_groups``, ``perturb_groups``, ``perturb_regression``).
+Modules keep the JAX package's paths and names.
 This package imports torch and never jax.
 """
 
@@ -55,7 +60,7 @@ from .data import (flip_labels, gen_synthetic_gaussian, gen_synthetic_linreg,
 from .inference import (fixed_sampler, gaussian_conjugate_sampler, linreg_conjugate_sampler,
                         logreg_laplace_sampler, multiclass_laplace_sampler,
                         poisson_laplace_sampler, prior_gaussian_sampler)
-from .models import gaussian, linreg, logreg, multiclass, mvn, poisson
+from .models import gaussian, linreg, logreg, multiclass, mvn, neural_linear, poisson
 from .parallel import (make_mesh, make_sharded_incremental_builder, shard_data,
                        shard_weights)
 from .utils import NumericalPrecisionError, set_tolerance, set_verbosity
@@ -73,6 +78,6 @@ __all__ = [
     "perturb_logreg", "fixed_sampler", "gaussian_conjugate_sampler",
     "linreg_conjugate_sampler", "logreg_laplace_sampler", "multiclass_laplace_sampler",
     "poisson_laplace_sampler", "prior_gaussian_sampler", "gaussian", "linreg", "logreg",
-    "multiclass", "mvn", "poisson", "make_mesh",
+    "multiclass", "mvn", "neural_linear", "poisson", "make_mesh",
     "make_sharded_incremental_builder", "shard_data", "shard_weights",
 ]

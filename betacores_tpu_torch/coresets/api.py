@@ -23,9 +23,11 @@ at construction; ``error()`` draws from a second one, seeded
 coreset's weights (coresets/refine.py). ``groups=`` (lists of member
 indices) selects whole groups (coresets/groups.py) in ``BetaCoreset``,
 ``SparseVICoreset`` and ``UniformSamplingCoreset``; ``BatchPSVICoreset``
-builds a pseudo-coreset in one shot (coresets/bpsvi.py). Not ported yet,
-and raising ``NotImplementedError`` that names the ROADMAP item that
-brings it: ``ContextualProjector`` (item 7b).
+builds a pseudo-coreset in one shot (coresets/bpsvi.py). A
+``ContextualProjector`` makes the model and sampler depend on a trainable
+context (the neural-linear encoder of models/neural_linear.py): set
+``alg.ctx`` (e.g. to ``nl.variables``) before each build, and every build,
+``optimize()``, ``error()``, ``build_trace`` and ``refine()`` runs under it.
 """
 
 from __future__ import annotations
@@ -58,10 +60,6 @@ def _steps_to_i0(step_sched, opt_itrs: int) -> np.ndarray:
     """A reference-style ``step_sched(i)`` callable evaluated into the
     learning-rate array, in float64 on the host (cast once by the caller)."""
     return np.asarray([float(step_sched(i)) for i in range(opt_itrs)], dtype=np.float64)
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A item {item})")
 
 
 class BlackBoxProjector:
@@ -114,13 +112,18 @@ class BetaBlackBoxProjector:
 
 
 class ContextualProjector:
-    """A projector whose model and sampler depend on a trainable context
-    (the neural-linear encoder). Not ported yet."""
+    """A projector whose model and sampler depend on a trainable context,
+    e.g. the neural-linear encoder's state: ``model_factory`` and
+    ``sampler_factory`` map a context (a mapping of names to tensors) to a
+    ``ModelFns`` and a sampler. Set ``alg.ctx`` (e.g. to ``nl.variables``)
+    before each ``build``."""
 
     contextual = True
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("ContextualProjector (contextual builds)", "7b")
+    def __init__(self, sampler_factory, projection_dimension: int, model_factory):
+        self.sampler = sampler_factory
+        self.projection_dimension = projection_dimension
+        self.model = model_factory
 
 
 def _as_data(data, device: torch.device) -> torch.Tensor:
@@ -252,7 +255,9 @@ class _IncrementalCoreset(Coreset):
     indices) over coresets/groups.py's: whole groups are selected, every
     member appended, and the buffer holds every member of every group
     unless ``max_size`` says otherwise. ``initialized`` leaves a warm
-    start's slots out of the group select's take-new comparison."""
+    start's slots out of the group select's take-new comparison. With a
+    ``ContextualProjector``, ``ctx`` is the context every build, optimize,
+    error and refine runs under."""
 
     _use_beta = False
     _learn_beta = False
@@ -264,8 +269,6 @@ class _IncrementalCoreset(Coreset):
                  initialized: bool = False, data_weights=None, refit_every: int = 1,
                  dedup_select: bool = False, device=None, graph: Optional[bool] = None,
                  **kw):
-        if getattr(ll_projector, "contextual", False):
-            raise _not_ported("a contextual projector", "7b")
         if groups is not None and not max_size:
             # group appends add up to the largest group's size per iteration
             max_size = sum(len(g) for g in groups)
@@ -285,16 +288,18 @@ class _IncrementalCoreset(Coreset):
             dtype=self.data.dtype, device=self.device)
         self._data_weights = u
         self.groups = groups
+        self.ctx = None                  # the context of a contextual projector
+        contextual = getattr(ll_projector, "contextual", False)
         if groups is None:
             self._builder = make_incremental_builder(self.data, ll_projector.model,
                                                      ll_projector.sampler, self._cfg,
                                                      step_sizes=step_sizes, data_weights=u,
-                                                     graph=graph)
+                                                     graph=graph, contextual=contextual)
         else:
             self._builder = make_group_incremental_builder(
                 self.data, Groups.from_lists(groups, self.device), ll_projector.model,
-                ll_projector.sampler, self._cfg, step_sizes=step_sizes, data_weights=u,
-                graph=graph)
+                ll_projector.sampler, self._cfg, step_sizes=step_sizes,
+                contextual=contextual, data_weights=u, graph=graph)
             self._gstate = init_group_state(self.state, len(groups),
                                             initialized=int(self.state.m) if initialized else 0)
         # the error draws come from their own stream, so drawing them never
@@ -327,7 +332,12 @@ class _IncrementalCoreset(Coreset):
         refinement, the same subsample."""
         return self._error_keys().initial_seed()
 
+    def _load_ctx(self) -> None:
+        """Copies ``ctx`` into a contextual builder's context buffers."""
+        self._builder.load_ctx(self.ctx)
+
     def _build(self, itrs: int, sz: int) -> None:
+        self._load_ctx()
         if self.groups is not None:
             gst = self._gstate._replace(core=self.state)
             self._gstate = self._builder.build(gst, int(itrs), self._draws(int(itrs)))
@@ -350,11 +360,13 @@ class _IncrementalCoreset(Coreset):
         coresets return 0 here, which leaves ``optimize()``'s rollback
         guard vacuous)."""
         gen = torch.Generator(device=self.device).manual_seed(self._error_seed)
+        self._load_ctx()
         return float(self._builder.error(self.state, gen))
 
     def _optimize(self) -> None:
         # group mode refines inside its build only, as the reference's
         if self.groups is None:
+            self._load_ctx()
             self.state = self._builder.optimize(self.state,
                                                 self._builder.generator_draws(self.keys()))
 
@@ -369,9 +381,16 @@ class _IncrementalCoreset(Coreset):
         projection (coresets/refine.py), kept only if it tightens that
         objective. Meant for clean-data KL builds: coresets/refine.py says
         why not to polish a contaminated beta build. Group mode polishes
-        the appended members point by point."""
-        self.state = refine_weights(self._refine_draws(), self.data, self.projector.model,
-                                    self.projector.sampler, self.state,
+        the appended members point by point. A contextual projector's
+        factories are resolved at the current ``ctx``."""
+        mdl, smp = self.projector.model, self.projector.sampler
+        if getattr(self.projector, "contextual", False):
+            if self.ctx is None:
+                raise ValueError("a contextual refine() needs its ctx (e.g. alg.ctx = "
+                                 "nl.variables)")
+            ctx = {k: torch.as_tensor(v).to(self.device) for k, v in self.ctx.items()}
+            mdl, smp = mdl(ctx), smp(ctx)
+        self.state = refine_weights(self._refine_draws(), self.data, mdl, smp, self.state,
                                     n_samples=n_samples, n_subsample=n_subsample,
                                     use_beta=self._use_beta, data_weights=self._data_weights)
 
@@ -388,6 +407,7 @@ class _IncrementalCoreset(Coreset):
                 raise ValueError("return_selected: group mode only")
             self._ensure_capacity(int(self.state.m) + itrs)
         pts0 = self.state.pts.cpu().numpy()      # after growth: the warm slots
+        self._load_ctx()
         if self.groups is None:
             st, (W, I, B) = self._builder.build_trace(self.state, int(itrs),
                                                       self._draws(int(itrs)))

@@ -46,8 +46,9 @@ import torch
 
 from ..ops.projection import Groups, draw_subsample
 from ..utils.opt import step_schedule
-from .incremental import (GeneratorDraws, IncrementalBuilder, IncrementalConfig,
-                          _generator_of, laplace_family, make_tangent_error, noise_split)
+from .incremental import (ContextBuffers, GeneratorDraws, IncrementalBuilder,
+                          IncrementalConfig, _generator_of, laplace_family,
+                          make_tangent_error, noise_split)
 from .state import CoresetState
 
 # The (G, S) group reduction is a (G, N) x (N, S) product with the one-hot
@@ -90,10 +91,13 @@ class GroupIncrementalBuilder(IncrementalBuilder):
     """``build(gstate, itrs, draws)`` runs itrs x (group select + point
     refinement); ``build_trace`` also returns each iteration's (wts, idcs,
     beta, selected). Draws are those of the point builder, with select's
-    subsample drawn over the G groups (``generator_draws``)."""
+    subsample drawn over the G groups (``generator_draws``). Each entry
+    point but ``select`` takes a contextual builder's ``ctx``, as the point
+    builder's."""
 
     def __init__(self, data, groups: Groups, model, sampler, config: IncrementalConfig,
-                 step_sizes, data_weights: Optional[torch.Tensor], graph: Optional[bool]):
+                 step_sizes, data_weights: Optional[torch.Tensor], graph: Optional[bool],
+                 ctx: Optional[ContextBuffers] = None):
         N, dt, dev = data.shape[0], data.dtype, data.device
         G = groups.n_groups
         self.members = groups.members.to(dev)
@@ -106,10 +110,10 @@ class GroupIncrementalBuilder(IncrementalBuilder):
         # u on every row
         target_u = u if config.n_subsample_opt is not None else (
             in_group if u is None else u * in_group)
-        super().__init__(data, model, sampler, config, step_sizes, target_u, graph)
+        super().__init__(data, model, sampler, config, step_sizes, target_u, graph, ctx)
         self._model_fstep = self.sclr_all = None       # the group pass is composed
         self.data_weights = u
-        self.error = make_tangent_error(data, model, sampler, config, u)
+        self._error = make_tangent_error(data, model, sampler, config, u)
         self.n_sel = config.n_subsample_select          # group candidates, not clamped to G
         if u is None:
             self.eff_sizes, self.g_mass = groups.sizes.to(dev), None
@@ -214,20 +218,24 @@ class GroupIncrementalBuilder(IncrementalBuilder):
         selected = gst.selected | ((self._all_groups == f) & add)
         return gst._replace(core=core, selected=selected)
 
-    def optimize(self, gst: GroupCoresetState, draws, it: int = 0) -> GroupCoresetState:
+    def optimize(self, gst: GroupCoresetState, draws, it: int = 0,
+                 ctx=None) -> GroupCoresetState:
         """Point-level refinement of the appended members: the composed
         pass on a subsample, or on every row against the grouped target."""
+        self.load_ctx(ctx)
         return gst._replace(core=self._optimize_composed(gst.core, draws, it))
 
-    def build(self, gst: GroupCoresetState, itrs: int, draws) -> GroupCoresetState:
+    def build(self, gst: GroupCoresetState, itrs: int, draws, ctx=None) -> GroupCoresetState:
+        self.load_ctx(ctx)
         for it in range(itrs):
             gst = self.optimize(self.select(gst, draws, it), draws, it)
         return gst
 
-    def build_trace(self, gst: GroupCoresetState, itrs: int, draws):
+    def build_trace(self, gst: GroupCoresetState, itrs: int, draws, ctx=None):
         """(gstate, (wts, idcs, beta, selected)) with each stacked over
         iterations: the selection order is the order in which the
         columns of ``selected`` turn on."""
+        self.load_ctx(ctx)
         trace = []
         for it in range(itrs):
             gst = self.optimize(self.select(gst, draws, it), draws, it)
@@ -249,7 +257,7 @@ def make_group_incremental_builder(
 ) -> GroupIncrementalBuilder:
     """The group builder over ``data`` (N, D) on its device; ``groups`` is
     moved there. ``data_weights`` (N,) makes row n count u_n times.
-    ``graph`` as in make_incremental_builder."""
+    ``graph`` and ``contextual`` as in make_incremental_builder."""
     if config.learn_beta:
         raise NotImplementedError(
             "group-mode builders do not implement learn_beta (the joint (w, beta) "
@@ -257,9 +265,10 @@ def make_group_incremental_builder(
             "never learns beta either): keeping beta fixed while the caller asked to "
             "learn it would be a wrong result. Use learn_beta=False (and "
             "coresets/select_beta.py to choose beta).")
+    ctx = None
     if contextual:
-        raise NotImplementedError("a contextual group build is not ported yet "
-                                  "(ROADMAP Queue A item 7b)")
+        ctx = ContextBuffers(data.device)
+        model, sampler = model(ctx), sampler(ctx)
     if not noise_split(sampler) and not callable(sampler):
         raise ValueError("the sampler has neither a noise split (draw_noise, from_noise) "
                          "nor a call sampler(generator, n, wts, pts, aux)")
@@ -275,4 +284,4 @@ def make_group_incremental_builder(
                                    device=data.device)
     step_sizes = torch.as_tensor(step_sizes, dtype=data.dtype, device=data.device)
     return GroupIncrementalBuilder(data, groups, model, sampler, config, step_sizes,
-                                   data_weights, graph)
+                                   data_weights, graph, ctx)

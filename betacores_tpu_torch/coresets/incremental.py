@@ -63,12 +63,21 @@ CUDA device raises. A capture that fails raises. Select, the draws and
 this builder's full-data refinement (one (N, S) projection per step) stay
 eager; the group builder (coresets/groups.py) runs its full-data pass
 through ``_ComposedPass`` and so captures it too.
+
+A contextual builder (``contextual=True``: the model and sampler are
+factories ``ctx -> ModelFns`` and ``ctx -> sampler``, e.g. over the
+neural-linear encoder of models/neural_linear.py) resolves the factories
+once, at make time, on its ``ContextBuffers``: static tensors on the data's
+device that the resolved functions read at every call. Each entry point
+takes ``ctx`` (a mapping of names to tensors) and copies it into those
+buffers first, so a pass captured under one context replays under the
+next; no context is ever captured as a constant.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Protocol, Sequence, Tuple
+from typing import Mapping, Optional, Protocol, Sequence, Tuple
 
 import torch
 
@@ -110,6 +119,9 @@ class IncrementalConfig:
 
 
 BETA_FLOOR = 1e-3                      # learn_beta's lower clamp (the 1/beta pole)
+# a composed pass on pre-drawn rows appends the coreset buffer to each of
+# its T steps' rows while those copies take at most this many bytes
+JOINT_MAX_BYTES = 256 * 1024 * 1024
 
 
 def laplace_family(sampler) -> bool:
@@ -137,6 +149,43 @@ def require_lagged_fit(sampler, config: IncrementalConfig) -> None:
         if getattr(sampler, name, None) is None:
             raise NotImplementedError(f"refit_every > 1 needs a sampler with fit, "
                                       f"from_fit and fit_aux; this one lacks {name}")
+
+
+class ContextBuffers(Mapping):
+    """A contextual builder's context: one static tensor per name on the
+    builder's device. ``load(ctx)`` copies a context in: the first load
+    makes the buffers (in the context's dtypes), every later one copies
+    into them and must bring the same names and shapes. Reading a name
+    before the first load raises."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._bufs: Optional[dict] = None
+
+    def load(self, ctx: Mapping) -> None:
+        if self._bufs is None:
+            self._bufs = {k: torch.as_tensor(v).detach().to(self.device).clone()
+                          for k, v in ctx.items()}
+            return
+        if set(ctx) != set(self._bufs):
+            raise ValueError(f"ctx names {sorted(ctx)} != the builder's {sorted(self._bufs)}")
+        for k, v in ctx.items():
+            v = torch.as_tensor(v)
+            if v.shape != self._bufs[k].shape:
+                raise ValueError(f"ctx[{k!r}] has shape {tuple(v.shape)}, the builder's "
+                                 f"{tuple(self._bufs[k].shape)}")
+            self._bufs[k].copy_(v)
+
+    def __getitem__(self, k):
+        if self._bufs is None:
+            raise ValueError("a contextual build needs its ctx (e.g. alg.ctx = nl.variables)")
+        return self._bufs[k]
+
+    def __iter__(self):
+        return iter(self._bufs or {})
+
+    def __len__(self) -> int:
+        return len(self._bufs or {})
 
 
 def _generator_of(draws) -> torch.Generator:
@@ -267,9 +316,15 @@ class _ComposedPass:
         self.full = n_opt is None
         # the reference's learn_beta branch refits every step
         self.lagged = cfg.refit_every > 1 and not self.learn_beta
-        # ... and projects the subsample and the buffer separately
+        # ... and projects the subsample and the buffer separately. On
+        # pre-drawn rows the buffer is appended to every step's rows once,
+        # before the pass, only while those T copies fit JOINT_MAX_BYTES; a
+        # larger buffer (a group build's, up to every row) projects on its
+        # own at each step
         self.joint = (not self.learn_beta and not self.full
-                      and builder._joint_rows_identical(n_opt + M_buf))
+                      and builder._joint_rows_identical(n_opt + M_buf)
+                      and (z_all is None or T * M_buf * D * st.pts.element_size()
+                           <= JOINT_MAX_BYTES))
         self.gen = None
         self.rows_all = self.z_all = self.u_all = None
         if z_all is None:
@@ -419,12 +474,15 @@ class IncrementalBuilder:
     ``select`` / ``optimize`` run one half-iteration;
     ``build_with_data`` runs ``build`` over other data of the same shape;
     ``error(state, draws)`` is the tangent-space residual norm
-    (``make_tangent_error``). ``graph``: see the module docstring and
+    (``make_tangent_error``). Each but ``select`` takes ``ctx``, which a
+    contextual builder (``ctx`` its ``ContextBuffers``) copies in first
+    (``load_ctx``); None keeps the last one. ``graph``: see the module docstring and
     utils/graphs.py."""
 
     def __init__(self, data, model, sampler, config: IncrementalConfig,
                  step_sizes: torch.Tensor, data_weights: Optional[torch.Tensor] = None,
-                 graph: Optional[bool] = None):
+                 graph: Optional[bool] = None, ctx: Optional[ContextBuffers] = None):
+        self.ctx = ctx
         self.data = data
         self.model = model
         self.sampler = sampler
@@ -448,7 +506,20 @@ class IncrementalBuilder:
         self._fused: Optional[FusedPass] = None
         self._composed: Optional[_ComposedPass] = None
         self._bias_corrections: dict = {}
-        self.error = make_tangent_error(data, model, sampler, config, data_weights)
+        self._error = make_tangent_error(data, model, sampler, config, data_weights)
+
+    def load_ctx(self, ctx: Optional[Mapping]) -> None:
+        """Copies ``ctx`` into the context buffers (None: keep the last)."""
+        if ctx is None:
+            return
+        if self.ctx is None:
+            raise ValueError("ctx given to a builder made without contextual=True")
+        self.ctx.load(ctx)
+
+    def error(self, st: CoresetState, draws, ctx: Optional[Mapping] = None) -> torch.Tensor:
+        """The tangent-space residual norm (``make_tangent_error``)."""
+        self.load_ctx(ctx)
+        return self._error(st, draws)
 
     @property
     def fstep(self):
@@ -578,10 +649,12 @@ class IncrementalBuilder:
             m=st.m + add.to(torch.int32),
             sampler_aux=aux)
 
-    def optimize(self, st: CoresetState, draws: Draws, it: int = 0) -> CoresetState:
+    def optimize(self, st: CoresetState, draws: Draws, it: int = 0,
+                 ctx: Optional[Mapping] = None) -> CoresetState:
         """Reference bcores.py:126-150 on pre-drawn noise and subsample rows:
         through the model's fused step when it serves the build, else
         composed; full-data refinement projects every row per step."""
+        self.load_ctx(ctx)
         if self.n_opt is None:
             return self._optimize_full(st, draws, it)
         if self.fstep is None:
@@ -668,13 +741,17 @@ class IncrementalBuilder:
         p.run(step)
         return p.result(st)
 
-    def build(self, st: CoresetState, itrs: int, draws: Draws) -> CoresetState:
+    def build(self, st: CoresetState, itrs: int, draws: Draws,
+              ctx: Optional[Mapping] = None) -> CoresetState:
+        self.load_ctx(ctx)
         for it in range(itrs):
             st = self.optimize(self.select(st, draws, it), draws, it)
         return st
 
-    def build_trace(self, st: CoresetState, itrs: int, draws: Draws):
+    def build_trace(self, st: CoresetState, itrs: int, draws: Draws,
+                    ctx: Optional[Mapping] = None):
         """(state, (wts, idcs, beta)) with each stacked over iterations."""
+        self.load_ctx(ctx)
         trace = []
         for it in range(itrs):
             st = self.optimize(self.select(st, draws, it), draws, it)
@@ -682,7 +759,7 @@ class IncrementalBuilder:
         return st, tuple(torch.stack(x) for x in zip(*trace))
 
     def build_with_data(self, data, data_weights, st: CoresetState, itrs: int,
-                        draws: Draws) -> CoresetState:
+                        draws: Draws, ctx: Optional[Mapping] = None) -> CoresetState:
         """``build`` over caller-supplied ``data`` (and ``data_weights``, or
         None) of the make-time shape: the same buffers and captured
         programs serve every same-shape dataset (the reference runs its
@@ -702,7 +779,7 @@ class IncrementalBuilder:
         self.u = (None if data_weights is None
                   else data_weights.to(dtype=mine[0].dtype, device=mine[0].device))
         try:
-            return self.build(st, itrs, draws)
+            return self.build(st, itrs, draws, ctx)
         finally:
             self.data, self.u = mine
 
@@ -757,6 +834,7 @@ def make_incremental_builder(
     step_sizes: Optional[torch.Tensor] = None,
     data_weights: Optional[torch.Tensor] = None,
     graph: Optional[bool] = None,
+    contextual: bool = False,
 ) -> IncrementalBuilder:
     """The builder over ``data`` (N, D): select over every row or a
     subsample, refinement on a subsample or every row, optional (N,)
@@ -772,7 +850,13 @@ def make_incremental_builder(
     ``learn_beta`` refines beta too, through the composed or full-data
     route; it needs a model with ``beta_gradient``. A sampler the route
     cannot use raises NotImplementedError rather than taking another
-    route."""
+    route. ``contextual``: ``model`` and ``sampler`` are factories of a
+    context (module docstring), resolved here on the builder's
+    ``ContextBuffers``."""
+    ctx = None
+    if contextual:
+        ctx = ContextBuffers(data.device)
+        model, sampler = model(ctx), sampler(ctx)
     if config.learn_beta and getattr(model, "beta_gradient", None) is None:
         raise ValueError("learn_beta requires a model with beta_gradient")
     N = data.shape[0]
@@ -794,4 +878,4 @@ def make_incremental_builder(
                                    device=data.device)
     step_sizes = torch.as_tensor(step_sizes, dtype=data.dtype, device=data.device)
     return IncrementalBuilder(data, model, sampler, config, step_sizes, data_weights,
-                              graph)
+                              graph, ctx)

@@ -64,8 +64,15 @@ def nnls_on_support(A: torch.Tensor, b: torch.Tensor, support: torch.Tensor,
     block width K (>= the true support size)."""
     N = A.shape[1]
     idx, valid = support_slots(support, min(max_support, N))
-    As = A[:, idx] * valid.to(A.dtype)[None, :]
-    ws = nnls_fista(As.T @ As, As.T @ b, valid, n_iters=n_iters)
+    # the Gram and the right-hand side are summed in float64 and rounded
+    # once: the restricted problem is ill-conditioned, and a float32
+    # matrix-vector product's sums put enough error into As^T b to move the
+    # solution off the reference's (LAR's columns departed from float64's
+    # within 50 iterations, where the JAX package's float32 LAR held)
+    acc = torch.promote_types(A.dtype, torch.float64)
+    As = (A[:, idx] * valid.to(A.dtype)[None, :]).to(acc)
+    ws = nnls_fista((As.T @ As).to(A.dtype), (As.T @ b.to(acc)).to(A.dtype), valid,
+                    n_iters=n_iters)
     # an add, not a set: a padding slot points at column N - 1, which may
     # also be a real support column, and adds 0 to its weight
     w = torch.zeros(N, dtype=A.dtype, device=A.device)

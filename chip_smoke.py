@@ -110,8 +110,8 @@ toolkit. Phases, each of which raises on failure:
      NCCL mesh in ll and beta (0.3) modes, which must take the
      single-device GIGA's columns with weights within 1e-6 max|w|; Frank-
      Wolfe, OMP and LAR at the example's N = 5000, whose columns must be the
-     CPU float64 solver's at every iteration (LAR's in float64: float32
-     departs), and the sampling solvers folding the same draws as the CPU;
+     CPU float64 solver's at every iteration, in float32 and in float64,
+     and the sampling solvers folding the same draws as the CPU;
      the multiclass ``HilbertCoreset`` of examples/multiclass.py's widths
      (one K2 launch) with its held-out accuracy; ``refine()`` of a
      multiclass ``SparseVICoreset`` over every row (one more K2 launch, at
@@ -135,7 +135,21 @@ toolkit. Phases, each of which raises on failure:
      (``BatchPSVICoreset.build(1, 100)``, ``bpsvi_build_batch`` over sizes
      10, 50, 100, each lane equal to its standalone masked build); (e)
      DP-BPSVI at examples/dp_bpsvi.py's defaults with its epsilon, and
-     ``PseudoSparseVICoreset`` for 5 selections on that data.
+     ``PseudoSparseVICoreset`` for 5 selections on that data;
+ 16. the neural-linear experiment (``phase_neural_linear``), the
+     contextual builds: (a) examples/zellner_neural_linear.py at its
+     defaults (synth N = 2000, D = 12, groups of 20, 10 % of them corrupted,
+     F = 30, S = 100, 500 Adam steps on 1000 rows, 20 rounds, the encoder
+     retrained 200 epochs a round) for BCORES, SVI and RAND, printing the
+     test RMSE and NLL at rounds 0, 5, 10, 15, 20 beside the JAX package's
+     recorded trajectory; (b) a contextual group ``BetaCoreset`` over 2^19
+     rows at YearPredictionMSD's width (D = 90), each selection captured
+     and then again eager under the same draws and context (the encoder
+     retrained between, so later replays run under a new one), with µs a
+     step, ms a select, s a retraining and the peak memory; (c) a small
+     contextual group build and a 5-epoch training of each variant on the
+     card against the CPU. K1, K2 and K3 launch 0 times in it. If the
+     script ran over its time, (a)'s SVI rounds are what would be cut first.
 
 The last two lines of standard output are a JSON object describing the
 kernels (K1 and K3 add ``bound_us`` and ``floor_us``, K2 ``floor_ms``), then
@@ -187,6 +201,18 @@ V_D, V_M, V_S, V_ITRS, V_N_OPT, V_N_SEL, V_BETA, V_I0 = 4, 30, 64, 150, 200, 500
 V_F_RATE, V_SHIFT = 0.1, 10.0
 # examples/zellner_neural_linear.py:57-66,140 (its --D, S, steps, rows, i0, beta, M)
 L_D, L_M, L_S, L_ITRS, L_N_OPT, L_N_SEL, L_BETA, L_I0 = 12, 20, 100, 500, 1000, 1000, 0.5, 0.1
+# phase 16: examples/zellner_neural_linear.py's defaults (:54-83): train rows, test
+# rows, --D, --batch-size (group size), --init-size, --f-rate; --out-features,
+# --proj-dim, --opt-itrs, --n-subsample-opt, --i0, --beta, --M; --nn-epochs,
+# --initial-lr, --weight-decay; the rounds whose test RMSE and NLL are printed
+NL_N, NL_N_TEST, NL_D, NL_GROUP, NL_INIT, NL_F_RATE = 2000, 1500, 12, 20, 20, 0.1
+NL_F, NL_S, NL_ITRS, NL_N_OPT, NL_I0, NL_BETA, NL_M = 30, 100, 500, 1000, 0.1, 0.5, 20
+NL_EPOCHS, NL_LR, NL_WD, NL_ROUNDS = 200, 1e-2, 0.1, (0, 5, 10, 15, 20)
+# the JAX package's test RMSE at rounds 0 and 20 of that example (RESULTS.md:236-238)
+NL_JAX_RMSE = {"BCORES": (24.6, 28.9), "RAND": (24.6, 71.7)}
+# and at scale: 2^19 rows at YearPredictionMSD's width, the largest set the
+# reference's loaders read (betacores_tpu/data/loaders.py:189-191), selections after a warm-up
+NLB_N, NLB_D, NLB_SELECTIONS = 1 << 19, 90, 3
 # H100 SXM peaks at its 700 W limit: float32 outside the tensor cores, HBM3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # phase 14, the Hilbert slice at the same Gaussian's widths: the example's
@@ -1836,10 +1862,10 @@ def phase_hilbert(seed: int, card: str, n: int = FAM_ROWS, dev: str = "cuda") ->
             f"float64 solver the card's columns depart after iteration {first32} in float32 "
             f"(weights within {gap:.3e} of its max|w|), {first64} in float64")
         # LAR's events are ratios of FISTA re-solves, which float32 resolves
-        # to about 1e-4: its float32 path departs from float64's (after
-        # iteration 20 of 50 on this problem on the CPU), so LAR is held to
-        # the CPU in float64 only
-        if first64 is not None or (first32 is not None and name != "LAR"):
+        # to about 1e-4; with the re-solve's Gram and right-hand side summed
+        # in float64 (snnls/nnls.py) its float32 path keeps float64's columns,
+        # as the JAX package's float32 LAR does
+        if first64 is not None or first32 is not None:
             raise AssertionError(f"{name}: the card's columns depart from the CPU's")
         summary.append(f"{name} {t_card / H_OTHER_M * 1e3:.2f} ms/it")
     for name in ("ImportanceSampling", "UniformSampling"):
@@ -2262,6 +2288,286 @@ def group_self_check(seed: int, dev: str = "cuda") -> None:
             f"({check_same_build(tag, out[dev][0].core, out['cpu'][0].core)})")
 
 
+def nl_data(seed: int, n: int, d: int):
+    """examples/zellner_neural_linear.py's synth data on the host: ``n``
+    train and NL_N_TEST test rows of ``gen_synthetic_linreg(D=d)`` from
+    ``seed``, standardised on the train rows, the train rows in random
+    groups of NL_GROUP with NL_F_RATE of the groups corrupted. Returns
+    (Z, Z_init, Z_test (its first 1000 rows), groups, out_mean, out_std),
+    float32 [x, y] rows."""
+    import betacores_tpu_torch as bc
+    from betacores_tpu_torch.data import make_random_groups, perturb_groups, standardize
+
+    X, Y, _ = bc.gen_synthetic_linreg(torch.Generator().manual_seed(seed), N=n + NL_N_TEST, D=d)
+    X, Y = X.numpy(), Y.numpy()
+    X, Xt, Y, Yt = X[:n], X[n:], Y[:n], Y[n:]
+    Xi, Yi = X[:NL_INIT].copy(), Y[:NL_INIT].copy()
+    X, Y, Xi, Yi, Xt, Yt, _, _, out_m, out_s = standardize(X, Y, Xi, Yi, Xt, Yt)
+    groups = make_random_groups(np.random.default_rng(seed), n, NL_GROUP)
+    X, Y = perturb_groups(seed + 1, X, Y, groups, f_rate=NL_F_RATE)
+    f32 = lambda *a: np.hstack(a).astype(np.float32)
+    return f32(X, Y), f32(Xi, Yi), f32(Xt, Yt)[:1000], groups, out_m, out_s
+
+
+def nl_model(Z, Z_init, out_m, out_s, seed: int, dev: str):
+    """The example's NeuralLinear and ContextualProjector: prior mean the
+    responses' mean, prior precision 1 / (std^2 + mean^2), noise variance
+    the responses' variance."""
+    import betacores_tpu_torch as bc
+    from betacores_tpu_torch.models import neural_linear as tnl
+
+    mn, sd = float(np.mean(Z[:, -1])), float(np.std(Z[:, -1]))
+    sigsq = max(sd ** 2, 1e-3)
+    mu0 = mn * torch.ones(NL_F)
+    Sig0inv = torch.linalg.inv((sd ** 2 + mn ** 2) * torch.eye(NL_F))
+    nl = tnl.NeuralLinear(Z_init, out_features=NL_F, output_mean=out_m, output_std=out_s,
+                          sigmasq=sigsq, seed=seed, device=dev)
+    prj = bc.coresets.ContextualProjector(
+        tnl.neural_linear_sampler_factory(nl.module, mu0, Sig0inv, sigsq), NL_S,
+        tnl.neural_linear_model_factory(nl.module, sigsq))
+    return nl, prj
+
+
+def nl_alg(name: str, Z, Z_init, groups, prj, seed: int, on: dict, graph=None):
+    """The example's BCORES, SVI or RAND over ``groups``, warm-started from
+    the NL_INIT initial rows at indices 10,000,000 + i."""
+    import betacores_tpu_torch as bc
+
+    init = dict(wts=np.ones(NL_INIT), idcs=10_000_000 + np.arange(NL_INIT), pts=Z_init)
+    kw = dict(opt_itrs=NL_ITRS, n_subsample_opt=NL_N_OPT, step_sched=lambda i: NL_I0 / (1.0 + i),
+              seed=seed, groups=groups, initialized=True, graph=graph, **init, **on)
+    if name == "BCORES":
+        return bc.BetaCoreset(Z, prj, beta=NL_BETA, learn_beta=False, **kw)
+    if name == "SVI":
+        return bc.SparseVICoreset(Z, prj, **kw)
+    return bc.UniformSamplingCoreset(Z, seed=seed, groups=groups, **init, **on)
+
+
+def nl_train(nl, alg, sync) -> float:
+    """The example's round after a build: the encoder conditions on the
+    coreset and retrains on it (NL_EPOCHS epochs); returns the seconds."""
+    wts, pts = alg.get()[:2]
+    nl.update_batch(pts.astype(np.float32))
+    t0 = time.perf_counter()
+    nl.optimize(wts.astype(np.float32), pts.astype(np.float32), num_epochs=NL_EPOCHS,
+                initial_lr=NL_LR, weight_decay=NL_WD)
+    sync()
+    return time.perf_counter() - t0
+
+
+def phase_neural_linear(seed: int, card: str, dev: str = "cuda", n_big: int = NLB_N,
+                        rounds: int = NL_M) -> str:
+    """Phase 16: the neural-linear experiment (examples/zellner_neural_linear.py)
+    through the port's contextual builds, float32.
+
+    (a) the example at its defaults: BCORES, SVI and RAND for ``rounds``
+        rounds, each a build(1, .) under the current encoder and a 200-epoch
+        retraining, with the test RMSE and NLL at rounds 0, 5, 10, 15, 20;
+    (b) scale: ``n_big`` rows at YearPredictionMSD's width (D = 90) in
+        groups of 20, 10 % of the groups corrupted, the same widths and
+        steps: a contextual group BetaCoreset (select over every group
+        through the scatter reduction; the buffer holds every row, as the
+        example's does), a warm-up selection and NLB_SELECTIONS more, each
+        captured and then again eager (``graph=False``) from the same state
+        under the same draws and context, which must select the same groups
+        and m with weights within GRAPH_TOL of max|w|; after each the
+        encoder retrains, so the later replays run under a new context;
+    (c) the card against the CPU: a small contextual group build in float64
+        (check_same_build) and one 5-epoch training of each variant from
+        one state under one order (the losses and the determined
+        parameters within rtol 2e-4, atol 2e-5; the Linear biases and
+        running means are driven by rounding, tests/test_torch_neural_linear.py).
+
+    K1, K2 and K3 must launch 0 times in the phase. Returns one summary
+    line."""
+    import betacores_tpu_torch as bc
+    from betacores_tpu_torch.coresets import FixedDraws, init_group_state
+    from betacores_tpu_torch.coresets import make_group_incremental_builder
+    from betacores_tpu_torch.models import neural_linear as tnl
+    from betacores_tpu_torch.ops import kernels
+    from betacores_tpu_torch.ops.projection import Groups
+
+    t_phase = time.perf_counter()
+    on = {} if dev == "cuda" else {"device": dev}
+    sync = torch.cuda.synchronize
+    wrappers = (kernels.logreg_adam_step, kernels.multiclass_projection,
+                kernels.logreg_shard_step_partials)
+    for w in wrappers:
+        w.launches = 0
+    summary = []
+
+    # --- a. the example at its defaults ---
+    data = nl_data(seed, NL_N, NL_D)
+    Z, Z_init, Z_test, groups, out_m, out_s = data
+    log(f"neural-linear a: synth N={NL_N} x D={NL_D} (+ intercept), {len(groups)} groups of "
+        f"{NL_GROUP} ({NL_F_RATE:.0%} corrupted), {NL_INIT} initial rows, {len(Z_test)} test "
+        f"rows; F={NL_F}, S={NL_S}, {NL_ITRS} Adam steps on {NL_N_OPT} rows, i0={NL_I0}, "
+        f"beta={NL_BETA}, {rounds} rounds, {NL_EPOCHS} epochs a retraining")
+    finals = {}
+    for name in ("BCORES", "SVI", "RAND"):
+        nl, prj = nl_model(Z, Z_init, out_m, out_s, seed, dev)
+        alg = nl_alg(name, Z, Z_init, groups, prj, seed, on)
+        nll, rmse = [0.0] * (rounds + 1), [0.0] * (rounds + 1)
+        nll[0], rmse[0] = nl.test(Z_test)
+        t_build = t_train = 0.0
+        t_run = time.perf_counter()
+        for m in range(1, rounds + 1):
+            if name != "RAND":
+                alg.ctx = nl.variables
+            t0 = time.perf_counter()
+            alg.build(1, NL_N + NL_INIT)
+            sync()
+            t_build += time.perf_counter() - t0
+            t_train += nl_train(nl, alg, sync)
+            nll[m], rmse[m] = nl.test(Z_test)
+        t_run = time.perf_counter() - t_run
+        if not all(math.isfinite(v) for v in nll + rmse):
+            raise AssertionError(f"neural-linear {name}: non-finite RMSE or NLL {rmse} {nll}")
+        size = len(alg.get()[0])
+        if size <= NL_INIT:
+            raise AssertionError(f"neural-linear {name}: the coreset did not grow ({size})")
+        shown = sorted({m for m in NL_ROUNDS if m <= rounds} | {rounds})
+        jax = NL_JAX_RMSE.get(name)
+        log(f"neural-linear a, {name}: RMSE rounds {shown}: "
+            f"{' -> '.join(f'{rmse[m]:.2f}' for m in shown)}; NLL "
+            f"{' -> '.join(f'{nll[m]:.3f}' for m in shown)}; {size} points; "
+            + (f"the JAX package's trajectory (RESULTS.md:236-238, TPU, its own draws) "
+               f"{jax[0]} -> {jax[1]}; " if jax else "")
+            + f"{t_run:.1f} s ({t_build:.2f} s building, {t_train:.1f} s training, "
+            f"{t_train / rounds:.3f} s a retraining); {card}")
+        finals[name] = rmse[rounds]
+        summary.append(f"{name} RMSE {rmse[0]:.2f}->{rmse[rounds]:.2f} in {t_run:.1f} s")
+        del alg, nl
+    log(f"neural-linear a: final RMSE " + ", ".join(f"{k} {v:.2f}" for k, v in finals.items()))
+
+    # --- b. scale: rows at YearPredictionMSD's width ---
+    t0 = time.perf_counter()
+    Z, Z_init, Z_test, groups, out_m, out_s = nl_data(seed + 1, n_big, NLB_D)
+    t_data = time.perf_counter() - t0
+    Zd = torch.from_numpy(Z).to(dev)
+    nl, prj = nl_model(Z, Z_init, out_m, out_s, seed, dev)
+    torch.cuda.reset_peak_memory_stats()
+    alg = nl_alg("BCORES", Zd, Z_init, groups, prj, seed, on)
+    eager = nl_alg("BCORES", Zd, Z_init, groups, prj, seed, on, graph=False)
+    if alg._builder.onehot is not None:
+        raise AssertionError("select over every group should take the scatter reduction")
+    cap, n_tot = alg.state.wts.shape[0], n_big + NL_INIT
+    log(f"neural-linear b: N={n_big} x D={NLB_D} (+ intercept; data made on the host in "
+        f"{t_data:.1f} s), {len(groups)} groups of {NL_GROUP}, a {cap}-slot buffer, select "
+        f"over every group (scatter reduction); {card}")
+    prev, t_sel, t_train = None, [], []
+    for i in range(NLB_SELECTIONS + 1):
+        ctx = nl.variables
+        if prev is not None and all(torch.equal(ctx[k], prev[k]) for k in ctx):
+            raise AssertionError("neural-linear b: the retraining left the encoder as it was")
+        alg.ctx = eager.ctx = prev = ctx
+        eager.state, eager._gstate = alg.state, alg._gstate
+        _, t = _synced(lambda: alg.build(1, n_tot))
+        eager.build(1, n_tot)
+        if alg.selected_groups != eager.selected_groups:
+            raise AssertionError(f"neural-linear b: captured groups {alg.selected_groups} != "
+                                 f"eager {eager.selected_groups}")
+        same = check_graph_equals_eager(f"neural-linear b, selection {i}", alg.state,
+                                        eager.state)
+        check_state(alg.state)
+        t_tr = nl_train(nl, alg, sync)
+        nll, rmse = nl.test(Z_test)
+        log(f"neural-linear b, {'warm-up' if i == 0 else f'selection {i}'}: {t:.3f} s "
+            f"captured; captured == eager ({same}); groups {alg.selected_groups}; "
+            f"retraining {t_tr:.3f} s; test RMSE {rmse:.3f}, NLL {nll:.3f}")
+        if i > 0:
+            t_sel.append(t)
+            t_train.append(t_tr)
+    # one select and one refinement pass alone, under the last context
+    b = alg._builder
+    gst = alg._gstate._replace(core=alg.state)
+    draws = b.generator_draws(torch.Generator(device=dev).manual_seed(seed))
+    b.load_ctx(nl.variables)
+    g1, t_select = _synced(lambda: b.select(gst, draws, 0))
+    _, t_opt = _synced(lambda: b.optimize(g1, draws, 0))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    graphs, t_cap = b.capture_stats()
+    log(f"neural-linear b: {1e3 * sum(t_sel) / len(t_sel):.1f} ms a selection "
+        f"({', '.join(f'{x:.3f}' for x in t_sel)} s), a select alone {t_select * 1e3:.1f} ms, "
+        f"a refinement pass {t_opt:.3f} s ({t_opt / NL_ITRS * 1e6:.1f} us an Adam step), "
+        f"{sum(t_train) / len(t_train):.3f} s a retraining (eager), {graphs} graphs captured "
+        f"in {t_cap:.2f} s, peak memory {peak:.2f} GiB; {card}")
+    summary.append(f"scale {t_opt / NL_ITRS * 1e6:.0f} us/step, {t_select * 1e3:.0f} ms/select")
+    del alg, eager, b, gst, g1, Zd, nl, prj
+    torch.cuda.empty_cache()
+
+    # --- c. the card against the CPU ---
+    rng = np.random.default_rng(seed)
+    n_c, d_c = 400, 4
+    Xc = rng.normal(size=(n_c, d_c))
+    Zc = np.c_[Xc, Xc @ rng.normal(size=d_c) + np.sin(Xc[:, 0]) + 0.1 * rng.normal(size=n_c)]
+    gl = [list(range(g * 10, g * 10 + 10)) for g in range(n_c // 10)]
+    enc = tnl.Encoder(d_c, 6)
+    cfg = bc.IncrementalConfig(projection_dim=16, n_subsample_opt=50, opt_itrs=20, i0=0.1,
+                               use_beta=True)
+    ctxs = []
+    for k in (1, 2):
+        e = tnl.Encoder(d_c, 6)
+        e.reset_parameters(torch.Generator().manual_seed(seed + k))
+        e.norm0.running_mean.uniform_(-0.3, 0.3, generator=torch.Generator().manual_seed(k))
+        ctxs.append({n: v.detach().double() for n, v in e.state().items()})
+    g = torch.Generator().manual_seed(seed)
+    draws = FixedDraws([(torch.randn(16, 6, dtype=torch.float64, generator=g), None)
+                        for _ in range(3)],
+                       [(torch.randn(20, 16, 6, dtype=torch.float64, generator=g),
+                         torch.randint(0, n_c, (20, 50), generator=g)) for _ in range(3)])
+    out = {}
+    for where in ("cpu", dev):
+        bld = make_group_incremental_builder(
+            torch.from_numpy(Zc).to(where), Groups.from_lists(gl, where),
+            tnl.neural_linear_model_factory(enc, 0.5),
+            tnl.neural_linear_sampler_factory(enc, torch.zeros(6, dtype=torch.float64),
+                                              torch.eye(6, dtype=torch.float64), 0.5),
+            cfg, contextual=True)
+        st = init_group_state(bc.init_state(n_c, d_c + 1, beta=0.5, dtype=torch.float64,
+                                            device=where), len(gl))
+        st = bld.build(st, 3, draws, ctx=ctxs[0])
+        out[where] = bld.build(st, 3, draws, ctx=ctxs[1])
+    if not torch.equal(out[dev].selected.cpu(), out["cpu"].selected):
+        raise AssertionError("neural-linear c: the card selects other groups than the CPU")
+    same = check_same_build("neural-linear c, contextual group build", out[dev].core,
+                            out["cpu"].core)
+    log(f"neural-linear c, contextual group build (float64, 3 + 3 selections, the context "
+        f"changed between): card == CPU ({same})")
+    Zt = Zc[:64].astype(np.float32)
+    wt = rng.uniform(0.5, 3.0, size=64).astype(np.float32)
+    perms = np.stack([rng.permutation(64) for _ in range(5)])
+    for student_t in (False, True):
+        res = {}
+        for where in ("cpu", dev):
+            m = tnl.NeuralLinear(Zt, out_features=6, sigmasq=0.5, student_t=student_t,
+                                 seed=seed, device=where)
+            losses = m.optimize(wt, Zt, num_epochs=5, perms=perms)
+            res[where] = (losses, tnl.encoder_state_to_numpy(m.variables))
+        (l0, s0), (l1, s1) = res["cpu"], res[dev]
+        np.testing.assert_allclose(l1, l0, rtol=2e-4, atol=2e-5)
+        worst = float(np.abs(l1 - l0).max())
+        for i in range(tnl.N_LAYERS):
+            pairs = [(s1["params"][f"Dense_{i}"]["kernel"], s0["params"][f"Dense_{i}"]["kernel"]),
+                     (s1["batch_stats"][f"BatchNorm_{i}"]["var"],
+                      s0["batch_stats"][f"BatchNorm_{i}"]["var"])]
+            pairs += [(s1["params"][f"BatchNorm_{i}"][k], s0["params"][f"BatchNorm_{i}"][k])
+                      for k in ("scale", "bias")]
+            for a, c in pairs:
+                np.testing.assert_allclose(a, c, rtol=2e-4, atol=2e-5)
+        log(f"neural-linear c, a 5-epoch training ({'Student-t' if student_t else 'Gaussian'}): "
+            f"card == CPU (losses within {worst:.2e}; kernels, scales, shifts and running "
+            f"variances within rtol 2e-4, atol 2e-5)")
+
+    launched = {w.__name__: w.launches for w in wrappers}
+    if any(launched.values()):
+        raise AssertionError(f"neural-linear: a kernel launched on a path that has none: "
+                             f"{launched}")
+    line = (f"neural-linear (phase 16, {time.perf_counter() - t_phase:.1f} s): "
+            + "; ".join(summary) + f"; K1/K2/K3 launches {list(launched.values())}")
+    return line
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2289,6 +2595,7 @@ def main() -> int:
     families = phase_families(args.seed, card)
     hilbert = phase_hilbert(args.seed, card)
     groups = phase_groups(args.seed, card, args.group_selections)
+    neural = phase_neural_linear(args.seed, card)
     entries = [("logreg_adam_step", "logreg_adam_step.cu", "pallas_kernels.py:173",
                 {"launches": main_path["launches"] + api["K1"]}, k1),
                ("multiclass_projection", "multiclass_projection.cu", "pallas_kernels.py:330",
@@ -2299,7 +2606,8 @@ def main() -> int:
     log(families)
     log(hilbert["line"])
     log(groups["line"])
-    log(f"chip_smoke: phases 0-15 in {time.perf_counter() - t_start:.1f} s")
+    log(neural)
+    log(f"chip_smoke: phases 0-16 in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"betacores_tpu_torch/csrc/{src}",
          "replaces": f"betacores_tpu/ops/{tpu}", "launches": path["launches"], **k}

@@ -332,17 +332,14 @@ def test_entry_points_need_a_card_or_the_cpu(det, monkeypatch):
             make()
 
 
-@pytest.mark.parametrize("what", ["groups", "contextual", "bpsvi"])
+@pytest.mark.parametrize("what", ["groups", "bpsvi"])
 def test_unported_parts_name_their_roadmap_item(det, what):
     """Group mode and BPSVI are ported (tests/test_torch_groups.py,
     tests/test_torch_bpsvi.py); their sharded builds are item 12."""
     Z, samples = det
-    item = {"groups": "item 12", "contextual": "item 7", "bpsvi": "item 12"}[what]
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="item 12"):
         if what == "groups":
             bc.parallel.make_sharded_group_builder(Z, [[0, 1], [2]])
-        elif what == "contextual":
-            bc.coresets.ContextualProjector(None, S, None)
         else:
             bc.parallel.make_sharded_bpsvi_batch(Z)
 

@@ -21,7 +21,9 @@ def test_import_loads_no_jax():
                     "betacores_tpu_torch.ops._build, betacores_tpu_torch.parallel, "
                     "betacores_tpu_torch.valuation, betacores_tpu_torch.valuation.shapley, "
                     "betacores_tpu_torch.coresets.groups, betacores_tpu_torch.coresets.bpsvi, "
-                    "betacores_tpu_torch.coresets.psvi, betacores_tpu_torch.coresets.dpbpsvi\n"
+                    "betacores_tpu_torch.coresets.psvi, betacores_tpu_torch.coresets.dpbpsvi, "
+                    "betacores_tpu_torch.models.neural_linear, betacores_tpu_torch.data.loaders, "
+                    "betacores_tpu_torch.data.perturb\n"
                     "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
                     " or m == 'betacores_tpu' or m.startswith('betacores_tpu.')]\n"
                     "assert not bad, bad\n"
@@ -31,15 +33,18 @@ def test_import_loads_no_jax():
 
 def test_port_sources_never_import_jax():
     paths = list((ROOT / "betacores_tpu_torch").rglob("*.py"))
-    # the group, pseudo-coreset and valuation slice is among them
+    # the group, pseudo-coreset and valuation slice and the neural-linear
+    # slice are among them
     names = {p.relative_to(ROOT / "betacores_tpu_torch").as_posix() for p in paths}
     assert {"valuation/__init__.py", "valuation/shapley.py", "coresets/groups.py",
-            "coresets/bpsvi.py", "coresets/psvi.py", "coresets/dpbpsvi.py"} <= names
+            "coresets/bpsvi.py", "coresets/psvi.py", "coresets/dpbpsvi.py",
+            "models/neural_linear.py", "data/loaders.py", "data/perturb.py"} <= names
     for path in paths:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
-                assert not words[1].startswith(("jax", "betacores_tpu.")), (path, line)
+                assert not words[1].startswith(("jax", "flax", "optax", "betacores_tpu.")), (
+                    path, line)
                 assert words[1] != "betacores_tpu", (path, line)
 
 

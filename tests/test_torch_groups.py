@@ -54,6 +54,7 @@ from betacores_tpu_torch.models import gaussian, logreg
 from betacores_tpu_torch.ops.projection import Groups, project_groups, project_ll
 from oracle import coresets as ocs
 from oracle import models as om
+from test_torch_families_build import _CallOnly
 from test_torch_incremental import replay_jax_draws
 
 torch.set_num_threads(1)
@@ -354,6 +355,67 @@ def test_build_trace_matches_build_and_jax(logistic):
     assert (Sel[1:].int() >= Sel[:-1].int()).all()
 
 
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("dedup", [False, True])
+def test_per_step_route_equals_the_pre_drawn_route(logistic, dedup, full):
+    """On a sampler that draws nothing, the group builder's per-step-draw
+    route draws only select's group candidates and each step's subsample,
+    in that order, from the generator: fed the same indices, the pre-drawn
+    composed route (a fixed sampler with a noise split) builds the same
+    coreset, in parity and dedup select, subsampled and over every group
+    and row (float64, weights within 1e-12)."""
+    Z, groups = logistic
+    G, itrs = len(groups), 4
+    samples = torch.from_numpy(np.random.default_rng(8).normal(size=(LS, LD)))
+    n_sel, n_opt = (None, None) if full else (12, 150)
+    kw = dict(projection_dim=LS, n_subsample_select=n_sel, n_subsample_opt=n_opt,
+              opt_itrs=LT, i0=0.5, use_beta=True, dedup_select=dedup)
+    make = lambda smp: make_group_incremental_builder(
+        torch.from_numpy(Z), Groups.from_lists(groups, "cpu"), logreg.bundle(), smp,
+        IncrementalConfig(**kw))
+    gst0 = init_group_state(init_state(240, LD, beta=0.2, dtype=torch.float64, device="cpu"), G)
+    per_step = make(_CallOnly(samples))
+    assert per_step.per_step
+    got = per_step.build(gst0, itrs, per_step.generator_draws(torch.Generator().manual_seed(3)))
+    gen = torch.Generator().manual_seed(3)
+    zeros = torch.zeros(LS, LD, dtype=torch.float64)
+    sel, opt = [], []
+    for _ in range(itrs):
+        sel.append((zeros, None if full else torch.randint(0, G, (n_sel,), generator=gen)))
+        opt.append((zeros.expand(LT, LS, LD), None if full else torch.stack(
+            [torch.randint(0, LN, (n_opt,), generator=gen) for _ in range(LT)])))
+    pre = make(fixed_sampler(samples))
+    assert not pre.per_step
+    want = pre.build(gst0, itrs, FixedDraws(sel, opt))
+    assert torch.equal(got.selected, want.selected) and int(got.selected.sum()) >= 2
+    assert torch.equal(got.core.idcs, want.core.idcs) and int(got.core.m) == int(want.core.m)
+    torch.testing.assert_close(got.core.wts, want.core.wts, rtol=1e-12, atol=1e-12)
+
+
+def test_a_large_buffer_projects_apart_from_the_rows(logistic, monkeypatch):
+    """A composed pass appends the buffer to every step's pre-drawn rows
+    only while those T copies fit JOINT_MAX_BYTES (a group buffer may hold
+    every row); above it the buffer projects on its own at each step, and
+    the build is the same (float64, weights within 1e-12)."""
+    from betacores_tpu_torch.coresets import incremental
+
+    Z, groups = logistic
+    cfg = IncrementalConfig(projection_dim=LS, n_subsample_select=30, n_subsample_opt=150,
+                            opt_itrs=LT, i0=0.5, use_beta=True)
+    gst0 = init_group_state(init_state(240, LD, beta=0.2, dtype=torch.float64, device="cpu"),
+                            len(groups))
+    out = []
+    for cap in (incremental.JOINT_MAX_BYTES, 0):
+        monkeypatch.setattr(incremental, "JOINT_MAX_BYTES", cap)
+        b = make_group_incremental_builder(torch.from_numpy(Z), Groups.from_lists(groups, "cpu"),
+                                           logreg.bundle(), logreg_laplace_sampler(), cfg)
+        out.append(b.build(gst0, 3, b.generator_draws(torch.Generator().manual_seed(4))))
+        assert b._composed.joint == (cap > 0)
+    assert torch.equal(out[0].selected, out[1].selected)
+    assert torch.equal(out[0].core.idcs, out[1].core.idcs)
+    torch.testing.assert_close(out[0].core.wts, out[1].core.wts, rtol=1e-12, atol=1e-12)
+
+
 def test_group_state_from_numpy_round_trips(logistic):
     _, groups = logistic
     st = j_init_state(8, LD, beta=0.3, dtype=jnp.float64)
@@ -533,10 +595,22 @@ def test_group_mode_refuses_learn_beta_and_contextual(gauss):
     prj = bc.BetaBlackBoxProjector(smp, GS, model=model)
     with pytest.raises(NotImplementedError, match="learn_beta"):
         bc.BetaCoreset(X, prj, beta=0.3, learn_beta=True, groups=groups, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        make_group_incremental_builder(torch.from_numpy(X), Groups.from_lists(groups, "cpu"),
-                                       model, smp, IncrementalConfig(projection_dim=GS),
-                                       contextual=True)
+    # a contextual group builder (ported) refuses to build without its ctx,
+    # and with it builds what the plain builder builds
+    scaled = lambda ctx: bc.models.ModelFns(
+        log_likelihood=lambda p, th: model.log_likelihood(p * ctx["scale"], th))
+    cfg = IncrementalConfig(projection_dim=GS, opt_itrs=4)
+    make = lambda mdl, contextual: make_group_incremental_builder(
+        torch.from_numpy(X), Groups.from_lists(groups, "cpu"), mdl,
+        (lambda ctx: smp) if contextual else smp, cfg, contextual=contextual)
+    ctx_builder = make(scaled, True)
+    gst0 = init_group_state(init_state(GN, GD, dtype=torch.float64, device="cpu"), len(groups))
+    draws = ctx_builder.generator_draws(torch.Generator())
+    with pytest.raises(ValueError, match="needs its ctx"):
+        ctx_builder.build(gst0, 1, draws)
+    got = ctx_builder.build(gst0, 2, draws, ctx={"scale": torch.ones((), dtype=torch.float64)})
+    want = make(model, False).build(gst0, 2, draws)
+    assert torch.equal(got.selected, want.selected) and torch.equal(got.core.wts, want.core.wts)
     with pytest.raises(ValueError, match="refit_every"):
         make_group_incremental_builder(torch.from_numpy(X), Groups.from_lists(groups, "cpu"),
                                        model, smp,

@@ -722,3 +722,55 @@ def test_cuda_scatter_group_reduction_matches_onehot(cuda_device, monkeypatch):
     assert torch.equal(b1, b2)
     for got in (a, b1):
         assert float((got.double() - ref[:len(groups)]).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_contextual_group_build_equals_the_cpu(cuda_device):
+    """A small contextual (neural-linear) group build, its refinement
+    passes captured on the card, equals the same build on the CPU under
+    the same draws and contexts, in float64: the same groups, indices and
+    m, weights within 1e-9 of max|w|. The second context reaches the
+    replayed graphs: the card's build under it equals the CPU's."""
+    from betacores_tpu_torch import IncrementalConfig, init_state
+    from betacores_tpu_torch.coresets import (FixedDraws, init_group_state,
+                                              make_group_incremental_builder)
+    from betacores_tpu_torch.models import neural_linear as tnl
+    from betacores_tpu_torch.ops.projection import Groups
+
+    rng = np.random.default_rng(5)
+    N, D, F, S, T = 400, 4, 6, 16, 20
+    X = rng.normal(size=(N, D))
+    Z = torch.from_numpy(np.c_[X, X @ rng.normal(size=D) + 0.1 * rng.normal(size=N)])
+    groups = [list(range(g * 10, g * 10 + 10)) for g in range(N // 10)]
+    enc = tnl.Encoder(D, F)
+    sf = tnl.neural_linear_sampler_factory(enc, torch.zeros(F, dtype=torch.float64),
+                                           torch.eye(F, dtype=torch.float64), 0.5)
+    mf = tnl.neural_linear_model_factory(enc, 0.5)
+    cfg = IncrementalConfig(projection_dim=S, n_subsample_opt=50, opt_itrs=T, i0=0.1,
+                            use_beta=True)
+    ctxs = []
+    for seed in (1, 2):
+        e = tnl.Encoder(D, F)
+        e.reset_parameters(torch.Generator().manual_seed(seed))
+        e.norm0.running_mean.uniform_(-0.3, 0.3)
+        ctxs.append({k: v.detach().clone() for k, v in e.state().items()})
+    gen = torch.Generator().manual_seed(7)
+    draws = FixedDraws([(torch.randn(S, F, dtype=torch.float64, generator=gen), None)
+                        for _ in range(4)],
+                       [(torch.randn(T, S, F, dtype=torch.float64, generator=gen),
+                         torch.randint(0, N, (T, 50), generator=gen)) for _ in range(4)])
+    out = {}
+    for dev in ("cpu", cuda_device):
+        b = make_group_incremental_builder(Z.to(dev), Groups.from_lists(groups, dev), mf, sf,
+                                           cfg, contextual=True)
+        gst = init_group_state(init_state(N, D + 1, beta=0.5, dtype=torch.float64,
+                                          device=dev), len(groups))
+        gst = b.build(gst, 2, draws, ctx=ctxs[0])
+        out[dev] = b.build(gst, 2, draws, ctx=ctxs[1])
+    if torch.cuda.is_available():
+        assert out[cuda_device].core.wts.is_cuda
+    got, want = out[cuda_device], out["cpu"]
+    assert torch.equal(got.selected.cpu(), want.selected)
+    assert torch.equal(got.core.idcs.cpu(), want.core.idcs) and int(want.core.m) >= 30
+    scale = float(want.core.wts.abs().max())
+    assert float((got.core.wts.cpu() - want.core.wts).abs().max()) <= 1e-9 * scale

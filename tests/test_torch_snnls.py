@@ -338,3 +338,41 @@ def test_exports_match_the_jax_package():
     missing = [n for n in jsnnls.__all__ if not hasattr(snnls, n)]
     assert not missing, missing
     assert set(jsnnls.__all__) <= set(snnls.__all__)
+
+
+def _first_departure(trace, ref):
+    """The first iteration (from 1) whose columns differ, or None."""
+    diff = ((np.asarray(trace) > 0) != (np.asarray(ref) > 0)).any(axis=1)
+    return int(np.flatnonzero(diff)[0]) + 1 if diff.any() else None
+
+
+def test_lar_in_float32_keeps_the_float64_columns_as_jax_does():
+    """ROADMAP check C5: on the Hilbert block of examples/zellner_gaussian.py
+    at its N = 5000 (d = 100, S = 200, the GIGAO projector), LAR in float32
+    takes the float64 solver's columns at each of 30 iterations, as the JAX
+    package's float32 LAR does. Its restricted re-solve is ill-conditioned:
+    with As^T b summed in float32 by a matrix-vector product, the port's
+    columns departed at iteration 27 here (``nnls_on_support`` now sums the
+    Gram and As^T b in float64 and rounds once)."""
+    import betacores_tpu_torch as bc
+    from betacores_tpu_torch.models import gaussian
+
+    gen = torch.Generator().manual_seed(0)
+    X, Xc, Sig = bc.gen_synthetic_gaussian(gen, N=5000, d=100)
+    Siginv = torch.linalg.inv(Sig)
+    post = gaussian.weighted_post(torch.zeros(100, dtype=torch.float64),
+                                  torch.eye(100, dtype=torch.float64), Siginv.double(),
+                                  X.double(), torch.ones(5000, dtype=torch.float64))
+    prj = bc.BlackBoxProjector(
+        bc.prior_gaussian_sampler(post.mu.float(), torch.linalg.cholesky(post.cov.float())),
+        200, model=gaussian.bundle(Siginv, float(torch.linalg.slogdet(Sig)[1])))
+    A, b = (v.float() for v in (lambda s: (s.A, s.b))(
+        bc.HilbertCoreset(Xc, prj, seed=0, device="cpu").snnls))
+    ref = snnls.LAR(A.double(), b.double()).build_trace(30).numpy()
+    got = snnls.LAR(A, b).build_trace(30).numpy()
+    jax32 = np.asarray(jsnnls.LAR(jnp.asarray(A.numpy()), jnp.asarray(b.numpy()))
+                       .build_trace(30))
+    assert got.dtype == np.float32 and jax32.dtype == np.float32
+    assert _first_departure(jax32, ref) is None
+    assert _first_departure(got, ref) is None
+    assert (got[-1] > 0).sum() >= 30
