@@ -41,7 +41,10 @@ is ported (``models.neural_linear``: an encoder under an exact Bayesian
 last layer, trained with ``torch.optim``), with the contextual builds it
 drives (``coresets.ContextualProjector`` and ``alg.ctx``; the builders'
 ``contextual=``) and the example's data helpers (``data.standardize``,
-``make_random_groups``, ``perturb_groups``, ``perturb_regression``).
+``make_random_groups``, ``perturb_groups``, ``perturb_regression``). The evaluation of a coreset by MCMC is ported
+(``inference``: adaptive HMC, iterative NUTS, split-R-hat and ESS, the
+HMC-to-NUTS escalation) with the sparse Hamiltonian flows (``inference.shf``);
+on a CUDA device their iterations replay as CUDA graphs.
 Modules keep the JAX package's paths and names.
 This package imports torch and never jax.
 """

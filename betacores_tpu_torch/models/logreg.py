@@ -22,8 +22,13 @@ _LOG2PI = math.log(2.0 * math.pi)
 def softplus(m: torch.Tensor) -> torch.Tensor:
     """log(1 + exp(m)) in the branch-free form jax.nn.softplus uses
     (``torch.nn.functional.softplus`` switches to the identity above a
-    threshold, which would differ from the reference in the low bits)."""
-    return torch.clamp_min(m, 0.0) + torch.log1p(torch.exp(-torch.abs(m)))
+    threshold, which would differ from the reference in the low bits).
+    max(m, 0) is written 0.5 (m + |m|), the same value bit for bit, so that
+    autograd's derivative at m = 0 is sigmoid(0) = 1/2 as jax.nn.softplus's
+    (clamp_min passes 1 there and |m| passes 0, which doubled the gradient
+    of a log joint at theta = 0)."""
+    a = torch.abs(m)
+    return 0.5 * (m + a) + torch.log1p(torch.exp(-a))
 
 
 def log_likelihood(z, th):

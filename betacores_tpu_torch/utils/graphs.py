@@ -20,7 +20,7 @@ library handles and workspaces a capture may not create), the second is
 captured, and every later one replays. With ``graph=False`` (the CPU, or a
 caller that asks for it) every step runs eagerly, through the same body.
 A capture or a replay that fails raises: nothing falls back to the eager
-loop.
+loop. Python's garbage collector is off while a graph is captured.
 
 A step that draws from a ``torch.Generator`` of its own (the per-step-draw
 route of coresets/incremental.py) names it in the runner's ``generators``:
@@ -35,6 +35,7 @@ A captured kernel launch runs no Python, so the wrappers' launch counts
 from __future__ import annotations
 
 import collections
+import gc
 import time
 from typing import Callable, Hashable, Optional
 
@@ -98,8 +99,17 @@ def capture(fn: Callable[[], None],
     graph = torch.cuda.CUDAGraph()
     for gen in generators:
         graph.register_generator_state(gen)
-    with torch.cuda.graph(graph):
-        fn()
+    # no garbage collection while capturing: a dead reference cycle that
+    # holds an older graph, collected mid-capture, would destroy that graph
+    # on the capturing device and so invalidate the capture
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            fn()
+    finally:
+        if collecting:
+            gc.enable()
     launches = [(w, w.launches - b) for w, b in zip(_COUNTED, before) if w.launches != b]
     for w, b in zip(_COUNTED, before):
         w.launches = b

@@ -139,7 +139,8 @@ toolkit. Phases, each of which raises on failure:
  16. the neural-linear experiment (``phase_neural_linear``), the
      contextual builds: (a) examples/zellner_neural_linear.py at its
      defaults (synth N = 2000, D = 12, groups of 20, 10 % of them corrupted,
-     F = 30, S = 100, 500 Adam steps on 1000 rows, 20 rounds, the encoder
+     F = 30, S = 100, 500 Adam steps on 1000 rows, 20 rounds (SVI and RAND
+     10, to keep the script within its time), the encoder
      retrained 200 epochs a round) for BCORES, SVI and RAND, printing the
      test RMSE and NLL at rounds 0, 5, 10, 15, 20 beside the JAX package's
      recorded trajectory; (b) a contextual group ``BetaCoreset`` over 2^19
@@ -148,8 +149,20 @@ toolkit. Phases, each of which raises on failure:
      retrained between, so later replays run under a new one), with µs a
      step, ms a select, s a retraining and the peak memory; (c) a small
      contextual group build and a 5-epoch training of each variant on the
-     card against the CPU. K1, K2 and K3 launch 0 times in it. If the
-     script ran over its time, (a)'s SVI rounds are what would be cut first.
+     card against the CPU. K1, K2 and K3 launch 0 times in it;
+ 17. the MCMC evaluation and the sparse Hamiltonian flows
+     (``phase_mcmc_eval``): (a) examples/zellner_logreg.py at its defaults,
+     a BetaCoreset of 100 points over synth_lr's 12,000 rows (K1 every Adam
+     step) scored at every tenth size by 2 HMC chains of 1000 + 1000
+     iterations through ``run_with_escalation``, each iteration a replayed
+     CUDA graph; (b) NUTS at m = 100 and the 5000-row full-data baseline;
+     (c) an escalation to NUTS that happens by itself; (d)
+     examples/shf_logreg.py at its defaults (6000 captured Adam steps of a
+     double backward) and its HMC baseline; (e) captured == eager and card
+     == CPU (float64) for HMC, NUTS and the flow's training.
+Phase 14 also builds GIGAO and GIGAR at examples/zellner_gaussian.py's own
+N = 5000 and raises if either reverse KL is more than an order of magnitude
+off the JAX package's record.
 
 The last two lines of standard output are a JSON object describing the
 kernels (K1 and K3 add ``bound_us`` and ``floor_us``, K2 ``floor_ms``), then
@@ -160,6 +173,7 @@ prints neither.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import re
@@ -208,6 +222,9 @@ L_D, L_M, L_S, L_ITRS, L_N_OPT, L_N_SEL, L_BETA, L_I0 = 12, 20, 100, 500, 1000, 
 NL_N, NL_N_TEST, NL_D, NL_GROUP, NL_INIT, NL_F_RATE = 2000, 1500, 12, 20, 20, 0.1
 NL_F, NL_S, NL_ITRS, NL_N_OPT, NL_I0, NL_BETA, NL_M = 30, 100, 500, 1000, 0.1, 0.5, 20
 NL_EPOCHS, NL_LR, NL_WD, NL_ROUNDS = 200, 1e-2, 0.1, (0, 5, 10, 15, 20)
+# SVI and RAND run this many of the rounds (BCORES all of them), to keep the
+# script within its time (PERF.md)
+NL_CUT_ROUNDS = 10
 # the JAX package's test RMSE at rounds 0 and 20 of that example (RESULTS.md:236-238)
 NL_JAX_RMSE = {"BCORES": (24.6, 28.9), "RAND": (24.6, 71.7)}
 # and at scale: 2^19 rows at YearPredictionMSD's width, the largest set the
@@ -236,6 +253,27 @@ DP_N, DP_D, DP_M, DP_ITRS, DP_N_OPT, DP_NM, DP_DELTA = 5000, 10, 30, 300, 500, 1
 PSVI_SELECTIONS = 5
 CLUSTERS = (1, 2, 4, 8, 16)     # K1's and K3's cluster sizes, timed in phases 2 and 8
 N_TEST = 10_000                 # held-out rows of the object API's accuracy check
+# phase 17: examples/zellner_logreg.py at its defaults: synth_lr's --synth-N and
+# --synth-d and its test rows (max(2000, N // 6)), --f-rate, --trial, --beta,
+# --proj-dim, --opt-itrs, --n-subsample-opt, --n-subsample-select, --i0, --M,
+# --eval-every, --mcmc-samples, --mcmc-warmup, --mcmc-chains, L_max, --full-data-cap
+ZL_N, ZL_D, ZL_N_TEST, ZL_F_RATE, ZL_TRIAL, ZL_BETA = 12_000, 10, 2000, 0.1, 1, 0.1
+ZL_S, ZL_ITRS, ZL_N_OPT, ZL_N_SEL, ZL_I0, ZL_M, ZL_EVERY = 100, 500, 200, 1000, 1.0, 100, 10
+ZL_SAMPLES, ZL_WARMUP, ZL_CHAINS, ZL_L_MAX, ZL_FULL_CAP = 1000, 1000, 2, 32, 5000
+# the JAX package's test accuracy of BCORES on synth_lr at m = 100 (RESULTS.md:440-442)
+ZL_JAX_ACC_M100 = (0.993, 0.995)
+# tests/test_inference.py:354-373's ill-conditioned target: d, chains, draws,
+# warmup, and the HMC primary's L_max
+ESC_D, ESC_CHAINS, ESC_SAMPLES, ESC_WARMUP, ESC_L_MAX = 6, 4, 700, 500, 16
+# examples/shf_logreg.py's defaults (N, d, M, blocks, leapfrog steps, n_mc, batch,
+# steps, chunk, samples, rate) and the JAX record of its accuracies, flow and HMC
+# (RESULTS.md:494-497)
+SHF_N, SHF_D, SHF_M, SHF_BLOCKS, SHF_LEAP, SHF_MC, SHF_B = 20_000, 5, 30, 4, 8, 8, 256
+SHF_STEPS, SHF_CHUNK, SHF_SAMPLES, SHF_LR = 6000, 2000, 2000, 1e-2
+SHF_JAX_ACC = (0.9547, 0.9548)
+# the JAX package's reverse KLs of GIGAO and GIGAR at examples/zellner_gaussian.py's
+# N = 5000, M = 200, and the prior's (RESULTS.md:37-40)
+H_JAX_RKL = {"GIGAO": 4.6e5, "GIGAR": 1.9e5, "PRIOR": 4.9e3}
 # operations per likelihood value (csrc/logreg_common.cuh::Likelihood),
 # each arithmetic or transcendental operation counted once: beta, log
 TRANSFORM_OPS = {True: 17, False: 6}
@@ -1846,7 +1884,28 @@ def phase_hilbert(seed: int, card: str, n: int = FAM_ROWS, dev: str = "cuda") ->
     torch.cuda.empty_cache()
 
     # --- the other solvers at the example's own N, against the CPU in float64 ---
-    _, Xc5, _, _, _, _, prj5 = gaussian_setup(G_EXAMPLE_N)
+    _, Xc5, _, prior5, post5, _, prj5 = gaussian_setup(G_EXAMPLE_N)
+    # GIGAO and GIGAR there, as the example builds them, beside the JAX
+    # package's record: the draws differ, so only the order of magnitude
+    kl5 = {"PRIOR": rkl(torch.zeros(1), torch.zeros((1, G_D)), prior5, post5)}
+    for tag in ("GIGAO", "GIGAR"):
+        a5 = bc.HilbertCoreset(Xc5, prj5[tag], seed=seed, **on)
+        _, t5 = _synced(lambda: a5.snnls.build_trace(G_M))
+        a5._sync_state()
+        w, p, _ = a5.get()
+        kl5[tag] = rkl(w, p, prior5, post5)
+        log(f"hilbert, {tag} at the example's N={G_EXAMPLE_N}: build_trace({G_M}) {t5:.3f} s, "
+            f"{len(w)} points, reverse KL to the clean posterior {kl5[tag]:.4g} (the JAX "
+            f"package's, RESULTS.md:37-38: {H_JAX_RKL[tag]:.2g}); {card}")
+        del a5
+    log(f"hilbert, the prior's reverse KL at N={G_EXAMPLE_N}: {kl5['PRIOR']:.4g} (RESULTS.md:40 "
+        f"records {H_JAX_RKL['PRIOR']:.2g})")
+    for tag in ("GIGAO", "GIGAR"):
+        if not H_JAX_RKL[tag] / 10 <= kl5[tag] <= H_JAX_RKL[tag] * 10:
+            raise AssertionError(f"{tag} at N={G_EXAMPLE_N}: reverse KL {kl5[tag]:.4g} is more "
+                                 f"than an order of magnitude off the JAX record "
+                                 f"{H_JAX_RKL[tag]:.2g}")
+    summary.append(f"N={G_EXAMPLE_N} rKL GIGAO {kl5['GIGAO']:.3g} GIGAR {kl5['GIGAR']:.3g}")
     alg = bc.HilbertCoreset(Xc5, prj5["GIGAO"], seed=seed, **on)
     A, b = alg.snnls.A, alg.snnls.b
     A64, b64 = A.double().cpu(), b.double().cpu()
@@ -2360,9 +2419,10 @@ def phase_neural_linear(seed: int, card: str, dev: str = "cuda", n_big: int = NL
     """Phase 16: the neural-linear experiment (examples/zellner_neural_linear.py)
     through the port's contextual builds, float32.
 
-    (a) the example at its defaults: BCORES, SVI and RAND for ``rounds``
-        rounds, each a build(1, .) under the current encoder and a 200-epoch
-        retraining, with the test RMSE and NLL at rounds 0, 5, 10, 15, 20;
+    (a) the example at its defaults: BCORES for ``rounds`` rounds, SVI and
+        RAND for NL_CUT_ROUNDS of them, each a build(1, .) under the current
+        encoder and a 200-epoch retraining, with the test RMSE and NLL at
+        rounds 0, 5, 10, 15, 20;
     (b) scale: ``n_big`` rows at YearPredictionMSD's width (D = 90) in
         groups of 20, 10 % of the groups corrupted, the same widths and
         steps: a contextual group BetaCoreset (select over every group
@@ -2405,13 +2465,14 @@ def phase_neural_linear(seed: int, card: str, dev: str = "cuda", n_big: int = NL
         f"beta={NL_BETA}, {rounds} rounds, {NL_EPOCHS} epochs a retraining")
     finals = {}
     for name in ("BCORES", "SVI", "RAND"):
+        n = rounds if name == "BCORES" else min(rounds, NL_CUT_ROUNDS)
         nl, prj = nl_model(Z, Z_init, out_m, out_s, seed, dev)
         alg = nl_alg(name, Z, Z_init, groups, prj, seed, on)
-        nll, rmse = [0.0] * (rounds + 1), [0.0] * (rounds + 1)
+        nll, rmse = [0.0] * (n + 1), [0.0] * (n + 1)
         nll[0], rmse[0] = nl.test(Z_test)
         t_build = t_train = 0.0
         t_run = time.perf_counter()
-        for m in range(1, rounds + 1):
+        for m in range(1, n + 1):
             if name != "RAND":
                 alg.ctx = nl.variables
             t0 = time.perf_counter()
@@ -2426,17 +2487,17 @@ def phase_neural_linear(seed: int, card: str, dev: str = "cuda", n_big: int = NL
         size = len(alg.get()[0])
         if size <= NL_INIT:
             raise AssertionError(f"neural-linear {name}: the coreset did not grow ({size})")
-        shown = sorted({m for m in NL_ROUNDS if m <= rounds} | {rounds})
-        jax = NL_JAX_RMSE.get(name)
+        shown = sorted({m for m in NL_ROUNDS if m <= n} | {n})
+        jax = NL_JAX_RMSE.get(name) if n == NL_M else None
         log(f"neural-linear a, {name}: RMSE rounds {shown}: "
             f"{' -> '.join(f'{rmse[m]:.2f}' for m in shown)}; NLL "
             f"{' -> '.join(f'{nll[m]:.3f}' for m in shown)}; {size} points; "
             + (f"the JAX package's trajectory (RESULTS.md:236-238, TPU, its own draws) "
                f"{jax[0]} -> {jax[1]}; " if jax else "")
             + f"{t_run:.1f} s ({t_build:.2f} s building, {t_train:.1f} s training, "
-            f"{t_train / rounds:.3f} s a retraining); {card}")
-        finals[name] = rmse[rounds]
-        summary.append(f"{name} RMSE {rmse[0]:.2f}->{rmse[rounds]:.2f} in {t_run:.1f} s")
+            f"{t_train / n:.3f} s a retraining); {card}")
+        finals[name] = rmse[n]
+        summary.append(f"{name} RMSE {rmse[0]:.2f}->{rmse[n]:.2f} in {t_run:.1f} s")
         del alg, nl
     log(f"neural-linear a: final RMSE " + ", ".join(f"{k} {v:.2f}" for k, v in finals.items()))
 
@@ -2568,6 +2629,330 @@ def phase_neural_linear(seed: int, card: str, dev: str = "cuda", n_big: int = NL
     return line
 
 
+
+def _mcmc_line(tag: str, samples, Xt, yt, Zt, secs: float) -> dict:
+    """Accuracy, predictive log-likelihood and diagnostics of one evaluation."""
+    from betacores_tpu_torch.evaluation import compute_accuracy, predictive_loglik
+    from betacores_tpu_torch.inference import summarize_chains
+
+    flat = samples.reshape(-1, samples.shape[-1])
+    summ = summarize_chains(samples)
+    row = {"acc": float(compute_accuracy(Xt, yt, flat)), "pll": float(predictive_loglik(Zt, flat)),
+           "rhat": float(summ["rhat"].max()), "ess": float(summ["ess"].min()), "s": secs}
+    if not bool(torch.isfinite(samples).all()):
+        raise AssertionError(f"{tag}: non-finite draws")
+    return row
+
+
+def _nuts_counts() -> collections.Counter:
+    """Draws, doublings and host reads of the weighted-logreg NUTS runs so far."""
+    from betacores_tpu_torch.inference import nuts
+
+    c = collections.Counter()
+    if nuts._LOGREG_NUTS is not None:
+        for run, _, _ in nuts._LOGREG_NUTS.runner.cache.values():
+            c.update(run.kernel.counts)
+    return c
+
+
+def mcmc_self_check(dev: str) -> None:
+    """Phase 17 (e): an HMC and a NUTS run (d = 4, 40 + 40 iterations, 2
+    chains) captured against eager under the same draws, bit for bit; both
+    on the card against the CPU in float64 to 1e-10; 20 SHF steps on the
+    card against the CPU in float64 to 1e-8 (and captured against eager in
+    float32, bit for bit)."""
+    from betacores_tpu_torch.inference import (HMCConfig, NUTSConfig, SHFConfig, draw_hmc,
+                                               draw_nuts, draw_shf, init_shf_params,
+                                               make_shf_trainer, run_chains, run_chains_nuts)
+    from betacores_tpu_torch.models import logreg
+
+    rng = np.random.default_rng(17)
+    X = rng.normal(size=(500, 4))
+    y = np.where(rng.uniform(size=500) < 1 / (1 + np.exp(-X.sum(1))), 1.0, -1.0)
+    Z0 = torch.from_numpy(y[:, None] * X)
+    w0 = torch.from_numpy(rng.uniform(0.5, 2.0, 500))
+
+    def mcmc(sampler, where, dtype, graph):
+        Z, w = Z0[:60].to(where, dtype), w0[:60].to(where, dtype)
+        lp, th0 = (lambda th: logreg.log_joint(Z, th, w)), torch.zeros(4, dtype=dtype, device=where)
+        if sampler == "HMC":
+            cfg = HMCConfig(n_samples=40, n_warmup=40, L_max=16)
+            draws = draw_hmc(torch.Generator().manual_seed(1), 2, 4, cfg, torch.float64)
+            return run_chains(draws, lp, th0, 2, cfg, graph=graph)
+        cfg = NUTSConfig(n_samples=40, n_warmup=40, max_treedepth=8)
+        draws = draw_nuts(torch.Generator().manual_seed(1), 2, 4, cfg, torch.float64)
+        return run_chains_nuts(draws, lp, th0, 2, cfg, graph=graph)
+
+    for sampler in ("HMC", "NUTS"):
+        a = mcmc(sampler, dev, torch.float32, None)
+        b = mcmc(sampler, dev, torch.float32, False)
+        if not (torch.equal(a[0], b[0]) and all(torch.equal(a[1][k], b[1][k]) for k in a[1])):
+            raise AssertionError(f"{sampler}: the captured run differs from the eager one")
+        c = mcmc(sampler, dev, torch.float64, None)
+        d = mcmc(sampler, "cpu", torch.float64, None)
+        gap = max(float((c[0].cpu() - d[0]).abs().max()),
+                  *(float((c[1][k].cpu() - d[1][k]).abs().max()) for k in d[1]))
+        if not gap <= 1e-10:
+            raise AssertionError(f"{sampler}: the card's float64 run is {gap:.3e} off the CPU's")
+        log(f"mcmc e, {sampler} (d = 4, 40 + 40 iterations, 2 chains): captured == eager bit "
+            f"for bit in float32; card == CPU in float64 within {gap:.2e} (limit 1e-10)")
+    cfg = SHFConfig(n_blocks=2, n_leapfrog=3, n_mc=4, n_batch=32)
+    draws = draw_shf(torch.Generator().manual_seed(2), 20, 500, 4, cfg, torch.float64)
+    out = {}
+    for where, dtype, graph in ((dev, torch.float32, None), (dev, torch.float32, False),
+                                (dev, torch.float64, None), ("cpu", torch.float64, None)):
+        Zd = Z0.to(where, dtype)
+        train = make_shf_trainer(Zd, logreg.log_joint, cfg, graph=graph)
+        out[(where, dtype, graph)] = train(draws, init_shf_params(Zd[:10], 4, 500, cfg), 20)
+    a, b = out[(dev, torch.float32, None)], out[(dev, torch.float32, False)]
+    if not (torch.equal(a[1], b[1]) and all(torch.equal(x, y) for x, y in zip(a[0], b[0]))):
+        raise AssertionError("SHF: the captured training differs from the eager one")
+    c, d = out[(dev, torch.float64, None)], out[("cpu", torch.float64, None)]
+    gap = max(float((x.cpu() - y).abs().max()) for x, y in zip((c[1], *c[0]), (d[1], *d[0])))
+    if not gap <= 1e-8:
+        raise AssertionError(f"SHF: the card's float64 training is {gap:.3e} off the CPU's")
+    log(f"mcmc e, SHF (20 Adam steps): captured == eager bit for bit in float32; card == CPU "
+        f"in float64 within {gap:.2e} (limit 1e-8)")
+
+
+def phase_mcmc_eval(seed: int, card: str, dev: str = "cuda") -> dict:
+    """Phase 17: the paper's main experiment end to end through the port's
+    MCMC evaluation, and the sparse Hamiltonian flows, float32.
+
+    (a) examples/zellner_logreg.py at its defaults: synth_lr (N = 12,000, d
+        = 10, 2000 test rows), 10 % corrupted, a BetaCoreset (beta 0.1, the
+        Laplace sampler, S = 100, 500 Adam steps on 200 rows, a 1000-row
+        select) built by build_trace(100), every Adam step through K1; each
+        tenth size padded with zeros to one capacity and evaluated by 2 HMC
+        chains of 1000 + 1000 iterations (L_max = 32) through
+        run_with_escalation, NUTS at default_nuts_config(1000, 1000); the
+        accuracy and predictive log-likelihood, R-hat, ESS, acceptance and
+        seconds per size. Raises unless the accuracy at m = 100 is above
+        m = 0's and every recorded R-hat is finite;
+    (b) --eval-sampler nuts at m = 100 (mean tree depth, leapfrog steps,
+        doublings and host reads per draw, divergences) and
+        --eval-full-data (HMC on a 5000-row subsample, weights N/n);
+    (c) an escalation by itself: tests/test_inference.py's ill-conditioned
+        target (d = 6, axis sds logspace(-2, 1), 4 chains), HMC at L_max =
+        16 first; raises unless NUTS was recorded with R-hat < 1.02 and
+        every marginal sd within 10 %;
+    (d) examples/shf_logreg.py at its defaults: the flow (N = 20,000, d = 5,
+        M = 30, 4 blocks x 8 leapfrog steps, n_mc 8, B 256, 6000 Adam steps
+        in chunks of 2000, 2000 samples) and its baseline, 2 HMC chains of
+        1000 + 1000 on every row;
+    (e) ``mcmc_self_check``.
+    Returns K1's launches in (a)'s build and one summary line."""
+    import betacores_tpu_torch as bc
+    from betacores_tpu_torch import gen_synthetic_logreg, logreg, logreg_laplace_sampler, perturb_logreg
+    from betacores_tpu_torch.evaluation import compute_accuracy, predictive_loglik
+    from betacores_tpu_torch.inference import (HMCConfig, NUTSConfig, SHFConfig,
+                                               default_nuts_config, init_shf_params,
+                                               make_shf_trainer, run_chains, run_chains_nuts,
+                                               run_chains_weighted_logreg,
+                                               run_chains_weighted_logreg_nuts,
+                                               run_with_escalation, shf_sample, summarize_chains)
+    from betacores_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    on = {} if dev == "cuda" else {"device": dev}
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    keyed = lambda s: torch.Generator(device=dev).manual_seed(s)
+    summary = []
+
+    # --- (a) the main experiment: the build, then HMC at every tenth size ---
+    gen = keyed(seed + 17)
+    X, y, _ = gen_synthetic_logreg(gen, ZL_N, d=ZL_D)
+    Xt, yt, Zt = gen_synthetic_logreg(gen, ZL_N_TEST, d=ZL_D)
+    X, y, Z, out = perturb_logreg(gen, X, y, f_rate=ZL_F_RATE)
+    prj = bc.BetaBlackBoxProjector(logreg_laplace_sampler(), ZL_S, model=logreg.bundle())
+    alg = bc.BetaCoreset(Z, prj, beta=ZL_BETA, learn_beta=False, opt_itrs=ZL_ITRS,
+                         n_subsample_opt=ZL_N_OPT, n_subsample_select=ZL_N_SEL,
+                         step_sched=lambda i: ZL_I0 / (1.0 + i), seed=ZL_TRIAL, max_size=ZL_M,
+                         **on)
+    kernels.logreg_adam_step.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    trace = alg.build_trace(ZL_M)
+    sync()
+    t_build = time.perf_counter() - t0
+    k1 = kernels.logreg_adam_step.launches
+    if dev == "cuda" and k1 != ZL_M * ZL_ITRS:
+        raise AssertionError(f"mcmc a: K1 launched {k1} times in the build, want {ZL_M * ZL_ITRS}")
+    log(f"mcmc a, data: synth_lr N={ZL_N} x d={ZL_D}, {len(out)} corrupted rows, {ZL_N_TEST} "
+        f"test rows; BetaCoreset build_trace({ZL_M}) {t_build:.3f} s "
+        f"({t_build / ZL_M:.3f} s per selection), K1 launches {k1}; {card}")
+    w = [np.zeros(1)] + [np.atleast_1d(t[0]) for t in trace]
+    p = [np.zeros((1, ZL_D))] + [np.atleast_2d(t[1]) for t in trace]
+    eval_ms = sorted(set(range(0, ZL_M + 1, ZL_EVERY)) | {ZL_M})
+    cap = max(len(w[m]) for m in eval_ms)
+
+    def padded(m):
+        wm = np.pad(w[m].astype(np.float32), (0, cap - len(w[m])))
+        pm = np.pad(p[m].astype(np.float32), ((0, cap - len(w[m])), (0, 0)))
+        return torch.from_numpy(pm).to(dev), torch.from_numpy(wm).to(dev)
+
+    cfg = HMCConfig(n_samples=ZL_SAMPLES, n_warmup=ZL_WARMUP, L_max=ZL_L_MAX)
+    nuts_cfg = default_nuts_config(ZL_SAMPLES, ZL_WARMUP)
+    theta0 = torch.zeros(ZL_D, device=dev)
+    rows, hmc_secs = {}, []
+    for m in eval_ms:
+        pm, wm = padded(m)
+        c0 = _nuts_counts()
+        sync()
+        t1 = time.perf_counter()
+        run = run_with_escalation(keyed(ZL_TRIAL * 100 + m), run_chains_weighted_logreg, cfg,
+                                  run_chains_weighted_logreg_nuts, nuts_cfg, pm, wm, theta0,
+                                  ZL_CHAINS, primary_name="hmc")
+        sync()
+        secs = time.perf_counter() - t1
+        row = _mcmc_line(f"m={m}", run.chains, Xt, yt, Zt, secs)
+        row.update(sampler=run.sampler_used, accept=float(run.stats["accept_stat"].mean()))
+        rows[m] = row
+        extra = ""
+        if run.escalated:
+            c = _nuts_counts() - c0
+            extra = (f"  ** hmc failed ({run.failure_reason}); recorded the NUTS re-run: mean "
+                     f"tree depth {float(run.stats['mean_treedepth'].mean()):.2f}, "
+                     f"{float(run.stats['mean_leapfrog'].mean()):.1f} leapfrog steps and "
+                     f"{c['doublings'] / max(c['draws'], 1):.2f} doublings per draw")
+        elif m != eval_ms[0]:
+            hmc_secs.append(secs)
+        log(f"mcmc a, m={m:3d} ({len(w[m])} points, capacity {cap}): acc={row['acc']:.4f} "
+            f"pll={row['pll']:.4f} accept={row['accept']:.2f} rhat={row['rhat']:.3f} "
+            f"ess={row['ess']:.0f} [{row['sampler']}] {secs:.3f} s{extra}")
+    per_it = (np.median(hmc_secs) / (ZL_WARMUP + ZL_SAMPLES) * 1e6) if hmc_secs else float("nan")
+    log(f"mcmc a: m=0 accuracy {rows[0]['acc']:.4f}, m={ZL_M} {rows[ZL_M]['acc']:.4f}; the JAX "
+        f"package's record at m={ZL_M} (RESULTS.md:440-442, BCORES on synth_lr at 10 % "
+        f"corruption, a TPU, its own data and draws) {ZL_JAX_ACC_M100[0]}-{ZL_JAX_ACC_M100[1]}, "
+        f"m=0 not recorded (the prior: about 0.5); an HMC size after the first "
+        f"{np.median(hmc_secs) if hmc_secs else float('nan'):.3f} s (median), "
+        f"{per_it:.1f} us per iteration of 2 chains x L_max={ZL_L_MAX}; the first size "
+        f"{rows[eval_ms[0]]['s']:.3f} s (its graphs' capture included); {card}")
+    if not rows[ZL_M]["acc"] > rows[0]["acc"]:
+        raise AssertionError(f"mcmc a: accuracy at m={ZL_M} ({rows[ZL_M]['acc']:.4f}) is not "
+                             f"above m=0's ({rows[0]['acc']:.4f})")
+    if not all(math.isfinite(r["rhat"]) for r in rows.values()):
+        raise AssertionError(f"mcmc a: a recorded R-hat is not finite: "
+                             f"{ {m: r['rhat'] for m, r in rows.items()} }")
+    summary.append(f"build {t_build:.1f} s, HMC {per_it:.0f} us/it")
+
+    # --- (b) --eval-sampler nuts at m = 100, and --eval-full-data ---
+    pm, wm = padded(ZL_M)
+    c0 = _nuts_counts()
+    sync()
+    t1 = time.perf_counter()
+    chains, stats = run_chains_weighted_logreg_nuts(keyed(ZL_TRIAL * 100 + ZL_M), pm, wm, theta0,
+                                                    ZL_CHAINS, nuts_cfg)
+    sync()
+    secs = time.perf_counter() - t1
+    c = _nuts_counts() - c0
+    row = _mcmc_line("nuts", chains, Xt, yt, Zt, secs)
+    depth, leap = float(stats["mean_treedepth"].mean()), float(stats["mean_leapfrog"].mean())
+    log(f"mcmc b, --eval-sampler nuts at m={ZL_M}: acc={row['acc']:.4f} pll={row['pll']:.4f} "
+        f"rhat={row['rhat']:.3f} ess={row['ess']:.0f}; mean tree depth {depth:.2f}, {leap:.2f} "
+        f"leapfrog steps per draw, {c['doublings'] / c['draws']:.2f} doublings (graphs) and "
+        f"{c['host_reads'] / c['draws']:.2f} host reads per draw over {c['draws']} draws, "
+        f"{int(stats['n_divergent'].sum())} divergences; {secs:.3f} s "
+        f"({secs / c['draws'] * 1e6:.0f} us per draw of {ZL_CHAINS} chains); {card}")
+    summary.append(f"NUTS {secs:.1f} s ({leap:.1f} steps/draw)")
+    N = Z.shape[0]
+    n_fd = min(ZL_FULL_CAP, N)
+    sub = torch.from_numpy(np.random.default_rng(ZL_TRIAL).choice(N, n_fd, replace=False)).to(dev)
+    sync()
+    t1 = time.perf_counter()
+    chains, stats = run_chains_weighted_logreg(
+        keyed(ZL_TRIAL * 100 + 999), Z[sub], torch.full((n_fd,), N / n_fd, device=dev), theta0,
+        ZL_CHAINS, cfg)
+    sync()
+    secs = time.perf_counter() - t1
+    row = _mcmc_line("full data", chains, Xt, yt, Zt, secs)
+    log(f"mcmc b, --eval-full-data (HMC on {n_fd} rows, weights N/n): acc={row['acc']:.4f} "
+        f"pll={row['pll']:.4f} rhat={row['rhat']:.3f} ess={row['ess']:.0f}; {secs:.3f} s "
+        f"(first run at this shape, its capture included); {card}")
+    del alg, trace, X, y, Z
+
+    # --- (c) an escalation that happens by itself ---
+    sd = torch.from_numpy(np.logspace(-2, 1, ESC_D)).float().to(dev)
+    target = lambda th: -0.5 * torch.sum((th / sd) ** 2, dim=-1)
+    zero = torch.zeros(ESC_D, device=dev)
+    sync()
+    t1 = time.perf_counter()
+    run = run_with_escalation(
+        keyed(seed + 170), lambda k, c: run_chains(k, target, zero, ESC_CHAINS, c),
+        HMCConfig(n_samples=ESC_SAMPLES, n_warmup=ESC_WARMUP, L_max=ESC_L_MAX),
+        lambda k, c: run_chains_nuts(k, target, zero, ESC_CHAINS, c),
+        NUTSConfig(n_samples=ESC_SAMPLES, n_warmup=ESC_WARMUP, max_treedepth=10))
+    sync()
+    secs = time.perf_counter() - t1
+    ratio = (run.chains.reshape(-1, ESC_D).std(dim=0) / sd).cpu().numpy()
+    rhat = float(run.summary["rhat"].max())
+    log(f"mcmc c, escalation: recorded {run.sampler_used} (escalated {run.escalated}; the HMC "
+        f"primary at L_max={ESC_L_MAX}: {run.failure_reason or 'passed'}); R-hat {rhat:.4f}, min "
+        f"ESS {float(run.summary['ess'].min()):.0f}, marginal sd / true sd "
+        f"{np.round(ratio, 3).tolist()}; NUTS mean tree depth "
+        f"{float(run.stats.get('mean_treedepth', torch.zeros(1)).mean()):.2f}; {secs:.3f} s "
+        f"for both runs; {card}")
+    if not (run.sampler_used == "nuts" and rhat < 1.02 and np.abs(ratio - 1.0).max() <= 0.1):
+        raise AssertionError(f"mcmc c: want NUTS recorded with R-hat < 1.02 and every marginal "
+                             f"sd within 10 %, got {run.sampler_used}, {rhat:.4f}, {ratio}")
+    summary.append(f"escalation {secs:.1f} s")
+
+    # --- (d) examples/shf_logreg.py at its defaults ---
+    gen = keyed(seed + 171)
+    _, _, Zs = gen_synthetic_logreg(gen, SHF_N, d=SHF_D)
+    Xs_t, ys_t, Zs_t = gen_synthetic_logreg(gen, ZL_N_TEST, d=SHF_D)
+    scfg = SHFConfig(n_blocks=SHF_BLOCKS, n_leapfrog=SHF_LEAP, n_mc=SHF_MC, n_batch=SHF_B,
+                     learning_rate=SHF_LR)
+    params = init_shf_params(Zs[:SHF_M], SHF_D, SHF_N, scfg)
+    train = make_shf_trainer(Zs, logreg.log_joint, scfg)
+    chunk_s, elbo = [], []
+    for i in range(SHF_STEPS // SHF_CHUNK):
+        sync()
+        t1 = time.perf_counter()
+        params, tr = train(keyed(100 + i), params, SHF_CHUNK)
+        sync()
+        chunk_s.append(time.perf_counter() - t1)
+        elbo.append(tr)
+    t_train = sum(chunk_s)
+    tr = torch.cat(elbo)
+    t1 = time.perf_counter()
+    th_f, _, logq = shf_sample(keyed(7), params, logreg.log_joint, SHF_SAMPLES, scfg)
+    sync()
+    t_sample = time.perf_counter() - t1
+    if not (bool(torch.isfinite(th_f).all()) and bool(torch.isfinite(tr).all())
+            and float(tr[-20:].mean()) > float(tr[:20].mean())):
+        raise AssertionError("mcmc d: the flow's samples or ELBO are not finite, or the ELBO "
+                             "did not rise")
+    acc_f = float(compute_accuracy(Xs_t, ys_t, th_f))
+    pll_f = float(predictive_loglik(Zs_t, th_f))
+    step_us = min(chunk_s[1:] or chunk_s) / SHF_CHUNK * 1e6
+    log(f"mcmc d, SHF: {SHF_STEPS} Adam steps {t_train:.3f} s (chunks {[round(s, 3) for s in chunk_s]} "
+        f"s; {step_us:.1f} us per captured step, a double backward), {SHF_SAMPLES} i.i.d. "
+        f"samples {t_sample:.3f} s; acc={acc_f:.4f} pll={pll_f:.4f} coreset nnz "
+        f"{int((params.w > 0).sum())}, ELBO {float(tr[:20].mean()):.1f} -> "
+        f"{float(tr[-20:].mean()):.1f}; {card}")
+    sync()
+    t1 = time.perf_counter()
+    chains, stats = run_chains_weighted_logreg(
+        keyed(ZL_TRIAL * 7), Zs, torch.ones(SHF_N, device=dev), torch.zeros(SHF_D, device=dev),
+        2, HMCConfig(n_samples=SHF_SAMPLES // 2, n_warmup=1000, L_max=32))
+    sync()
+    secs = time.perf_counter() - t1
+    row = _mcmc_line("shf baseline", chains, Xs_t, ys_t, Zs_t, secs)
+    log(f"mcmc d, the HMC baseline on all {SHF_N} rows (2 chains, 1000 + {SHF_SAMPLES // 2}): "
+        f"acc={row['acc']:.4f} pll={row['pll']:.4f} rhat={row['rhat']:.3f} "
+        f"ess={row['ess']:.0f}; {secs:.3f} s; flow vs HMC accuracy {acc_f:.4f} / "
+        f"{row['acc']:.4f} beside the JAX record {SHF_JAX_ACC[0]} / {SHF_JAX_ACC[1]} "
+        f"(RESULTS.md:494-497, a TPU, other draws); {card}")
+    summary.append(f"SHF {t_train:.1f} s ({step_us:.0f} us/step)")
+    del Zs, train
+
+    # --- (e) self-checks ---
+    mcmc_self_check(dev)
+    return {"K1": k1, "line": f"mcmc (phase 17, {time.perf_counter() - t_phase:.1f} s): "
+                              + "; ".join(summary)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2596,8 +2981,9 @@ def main() -> int:
     hilbert = phase_hilbert(args.seed, card)
     groups = phase_groups(args.seed, card, args.group_selections)
     neural = phase_neural_linear(args.seed, card)
+    mcmc = phase_mcmc_eval(args.seed, card)
     entries = [("logreg_adam_step", "logreg_adam_step.cu", "pallas_kernels.py:173",
-                {"launches": main_path["launches"] + api["K1"]}, k1),
+                {"launches": main_path["launches"] + api["K1"] + mcmc["K1"]}, k1),
                ("multiclass_projection", "multiclass_projection.cu", "pallas_kernels.py:330",
                 {"launches": mc_path["launches"] + api["K2"] + hilbert["K2"] + groups["K2"]},
                 k2),
@@ -2607,7 +2993,8 @@ def main() -> int:
     log(hilbert["line"])
     log(groups["line"])
     log(neural)
-    log(f"chip_smoke: phases 0-16 in {time.perf_counter() - t_start:.1f} s")
+    log(mcmc["line"])
+    log(f"chip_smoke: phases 0-17 in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"betacores_tpu_torch/csrc/{src}",
          "replaces": f"betacores_tpu/ops/{tpu}", "launches": path["launches"], **k}

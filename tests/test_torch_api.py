@@ -332,16 +332,22 @@ def test_entry_points_need_a_card_or_the_cpu(det, monkeypatch):
             make()
 
 
-@pytest.mark.parametrize("what", ["groups", "bpsvi"])
+@pytest.mark.parametrize("what", ["groups", "bpsvi", "hmc_chains", "shf_trainer"])
 def test_unported_parts_name_their_roadmap_item(det, what):
-    """Group mode and BPSVI are ported (tests/test_torch_groups.py,
-    tests/test_torch_bpsvi.py); their sharded builds are item 12."""
+    """Group mode, BPSVI, the MCMC evaluation and the flows are ported
+    (tests/test_torch_groups.py, test_torch_bpsvi.py, test_torch_hmc.py,
+    test_torch_shf.py); their sharded entry points are item 12."""
     Z, samples = det
     with pytest.raises(NotImplementedError, match="item 12"):
         if what == "groups":
             bc.parallel.make_sharded_group_builder(Z, [[0, 1], [2]])
-        else:
+        elif what == "bpsvi":
             bc.parallel.make_sharded_bpsvi_batch(Z)
+        elif what == "hmc_chains":
+            bc.inference.run_chains_sharded(torch.Generator(), lambda th: th.sum(-1),
+                                            torch.zeros(2), 2, None)
+        else:
+            bc.inference.make_sharded_shf_trainer(Z, bc.logreg.log_joint, None)
 
 
 # --- UniformSamplingCoreset ---------------------------------------------------

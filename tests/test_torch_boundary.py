@@ -23,7 +23,10 @@ def test_import_loads_no_jax():
                     "betacores_tpu_torch.coresets.groups, betacores_tpu_torch.coresets.bpsvi, "
                     "betacores_tpu_torch.coresets.psvi, betacores_tpu_torch.coresets.dpbpsvi, "
                     "betacores_tpu_torch.models.neural_linear, betacores_tpu_torch.data.loaders, "
-                    "betacores_tpu_torch.data.perturb\n"
+                    "betacores_tpu_torch.data.perturb, betacores_tpu_torch.inference.hmc, "
+                    "betacores_tpu_torch.inference.nuts, betacores_tpu_torch.inference.shf, "
+                    "betacores_tpu_torch.inference.diagnostics, "
+                    "betacores_tpu_torch.inference.escalation\n"
                     "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
                     " or m == 'betacores_tpu' or m.startswith('betacores_tpu.')]\n"
                     "assert not bad, bad\n"
@@ -33,12 +36,14 @@ def test_import_loads_no_jax():
 
 def test_port_sources_never_import_jax():
     paths = list((ROOT / "betacores_tpu_torch").rglob("*.py"))
-    # the group, pseudo-coreset and valuation slice and the neural-linear
-    # slice are among them
+    # the group, pseudo-coreset and valuation slice, the neural-linear
+    # slice and the MCMC and flow slice are among them
     names = {p.relative_to(ROOT / "betacores_tpu_torch").as_posix() for p in paths}
     assert {"valuation/__init__.py", "valuation/shapley.py", "coresets/groups.py",
             "coresets/bpsvi.py", "coresets/psvi.py", "coresets/dpbpsvi.py",
-            "models/neural_linear.py", "data/loaders.py", "data/perturb.py"} <= names
+            "models/neural_linear.py", "data/loaders.py", "data/perturb.py",
+            "inference/hmc.py", "inference/nuts.py", "inference/shf.py",
+            "inference/diagnostics.py", "inference/escalation.py"} <= names
     for path in paths:
         for line in path.read_text().splitlines():
             words = line.split()

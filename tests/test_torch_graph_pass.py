@@ -18,6 +18,7 @@ CPU cannot make."""
 
 import collections
 import contextlib
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -260,6 +261,29 @@ def test_capture_sets_the_counts_back(fake_graphs):
     prog.replay()
     assert k1.launches == before + 2 and calls == {"all_gather": 4, "psum": 3}
     k1.launches = before
+
+
+def test_capture_runs_with_the_garbage_collector_off(fake_graphs):
+    """The collector is off while the body is captured (a dead cycle
+    holding an older graph, collected then, would invalidate the capture)
+    and on again after, also when the body raises; a collector the caller
+    had turned off stays off."""
+    seen = []
+    graphs.capture(lambda: seen.append(gc.isenabled()))
+    assert seen == [False] and gc.isenabled()
+
+    def fails():
+        raise RuntimeError("capture failed")
+
+    with pytest.raises(RuntimeError, match="capture failed"):
+        graphs.capture(fails)
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        graphs.capture(lambda: None)
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
 
 
 @pytest.mark.parametrize("k, n_graphs", [(1, 1), (4, 2)])

@@ -3,7 +3,9 @@ the fused refinement step (betacores_tpu_torch/csrc/logreg_adam_step.cu),
 K2, the multiclass projection (csrc/multiclass_projection.cu), and K3, the
 sharded step's shard-local partials (csrc/logreg_shard_partials.cu); and
 the sparse NNLS solvers on the card (the CPU's columns, no host read in the
-greedy loop, ``nnls_on_support`` at column N - 1). This file imports no
+greedy loop, ``nnls_on_support`` at column N - 1); and the MCMC and flow
+runs (inference/hmc.py, nuts.py, shf.py): captured equal to eager bit for
+bit, and the card equal to the CPU in float64. This file imports no
 JAX, so it runs where the card is:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
@@ -774,3 +776,112 @@ def test_cuda_contextual_group_build_equals_the_cpu(cuda_device):
     assert torch.equal(got.core.idcs.cpu(), want.core.idcs) and int(want.core.m) >= 30
     scale = float(want.core.wts.abs().max())
     assert float((got.core.wts.cpu() - want.core.wts).abs().max()) <= 1e-9 * scale
+
+
+def _mcmc_target(device, dtype):
+    """A weighted logistic posterior (d = 4) and its chains' start."""
+    from betacores_tpu_torch.models import logreg
+
+    rng = np.random.default_rng(11)
+    X = rng.normal(size=(60, 4))
+    y = np.where(rng.uniform(size=60) < 1 / (1 + np.exp(-X.sum(1))), 1.0, -1.0)
+    Z = torch.from_numpy(y[:, None] * X).to(device, dtype)
+    w = torch.from_numpy(rng.uniform(0.5, 2.0, 60)).to(device, dtype)
+    return (lambda th: logreg.log_joint(Z, th, w)), torch.zeros(4, dtype=dtype, device=device)
+
+
+def _mcmc_run(sampler, device, dtype, graph):
+    """An HMC or NUTS run of 2 chains (40 + 40 iterations) under draws made
+    on the CPU in float64."""
+    from betacores_tpu_torch.inference import (HMCConfig, NUTSConfig, draw_hmc, draw_nuts,
+                                               run_chains, run_chains_nuts)
+
+    logprob, theta0 = _mcmc_target(device, dtype)
+    if sampler == "hmc":
+        cfg = HMCConfig(n_samples=40, n_warmup=40, L_max=16)
+        draws = draw_hmc(torch.Generator().manual_seed(1), 2, 4, cfg, torch.float64)
+        return run_chains(draws, logprob, theta0, 2, cfg, graph=graph)
+    cfg = NUTSConfig(n_samples=40, n_warmup=40, max_treedepth=8)
+    draws = draw_nuts(torch.Generator().manual_seed(1), 2, 4, cfg, torch.float64)
+    return run_chains_nuts(draws, logprob, theta0, 2, cfg, graph=graph)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", ["hmc", "nuts"])
+def test_cuda_captured_mcmc_equals_eager(cuda_device, sampler):
+    """Every iteration replayed as CUDA graphs (NUTS: its start, each
+    doubling depth, its end) equals the same run dispatched eagerly, bit
+    for bit, in float32."""
+    got = _mcmc_run(sampler, cuda_device, torch.float32, True)
+    want = _mcmc_run(sampler, cuda_device, torch.float32, False)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    for k in want[1]:
+        assert torch.equal(got[1][k], want[1][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", ["hmc", "nuts"])
+def test_cuda_mcmc_equals_the_cpu_in_float64(cuda_device, sampler):
+    """The captured run on the card equals the CPU's under the same draws,
+    in float64, to 1e-10 (the two sum in other orders)."""
+    got = _mcmc_run(sampler, cuda_device, torch.float64, None)
+    want = _mcmc_run(sampler, "cpu", torch.float64, None)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(), rtol=1e-10, atol=1e-10)
+    for k in want[1]:
+        np.testing.assert_allclose(got[1][k].cpu().numpy(), want[1][k].numpy(), rtol=1e-10,
+                                   atol=1e-10, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_cuda_shf_training_equals_eager_and_the_cpu(cuda_device):
+    """20 Adam steps of a flow, the step (a double backward) replayed as a
+    CUDA graph: equal to the eager steps bit for bit, and in float64 to the
+    CPU's within 1e-8."""
+    from betacores_tpu_torch.inference import (SHFConfig, draw_shf, init_shf_params,
+                                               make_shf_trainer)
+    from betacores_tpu_torch.models import logreg
+
+    rng = np.random.default_rng(12)
+    X = rng.normal(size=(500, 3))
+    y = np.where(rng.uniform(size=500) < 1 / (1 + np.exp(-X.sum(1))), 1.0, -1.0)
+    Z = torch.from_numpy(y[:, None] * X)
+    cfg = SHFConfig(n_blocks=2, n_leapfrog=3, n_mc=4, n_batch=32)
+    draws = draw_shf(torch.Generator().manual_seed(2), 20, 500, 3, cfg, torch.float64)
+    out = {}
+    for dev, dtype, graph in ((cuda_device, torch.float32, True),
+                              (cuda_device, torch.float32, False),
+                              (cuda_device, torch.float64, None), ("cpu", torch.float64, None)):
+        Zd = Z.to(dev, dtype)
+        train = make_shf_trainer(Zd, logreg.log_joint, cfg, graph=graph)
+        out[(str(dev), dtype, graph)] = train(draws, init_shf_params(Zd[:10], 3, 500, cfg), 20)
+    torch.cuda.synchronize()
+    a, b = out[("cuda", torch.float32, True)], out[("cuda", torch.float32, False)]
+    assert torch.equal(a[1], b[1]) and all(torch.equal(x, y) for x, y in zip(a[0], b[0]))
+    c, d = out[("cuda", torch.float64, None)], out[("cpu", torch.float64, None)]
+    for x, y in zip((c[1], *c[0]), (d[1], *d[0])):
+        np.testing.assert_allclose(x.cpu().numpy(), y.numpy(), rtol=1e-8, atol=1e-8)
+
+
+@pytest.mark.cuda
+def test_cuda_capture_survives_a_dead_graph_in_a_cycle(cuda_device):
+    """A dead reference cycle that holds a captured graph is not collected
+    while another graph is captured (destroying a graph then invalidates the
+    capture): the body allocates enough containers to trigger the
+    collector, and the capture and its replay still succeed."""
+    from betacores_tpu_torch.utils import graphs
+
+    x = torch.ones(4, device=cuda_device)
+    cycle = [graphs.capture(lambda: x.add_(1.0))]
+    cycle.append(cycle)
+    del cycle
+
+    def body():
+        junk = [[] for _ in range(20000)]
+        for a in junk:
+            a.append(a)
+        x.mul_(2.0)
+
+    graphs.capture(body).replay()
+    torch.cuda.synchronize()
+    assert torch.equal(x.cpu(), torch.full((4,), 2.0))
