@@ -14,6 +14,7 @@ from .incremental import (FixedDraws, GeneratorDraws, IncrementalBuilder,
 from .psvi import PseudoSparseVICoreset, make_psvi_builder
 from .refine import refine_weights
 from .select_beta import driver_select_beta, padded_scorer, select_beta, trimmed_mean
+from .streaming import merge_reduce_build
 from .state import (CoresetState, get, group_state_from_numpy, init_state,
                     state_from_numpy, state_to_numpy, warm_start_state)
 
@@ -29,6 +30,6 @@ __all__ = ["BatchPSVICoreset", "BetaBlackBoxProjector", "BetaCoreset",
            "PseudoSparseVICoreset", "make_psvi_builder", "group_state_from_numpy",
            "FixedDraws", "GeneratorDraws", "IncrementalBuilder",
            "IncrementalConfig", "make_incremental_builder", "make_tangent_error",
-           "refine_weights", "driver_select_beta", "padded_scorer", "select_beta", "trimmed_mean",
+           "merge_reduce_build", "refine_weights", "driver_select_beta", "padded_scorer", "select_beta", "trimmed_mean",
            "CoresetState", "get", "init_state", "state_from_numpy", "state_to_numpy",
            "warm_start_state"]

@@ -23,3 +23,18 @@ def get_tolerance() -> float:
 
 class NumericalPrecisionError(Exception):
     """Raised when a numeric-precision limit is reached."""
+
+
+# Status codes of the reference's solver state (its jitted solvers carry
+# them where an exception cannot cross traced code); the same values here.
+STATUS_OK = 0
+# one step failed; the solver stabilised and will retry (transient)
+STATUS_RETRYING = 1
+# two consecutive failures: the numeric limit is latched; no more growth
+STATUS_NUMERIC_LIMIT = 2
+
+STATUS_NAMES = {
+    STATUS_OK: "ok",
+    STATUS_RETRYING: "retrying",
+    STATUS_NUMERIC_LIMIT: "numeric_limit",
+}

@@ -1,5 +1,7 @@
 """Per-instance random streams (the port's form of
-betacores_tpu/utils/prng.py::KeySequence).
+betacores_tpu/utils/prng.py: ``key_from_seed`` and ``KeySequence``).
+
+``key_from_seed(seed, device)`` is the one generator a seed names.
 
 Where the reference splits a JAX key per call, ``KeySequence(seed, device)``
 returns on each call a fresh ``torch.Generator`` on ``device``, seeded from
@@ -13,6 +15,15 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def key_from_seed(seed: int | torch.Generator,
+                  device: torch.device | str = "cuda") -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``; a generator
+    passes through unchanged (the reference's ``key_from_seed``)."""
+    if isinstance(seed, torch.Generator):
+        return seed
+    return torch.Generator(device=torch.device(device)).manual_seed(int(seed))
 
 
 class KeySequence:

@@ -159,7 +159,23 @@ toolkit. Phases, each of which raises on failure:
      (c) an escalation to NUTS that happens by itself; (d)
      examples/shf_logreg.py at its defaults (6000 captured Adam steps of a
      double backward) and its HMC baseline; (e) captured == eager and card
-     == CPU (float64) for HMC, NUTS and the flow's training.
+     == CPU (float64) for HMC, NUTS and the flow's training;
+ 18. the streamed merge-reduce build and the host I/O (``phase_streaming``):
+     (a) examples/streaming_build.py at its widths (200,000 contaminated
+     logistic rows kept on the host, 4 leaves of 50,000 rows streamed
+     through one builder, the weighted final build over the union; the
+     selections cut by SB_CUT_LEAF and SB_CUT_FINAL), which must beat the
+     prior's held-out accuracy, and ``parallel_leaves=True`` giving the
+     same leaf bits; (b) examples/streaming_outofcore.py --n 20_000_000
+     --chunk 5_000_000 (800 MB of host data, a checkpoint a leaf), whose
+     peak device memory must stay below two chunks plus the pass buffers
+     and whose reverse KL to the exact posterior must beat the prior's;
+     (c) a crash and its resume from the checkpoint, bit for bit; (d) the
+     mesh leaf pass on a (1, 1) NCCL mesh, bit for bit; (e) the native CSV
+     parser against numpy on a 100 MB file; (f) ``save_state`` /
+     ``load_state`` between two halves of a build; (g) ``Timings`` and one
+     ``trace`` written under chiprun_out/. K1, K2 and K3 launch 0 times in
+     it.
 Phase 14 also builds GIGAO and GIGAR at examples/zellner_gaussian.py's own
 N = 5000 and raises if either reverse KL is more than an order of magnitude
 off the JAX package's record.
@@ -174,6 +190,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import math
 import re
@@ -274,6 +291,24 @@ SHF_JAX_ACC = (0.9547, 0.9548)
 # the JAX package's reverse KLs of GIGAO and GIGAR at examples/zellner_gaussian.py's
 # N = 5000, M = 200, and the prior's (RESULTS.md:37-40)
 H_JAX_RKL = {"GIGAO": 4.6e5, "GIGAR": 1.9e5, "PRIOR": 4.9e3}
+# phase 18: examples/streaming_build.py at its defaults: --N, --d, --chunk-size,
+# --f-rate, --m-leaf, --m-final, --m-buf, --proj-dim, --opt-itrs, --beta, the select
+# and refinement subsamples, the final build's Adam steps (max(--opt-itrs, 500), over
+# every union row) and the clean test rows
+SB_N, SB_D, SB_CHUNK, SB_F_RATE, SB_M_LEAF, SB_M_FINAL, SB_M_BUF = 200_000, 10, 50_000, 0.1, 50, 100, 64
+SB_S, SB_ITRS, SB_BETA, SB_N_SEL, SB_N_OPT, SB_FINAL_ITRS, SB_N_TEST = 100, 300, 0.1, 1000, 200, 500, 20_000
+# the selections the phase runs of them, leaf and final, to keep the script within its
+# time (PERF.md): the final build's full-data refinement runs eagerly
+SB_CUT_LEAF, SB_CUT_FINAL = 5, 3
+# examples/streaming_outofcore.py's small usage line (--n, --chunk) with its other
+# defaults (--d, --m-leaf = --m-final, --proj-dim, --opt-itrs, --i0, the select and
+# refinement subsamples, sigma^2, the mean offset), and the selections run of them
+OC_N, OC_CHUNK, OC_D, OC_M, OC_S, OC_ITRS, OC_I0 = 20_000_000, 5_000_000, 10, 100, 100, 300, 1.0
+OC_N_SEL, OC_N_OPT, OC_SIG, OC_SHIFT, OC_CUT_M = 1000, 200, 2.0, 1.0, 25
+# the crash and resume, mesh and state-checkpoint checks at a small depth: rows,
+# chunk, selections, Adam steps; and the size of the parsed CSV
+SM_N, SM_CHUNK, SM_M, SM_ITRS, CSV_MB = 20_000, 5_000, 3, 50, 100
+TRACE_ITRS = 5                  # the Adam steps of phase 18's traced selection
 # operations per likelihood value (csrc/logreg_common.cuh::Likelihood),
 # each arithmetic or transcendental operation counted once: beta, log
 TRANSFORM_OPS = {True: 17, False: 6}
@@ -2016,33 +2051,21 @@ def phase_hilbert(seed: int, card: str, n: int = FAM_ROWS, dev: str = "cuda") ->
 
 def movielens_groups(trial: int = 0, f_rate: float = GRP_F_RATE):
     """examples/group_selection.py:56-100 on the repo's movielens data,
-    inline with numpy: whitened covariates (``std_cov``), the 100 groups of
-    the pickle, each group's rows corrupted in proportion to its
-    demographic fraction (half the columns replaced by N(0, 10) noise and
-    the label flipped), the test set rebalanced and whitened alike.
-    Returns float32 (Z, Xt, Yt) and the group lists."""
-    import pickle
+    through the port's loaders (betacores_tpu_torch/data/loaders.py):
+    whitened covariates (``std_cov``), the 100 groups of the pickle, each
+    group's rows corrupted in proportion to its demographic fraction (half
+    the columns replaced by N(0, 10) noise and the label flipped), the test
+    set rebalanced and whitened alike. Returns float32 (Z, Xt, Yt) and the
+    group lists."""
     from pathlib import Path
 
+    from betacores_tpu_torch.data import load_groups_pickle, load_npz, std_cov
+
     root = Path(__file__).resolve().parent / "data"
-    with np.load(root / "movielens_grouped.npz") as npz:
-        X, Y, Xt, Yt = (np.asarray(npz[k], dtype=np.float64) for k in ("X", "y", "Xt", "yt"))
-    if set(np.unique(Y)) <= {0.0, 1.0}:
-        Y, Yt = 2.0 * Y - 1.0, 2.0 * Yt - 1.0
-
-    def std_cov(X, Y, mean=None, cov=None):
-        X = np.array(X, copy=True)
-        if mean is None:
-            mean = X[:, :-1].mean(axis=0)
-            cov = np.cov(X[:, :-1], rowvar=False) + 1e-12 * np.eye(X.shape[1] - 1)
-        L = np.linalg.cholesky(np.atleast_2d(cov))
-        X[:, :-1] = np.linalg.solve(L, (X[:, :-1] - mean).T).T
-        return X, Y, mean, cov
-
-    X, Y, mean, cov = std_cov(X, Y)
-    with open(root / "vq_groups_sensemake_movielens_grouped.pk", "rb") as fh:
-        groups, demos = pickle.load(fh)
-    groups = [[int(k) for k in g if int(k) < X.shape[0]] for g in groups]
+    X, Y, Xt, Yt = load_npz(str(root / "movielens_grouped.npz"))
+    X, Y, _, mean, cov = std_cov(X, Y)
+    groups, demos = load_groups_pickle(str(root / "vq_groups_sensemake_movielens_grouped.pk"))
+    groups = [[k for k in g if k < X.shape[0]] for g in groups]
     rng = np.random.default_rng(trial)
     for g, dem in zip(groups, demos):
         o = int(len(g) * min(dem[0] * f_rate * 3, 0.9))
@@ -2061,7 +2084,7 @@ def movielens_groups(trial: int = 0, f_rate: float = GRP_F_RATE):
         keep_maj = np.where(Yt == maj)[0][:len(keep_min) + int(0.01 * len(keep_min) * rnd)]
         keep = np.concatenate([keep_maj, keep_min])
         Xt, Yt = Xt[keep], Yt[keep]
-    Xt, Yt, _, _ = std_cov(Xt, Yt, mean, cov)
+    Xt, Yt, _, _, _ = std_cov(Xt, Yt, mean, cov)
     return Z.astype(np.float32), Xt.astype(np.float32), Yt.astype(np.float32), groups
 
 
@@ -2953,6 +2976,329 @@ def phase_mcmc_eval(seed: int, card: str, dev: str = "cuda") -> dict:
                               + "; ".join(summary)}
 
 
+def _same_bits(what: str, got, want) -> None:
+    """Raises unless two ``merge_reduce_build`` results (state, leaf_pts,
+    leaf_wts) agree bit for bit."""
+    names = ("wts", "idcs", "pts", "m", "beta", "sampler_aux", "leaf_pts", "leaf_wts")
+    for name, a, b in zip(names, (*got[0], got[1], got[2]), (*want[0], want[1], want[2])):
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"streaming {what}: {name} differs")
+
+
+def phase_streaming(seed: int, card: str, dev: str = "cuda", oc_n: int = OC_N,
+                    oc_chunk: int = OC_CHUNK, csv_mb: int = CSV_MB) -> dict:
+    """Phase 18: the streamed merge-reduce build (coresets/streaming.py)
+    with its checkpoints, the host loaders' native parser and the coreset
+    checkpoints and timing utilities, float32.
+
+    (a) examples/streaming_build.py at its widths: N = 200,000 contaminated
+        logistic rows (d = 10, 10 % corrupted) made on the card chunk by
+        chunk and kept on the host, 4 leaves of 50,000 rows (64-slot buffer,
+        S = 100, 1000-row select, 300 Adam steps on 200 rows, beta 0.1)
+        streamed through one builder, then the weighted final build over
+        the 256-row union (100 slots, every row, 500 Adam steps), for
+        SB_CUT_LEAF and SB_CUT_FINAL selections; raises unless the
+        coreset's held-out accuracy beats the prior's, and unless
+        ``parallel_leaves=True`` gives the same leaf union bits;
+    (b) examples/streaming_outofcore.py --n 20_000_000 --chunk 5_000_000
+        (Gaussian, d = 10, 800 MB of host data in 4 chunks, a checkpoint
+        per leaf) for OC_CUT_M selections a build; raises unless the peak
+        device memory of the build stays below two chunks' bytes plus the
+        builder's pass buffers, and unless the reverse KL to the exact
+        full-data posterior is below the prior's;
+    (c) a crash after 2 of 4 leaves and the rerun from the checkpoint, bit
+        for bit the uninterrupted build (SM_* depth), checkpoint removed;
+    (d) the mesh leaf pass on a (1, 1) mesh (NCCL, a world of one): the
+        streamed build's bits, with one all_gather a leaf;
+    (e) the native CSV parser (native/loader.cpp, built with g++) against
+        the numpy parse of a CSV_MB MB file: equal arrays, and both rates
+        (host rates);
+    (f) ``save_state``/``load_state`` between two halves of a build on the
+        card: the uninterrupted build's bits;
+    (g) every section timed with ``Timings`` (saved under chiprun_out/
+        as phase18_*), and one ``trace`` of a selection of TRACE_ITRS
+        eager Adam steps written there;
+    (h) K1, K2 and K3 launch 0 times in the phase.
+    Returns the numbers and one summary line."""
+    import io
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import betacores_tpu_torch as bc
+    from betacores_tpu_torch.coresets import (IncrementalConfig, init_state,
+                                             make_incremental_builder, merge_reduce_build)
+    from betacores_tpu_torch.data import native_loader
+    from betacores_tpu_torch.evaluation import compute_accuracy, reverse_forward_kl
+    from betacores_tpu_torch.inference import gaussian_conjugate_sampler, logreg_laplace_sampler
+    from betacores_tpu_torch.models import gaussian, logreg
+    from betacores_tpu_torch.ops import kernels
+    from betacores_tpu_torch.parallel import make_mesh, world_of_one
+    from betacores_tpu_torch.utils import Timings, annotate, load_state, save_state, trace
+
+    class CrashAfter(Timings):
+        """Timings whose leaf section after the n-th raises: a crash."""
+
+        def __init__(self, n: int):
+            super().__init__()
+            self.n = n
+
+        def section(self, name: str, sync: bool = True):
+            if name == "leaf" and len(self.sections.get("leaf", [])) == self.n:
+                raise RuntimeError("simulated crash")
+            return super().section(name, sync)
+
+    t_phase = time.perf_counter()
+    wrappers = (kernels.logreg_adam_step, kernels.multiclass_projection,
+                kernels.logreg_shard_step_partials)
+    for w in wrappers:
+        w.launches = 0
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    keyed = lambda s: torch.Generator(device=dev).manual_seed(s)
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    res = {}
+    tmp = tempfile.TemporaryDirectory()
+
+    # --- (a) examples/streaming_build.py ---
+    t0 = time.perf_counter()
+    chunks = []
+    for i in range(-(-SB_N // SB_CHUNK)):
+        g = keyed(seed * 1000 + 100 + i)
+        X, y, _ = bc.gen_synthetic_logreg(g, min(SB_CHUNK, SB_N - i * SB_CHUNK), d=SB_D)
+        chunks.append(bc.perturb_logreg(g, X, y, f_rate=SB_F_RATE)[2].cpu().numpy())
+    host = np.concatenate(chunks)
+    Xt, Yt, _ = bc.gen_synthetic_logreg(keyed(seed * 1000 + 999), SB_N_TEST, d=SB_D)
+    t_gen = time.perf_counter() - t0
+    leaf_cfg = IncrementalConfig(projection_dim=SB_S, n_subsample_select=min(SB_N_SEL, SB_CHUNK),
+                                 n_subsample_opt=min(SB_N_OPT, SB_CHUNK), opt_itrs=SB_ITRS,
+                                 i0=1.0, use_beta=True)
+    final_cfg = IncrementalConfig(projection_dim=SB_S, opt_itrs=max(SB_ITRS, SB_FINAL_ITRS),
+                                  i0=1.0, use_beta=True)
+    lr = dict(model=logreg.bundle(), sampler=logreg_laplace_sampler(), device=dev)
+    st_leaf = init_state(SB_M_BUF, SB_D, beta=SB_BETA, device=dev)
+    st_final = init_state(SB_M_FINAL, SB_D, beta=SB_BETA, device=dev)
+    tm = Timings()
+    t0 = time.perf_counter()
+    st_f, lp, lw = merge_reduce_build(seed, host, leaf_config=leaf_cfg, final_config=final_cfg,
+                                      chunk_size=SB_CHUNK, m_leaf=SB_CUT_LEAF,
+                                      m_final=SB_CUT_FINAL, st_leaf=st_leaf, st_final=st_final,
+                                      timings=tm, **lr)
+    sync()
+    t_stream = time.perf_counter() - t0
+    w_f, m_f = check_state(st_f)
+    mask = st_f.slot_mask
+
+    def acc_of(w, p):
+        th = laplace_thetas(w, p, SB_D, keyed(seed + 2), n=SB_S)
+        return float(compute_accuracy(Xt, Yt, th))
+
+    acc = acc_of(w_f[mask], st_f.pts[mask])
+    acc_prior = acc_of(torch.zeros(1, device=dev), torch.zeros((1, SB_D), device=dev))
+    if not acc > acc_prior:
+        raise AssertionError(f"streaming a: the coreset's accuracy {acc:.4f} does not beat the "
+                             f"prior's {acc_prior:.4f}")
+    # the batched leaf pass: the same leaves in turn (a final build of 0 selections)
+    par = merge_reduce_build(seed, host, leaf_config=leaf_cfg, final_config=final_cfg,
+                             chunk_size=SB_CHUNK, m_leaf=SB_CUT_LEAF, m_final=0, st_leaf=st_leaf,
+                             st_final=st_final, parallel_leaves=True, **lr)
+    if not (torch.equal(par[1], lp) and torch.equal(par[2], lw)):
+        raise AssertionError("streaming a: parallel_leaves differs from the streamed pass")
+    leaf_s = tm.sections["leaf"]
+    res.update(leaf_s=leaf_s, final_s=tm.sections["final"][0], acc=acc, acc_prior=acc_prior)
+    log(f"streaming a, examples/streaming_build.py: {SB_N} rows (d={SB_D}, {SB_F_RATE:.0%} "
+        f"corrupted, made in {t_gen:.2f} s) in {len(leaf_s)} leaves of {SB_CHUNK} rows x "
+        f"{SB_CUT_LEAF} selections (of --m-leaf {SB_M_LEAF}; {SB_ITRS} Adam steps, "
+        f"{SB_M_BUF}-slot buffer), then the weighted final build over the {lw.shape[0]}-row "
+        f"union for {SB_CUT_FINAL} selections (of --m-final {SB_M_FINAL}; "
+        f"{final_cfg.opt_itrs} eager full-data Adam steps): {t_stream:.3f} s; s per leaf "
+        f"{[round(t, 4) for t in leaf_s]}, {leaf_s[-1] / SB_CUT_LEAF:.4f} s a leaf selection "
+        f"after the first leaf; final build {res['final_s']:.3f} s "
+        f"({res['final_s'] / SB_CUT_FINAL:.3f} s a selection); m={m_f}; held-out accuracy "
+        f"{acc:.4f} (prior {acc_prior:.4f}); parallel_leaves == streamed bit for bit; {card}")
+
+    # --- (b) examples/streaming_outofcore.py --n 20_000_000 --chunk 5_000_000 ---
+    rng = np.random.default_rng(seed + 1)
+    t0 = time.perf_counter()
+    data = np.empty((oc_n, OC_D), dtype=np.float32)
+    xsum = np.zeros(OC_D)
+    for i in range(0, oc_n, 10_000_000):
+        blk = rng.standard_normal((min(i + 10_000_000, oc_n) - i, OC_D), dtype=np.float32)
+        blk *= np.float32(math.sqrt(OC_SIG))
+        blk += np.float32(OC_SHIFT)
+        data[i:i + len(blk)] = blk
+        xsum += blk.sum(axis=0, dtype=np.float64)
+    t_gen = time.perf_counter() - t0
+    eye = torch.eye(OC_D, device=dev)
+    Siginv = eye / OC_SIG
+    mu0 = torch.zeros(OC_D, device=dev)
+    gmodel = gaussian.bundle(Siginv, OC_D * math.log(OC_SIG))
+    gsmp = gaussian_conjugate_sampler(mu0, eye, Siginv)
+    oc_cfg = IncrementalConfig(projection_dim=OC_S, n_subsample_select=OC_N_SEL,
+                               n_subsample_opt=OC_N_OPT, opt_itrs=OC_ITRS, i0=OC_I0)
+    ckpt = os.path.join(tmp.name, "outofcore.npz")
+    tm_oc = Timings()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    st_o, _, _ = merge_reduce_build(seed, data, gmodel, gsmp, oc_cfg, oc_cfg, oc_chunk, OC_CUT_M,
+                                    OC_CUT_M, init_state(OC_M, OC_D, device=dev),
+                                    st_final=init_state(OC_M, OC_D, device=dev),
+                                    checkpoint_path=ckpt, device=dev, timings=tm_oc)
+    sync()
+    t_oc = time.perf_counter() - t0
+    if os.path.exists(ckpt):
+        raise AssertionError("streaming b: the checkpoint outlived the build")
+    chunk_bytes = oc_chunk * (OC_D + 1) * 4                # rows and row weights
+    # the composed pass's static rows (the buffer appended), noise and row weights,
+    # and one pass's draws (noise, int64 row indices)
+    pass_bytes = OC_ITRS * (4 * ((OC_N_OPT + OC_M) * OC_D + 2 * OC_S * OC_D + OC_N_OPT)
+                            + 8 * OC_N_OPT)
+    peak = None
+    if dev == "cuda":
+        peak = torch.cuda.max_memory_allocated() - base
+        if not peak < 2 * chunk_bytes + pass_bytes:
+            raise AssertionError(f"streaming b: peak device memory {peak} B is not below two "
+                                 f"chunks ({2 * chunk_bytes} B) plus the pass buffers "
+                                 f"({pass_bytes} B)")
+    w_o, m_o = check_state(st_o)
+    f64 = lambda x: x.to(torch.float64)
+    post = gaussian.weighted_post(f64(mu0), f64(eye), f64(Siginv), f64(st_o.pts), f64(w_o))
+    full = gaussian.posterior_from_precision(
+        f64(eye) + oc_n * f64(Siginv), f64(Siginv) @ torch.from_numpy(xsum).to(dev))
+    prior = gaussian.GaussianPosterior(mu=f64(mu0), prec_chol=f64(eye))
+    rkl, rkl_prior = (float(reverse_forward_kl(p, full)[0]) for p in (post, prior))
+    if not rkl < rkl_prior:
+        raise AssertionError(f"streaming b: reverse KL {rkl:.4g} is not below the prior's "
+                             f"{rkl_prior:.4g}")
+    ck_s = tm_oc.sections["checkpoint"]
+    res.update(oc_leaf_s=tm_oc.sections["leaf"], oc_final_s=tm_oc.sections["final"][0],
+               peak=peak, chunk_bytes=chunk_bytes, ckpt_s=ck_s, rkl=rkl, rkl_prior=rkl_prior)
+    peak_txt = ("not measured" if peak is None else
+                f"{peak / 2**20:.1f} MiB against one chunk's {chunk_bytes / 2**20:.1f} MiB "
+                f"(limit {(2 * chunk_bytes + pass_bytes) / 2**20:.1f} MiB)")
+    log(f"streaming b, examples/streaming_outofcore.py --n {oc_n} --chunk {oc_chunk}: "
+        f"{data.nbytes / 1e6:.0f} MB of host data (made in {t_gen:.2f} s) in "
+        f"{len(tm_oc.sections['leaf'])} leaves, {OC_CUT_M} selections a build (of --m-leaf "
+        f"{OC_M}), a checkpoint a leaf: {t_oc:.3f} s; s per leaf "
+        f"{[round(t, 4) for t in tm_oc.sections['leaf']]}; final {res['oc_final_s']:.3f} s; "
+        f"checkpoint (host copy + atomic npz) ms per leaf {[round(1e3 * t, 3) for t in ck_s]}; "
+        f"peak device memory {peak_txt}; m={m_o}; reverse KL to the exact "
+        f"{oc_n}-row posterior {rkl:.4g} (prior {rkl_prior:.4g}); {card}")
+    del data
+
+    # --- (c) a crash and the resume, (d) the mesh pass, at a small depth ---
+    small = host[:SM_N]
+    sm_cfg = IncrementalConfig(projection_dim=SB_S, n_subsample_select=SB_N_SEL,
+                               n_subsample_opt=SB_N_OPT, opt_itrs=SM_ITRS, i0=1.0, use_beta=True)
+    sm = dict(leaf_config=sm_cfg, final_config=sm_cfg, chunk_size=SM_CHUNK, m_leaf=SM_M,
+              m_final=SM_M, st_leaf=st_leaf, model=lr["model"], sampler=lr["sampler"])
+    ref = merge_reduce_build(seed, small, device=dev, **sm)
+    ck = os.path.join(tmp.name, "resume.npz")
+    try:
+        merge_reduce_build(seed, small, device=dev, checkpoint_path=ck, timings=CrashAfter(2),
+                           **sm)
+        raise AssertionError("streaming c: the simulated crash did not happen")
+    except RuntimeError as e:
+        if "simulated crash" not in str(e):
+            raise
+    with np.load(ck) as z:
+        if int(z["n_done"]) != 2:
+            raise AssertionError(f"streaming c: the checkpoint holds {int(z['n_done'])} leaves")
+    _same_bits("c, the resumed build", merge_reduce_build(seed, small, device=dev,
+                                                          checkpoint_path=ck, **sm), ref)
+    if os.path.exists(ck):
+        raise AssertionError("streaming c: the checkpoint outlived the resumed build")
+    with world_of_one("nccl" if dev == "cuda" else "gloo"):
+        mesh = make_mesh(1, 1)
+        got = merge_reduce_build(seed, small, mesh=mesh, **sm)
+        gathers = mesh.calls["all_gather"]
+    _same_bits("d, the mesh leaf pass", got, ref)
+    if gathers != -(-SM_N // SM_CHUNK):
+        raise AssertionError(f"streaming d: {gathers} all_gathers for {SM_N // SM_CHUNK} leaves")
+    log(f"streaming c-d: {SM_N // SM_CHUNK} leaves of {SM_CHUNK} rows x {SM_M} selections "
+        f"({SM_ITRS} Adam steps): a crash after 2 leaves resumed from its checkpoint == the "
+        f"uninterrupted build bit for bit (checkpoint removed); the (1, 1) mesh's leaf pass "
+        f"({gathers} all_gathers) == the streamed one bit for bit")
+
+    # --- (e) the native CSV parser against numpy ---
+    blk = io.StringIO()
+    np.savetxt(blk, np.random.default_rng(seed).normal(size=(20_000, 10)).astype(np.float32),
+               delimiter=",", fmt="%.7g")
+    text = blk.getvalue()
+    reps = -(-csv_mb * 1_000_000 // len(text))
+    csv = os.path.join(tmp.name, "big.csv")
+    with open(csv, "w") as f:
+        for _ in range(reps):
+            f.write(text)
+    mb = os.path.getsize(csv) / 1e6
+    t0 = time.perf_counter()
+    if not native_loader.native_available():
+        raise AssertionError("streaming e: no C++ compiler for the native parser")
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    a = native_loader.load_csv(csv)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = native_loader._csv_numpy(csv)
+    t_numpy = time.perf_counter() - t0
+    if a.shape != (reps * 20_000, 10) or not np.array_equal(a, b):
+        raise AssertionError("streaming e: the native parse differs from the numpy parse")
+    res.update(csv_mb=mb, native_mbs=mb / t_native, numpy_mbs=mb / t_numpy)
+    log(f"streaming e, a {mb:.1f} MB CSV ({a.shape[0]} x {a.shape[1]}): the native parser "
+        f"(built in {t_build:.2f} s) {res['native_mbs']:.1f} MB/s against the numpy parse "
+        f"(np.genfromtxt) {res['numpy_mbs']:.1f} MB/s, equal arrays; host rates on this "
+        f"machine's CPU ({os.cpu_count()} cores)")
+    del a, b
+
+    # --- (f) a build saved and continued, (g) its trace ---
+    Zs = torch.from_numpy(small[:SM_CHUNK]).to(dev)
+    ones = torch.ones(SM_CHUNK, device=dev)
+    bld = make_incremental_builder(Zs, lr["model"], lr["sampler"], sm_cfg, data_weights=ones)
+    want = bld.build(st_leaf, 2 * SM_M, bld.generator_draws(keyed(seed + 7)))
+    g = keyed(seed + 7)
+    half = bld.build(st_leaf, SM_M, bld.generator_draws(g))
+    path = os.path.join(tmp.name, "half.pt")
+    save_state(path, half, g, {"done": SM_M})
+    st_h, g2, extra = load_state(path, device=dev)
+    got = bld.build(st_h, 2 * SM_M - extra["done"], bld.generator_draws(g2))
+    for x, y in zip(got, want):
+        if not torch.equal(x, y):
+            raise AssertionError("streaming f: the saved and continued build differs")
+    # one selection of TRACE_ITRS eager Adam steps (a new builder's first pass), traced
+    short = make_incremental_builder(Zs, lr["model"], lr["sampler"],
+                                     dataclasses.replace(sm_cfg, opt_itrs=TRACE_ITRS),
+                                     data_weights=ones)
+    trace_dir = out_dir / "phase18_trace"
+    with trace(str(trace_dir)) as prof:
+        with annotate("phase18.one_selection"):
+            short.build(st_leaf, 1, short.generator_draws(keyed(seed + 8)))
+            sync()
+    dev_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
+    trace_mb = sum(f.stat().st_size for f in trace_dir.iterdir()) / 1e6
+    tm.save(str(out_dir / "phase18_streaming_build"))
+    tm_oc.save(str(out_dir / "phase18_outofcore"))
+    log(f"streaming f-g: {SM_M} selections, save_state/load_state, {SM_M} more == "
+        f"{2 * SM_M} uninterrupted, bit for bit; one selection of {TRACE_ITRS} eager steps "
+        f"traced into chiprun_out/phase18_trace ({trace_mb:.1f} MB, {dev_us / 1e3:.3f} ms of "
+        f"device time); Timings in chiprun_out/phase18_*")
+    tmp.cleanup()
+
+    launched = {w.__name__: w.launches for w in wrappers}
+    if any(launched.values()):
+        raise AssertionError(f"streaming: a kernel launched on a path that has none: {launched}")
+    secs = time.perf_counter() - t_phase
+    res["line"] = (f"streaming (phase 18, {secs:.1f} s): s per leaf {leaf_s[-1]:.3f} "
+                   f"({SB_CUT_LEAF} selections), final {res['final_s']:.3f} s "
+                   f"({SB_CUT_FINAL}); out-of-core peak {peak_txt}; checkpoint "
+                   f"{1e3 * float(np.mean(ck_s)):.2f} ms a leaf; CSV native "
+                   f"{res['native_mbs']:.1f} vs numpy {res['numpy_mbs']:.1f} MB/s (host); "
+                   f"K1/K2/K3 launches {list(launched.values())}")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2982,6 +3328,7 @@ def main() -> int:
     groups = phase_groups(args.seed, card, args.group_selections)
     neural = phase_neural_linear(args.seed, card)
     mcmc = phase_mcmc_eval(args.seed, card)
+    streaming = phase_streaming(args.seed, card)
     entries = [("logreg_adam_step", "logreg_adam_step.cu", "pallas_kernels.py:173",
                 {"launches": main_path["launches"] + api["K1"] + mcmc["K1"]}, k1),
                ("multiclass_projection", "multiclass_projection.cu", "pallas_kernels.py:330",
@@ -2994,7 +3341,8 @@ def main() -> int:
     log(groups["line"])
     log(neural)
     log(mcmc["line"])
-    log(f"chip_smoke: phases 0-17 in {time.perf_counter() - t_start:.1f} s")
+    log(streaming["line"])
+    log(f"chip_smoke: phases 0-18 in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"betacores_tpu_torch/csrc/{src}",
          "replaces": f"betacores_tpu/ops/{tpu}", "launches": path["launches"], **k}

@@ -332,12 +332,19 @@ def test_entry_points_need_a_card_or_the_cpu(det, monkeypatch):
             make()
 
 
-@pytest.mark.parametrize("what", ["groups", "bpsvi", "hmc_chains", "shf_trainer"])
+@pytest.mark.parametrize("what", ["groups", "bpsvi", "hmc_chains", "shf_trainer",
+                                  "export_program", "export_incremental_build",
+                                  "load_program"])
 def test_unported_parts_name_their_roadmap_item(det, what):
     """Group mode, BPSVI, the MCMC evaluation and the flows are ported
     (tests/test_torch_groups.py, test_torch_bpsvi.py, test_torch_hmc.py,
-    test_torch_shf.py); their sharded entry points are item 12."""
+    test_torch_shf.py); their sharded entry points are item 12. Exporting
+    the build (the JAX package's utils/export.py) is item 13."""
     Z, samples = det
+    if what in ("export_program", "export_incremental_build", "load_program"):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            getattr(bc.utils, what)(Z)
+        return
     with pytest.raises(NotImplementedError, match="item 12"):
         if what == "groups":
             bc.parallel.make_sharded_group_builder(Z, [[0, 1], [2]])

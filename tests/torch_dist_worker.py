@@ -25,7 +25,11 @@ the per-iteration (wts, idcs, beta) as numpy arrays. A job with
 psums and all_gathers of its rank over both axes, and its blocks of
 ``data`` and ``weights``; one with ``kind="hilbert"`` runs a
 ``ShardedHilbertCoreset`` over ``data`` with given ``samples`` (and
-``beta``), its ``build_trace(trace)`` and then ``build(itrs)``.
+``beta``), its ``build_trace(trace)`` and then ``build(itrs)``; one with
+``kind="stream"`` runs ``coresets.merge_reduce_build`` over the host array
+``data`` with the mesh (``seed``, ``leaf_cfg``, ``final_cfg``, ``chunk``,
+``m_leaf``, ``m_final``, ``state`` the leaf template) and reports the final
+state, the leaf union and the rank's collective counts.
 """
 
 from __future__ import annotations
@@ -96,6 +100,20 @@ def hilbert_report(job, mesh):
                 latched=sh.reached_numeric_limit)
 
 
+def stream_report(job, mesh):
+    """``merge_reduce_build`` with the mesh-streamed leaf pass."""
+    from betacores_tpu_torch.coresets import (IncrementalConfig, merge_reduce_build,
+                                             state_from_numpy, state_to_numpy)
+
+    model, sampler = _model(job["model"])
+    st, pts, wts = merge_reduce_build(
+        job["seed"], job["data"], model, sampler, IncrementalConfig(**job["leaf_cfg"]),
+        IncrementalConfig(**job["final_cfg"]), job["chunk"], job["m_leaf"], job["m_final"],
+        state_from_numpy(job["state"], device="cpu"), mesh=mesh)
+    return {"state": state_to_numpy(st), "leaf_pts": pts.numpy(), "leaf_wts": wts.numpy(),
+            "calls": dict(mesh.calls)}
+
+
 def run_job(job, mesh):
     from betacores_tpu_torch.coresets import (IncrementalConfig, state_from_numpy,
                                              state_to_numpy)
@@ -106,6 +124,8 @@ def run_job(job, mesh):
         return mesh_report(job, mesh)
     if job.get("kind") == "hilbert":
         return hilbert_report(job, mesh)
+    if job.get("kind") == "stream":
+        return stream_report(job, mesh)
     data, n_true = shard_data(torch.from_numpy(job["data"]), mesh)
     u = job.get("weights")
     u = None if u is None else shard_weights(torch.from_numpy(u), mesh)
