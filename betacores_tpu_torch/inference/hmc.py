@@ -20,7 +20,9 @@ package's). Every iteration runs the same static L_max-step body, masked
 past L, reading its draws and the iteration index from the device, so on a
 CUDA device each kind of iteration (warmup A, warmup B, sampling) is
 captured once as a CUDA graph and replayed (``utils/graphs.py``); elsewhere,
-or with ``graph=False``, the same body runs eagerly.
+or with ``graph=False``, the same body runs eagerly. ``run_chains_sharded``
+splits the chains over a mesh's ranks, each rank running its block as one
+batch.
 """
 
 from __future__ import annotations
@@ -339,10 +341,51 @@ def hmc_sample(key, logprob: Callable, theta0, config: HMCConfig = HMCConfig(),
     return _squeeze(*adaptive_mcmc(kernel, theta0[None], draws.phases, config, graph))
 
 
-def run_chains_sharded(key, logprob, theta0, n_chains: int, mesh, config=HMCConfig()):
-    """The chains lane-sharded over a mesh: not ported yet."""
-    raise NotImplementedError("run_chains_sharded: ROADMAP Queue A item 12 "
-                              "(the rest of parallel/) ports it")
+def _chains_of(draws, idx: torch.Tensor):
+    """The draws of chains ``idx`` of a batch's ``HMCDraws`` or
+    ``NUTSDraws`` (each phase's fields carry the chain axis second)."""
+    phases = tuple(type(p)(*(x.index_select(1, idx.to(x.device)) for x in p))
+                   for p in draws.phases)
+    init = None if draws.init is None else draws.init.index_select(0, idx.to(draws.init.device))
+    return type(draws)(init, phases)
+
+
+def run_chains_sharded(key, logprob: Callable, theta0, n_chains: int, mesh,
+                       config=HMCConfig(), graph: Optional[bool] = None):
+    """``run_chains`` with the chains split over every rank of ``mesh``
+    (the reference's lane sharding, as the BPSVI sizes): rank r runs the
+    r-th contiguous block of chains as one batch, on the mesh's device, with
+    no collective until one gather over both axes brings every chain's
+    samples and stats to every rank. The chains are padded up to a multiple
+    of the rank count with lanes started at theta0, dropped before
+    returning. ``key``: a ``torch.Generator`` on the mesh's device, seeded
+    alike on every rank, from which every rank draws all ``n_chains``'
+    draws as ``run_chains`` does and keeps its own (the padding lanes
+    replay chain 0's), or those draws themselves; chain i is then
+    ``run_chains``'s chain i. Given a ``nuts.NUTSConfig`` it runs NUTS
+    chains, as ``nuts.run_chains_nuts``. Returns ((n_chains, n_samples, d)
+    draws, per-chain stats)."""
+    from ..parallel.mesh import gather_lanes, lane_block, require_axes
+    from .nuts import _NUTSKernel, draw_nuts
+
+    require_axes(mesh)
+    theta0 = _as_theta(theta0).to(mesh.device)
+    d = theta0.shape[-1]
+    nuts = hasattr(config, "max_treedepth")
+    draw, make = (draw_nuts, _NUTSKernel) if nuts else (draw_hmc, _HMCKernel)
+    draws = (draw(key, n_chains, d, config, theta0.dtype)
+             if isinstance(key, torch.Generator) else key)
+    _, lo, per = lane_block(n_chains, mesh)
+    lanes = torch.arange(lo, lo + per, device=mesh.device)
+    live = lanes < n_chains
+    mine = _chains_of(draws, torch.where(live, lanes, 0))
+    inits = torch.where(live[:, None], _chain_inits(theta0, mine), theta0)
+    kernel = make(make_precise_logprob_and_grad(logprob), per, d, config, theta0.dtype,
+                  mesh.device)
+    samples, stats = adaptive_mcmc(kernel, inits, mine.phases, config, graph)
+    names = list(stats)
+    out = gather_lanes(mesh, [samples] + [stats[k] for k in names], n_chains)
+    return out[0], dict(zip(names, out[1:]))
 
 
 class _WeightedRunner:

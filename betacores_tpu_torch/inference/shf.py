@@ -22,7 +22,8 @@ Each leapfrog step reuses the gradient at its start from the step before
 corrections and epsilon) with w projected to w >= 0 after each update, from
 a fresh state at every training call. Every training call's draws are made up front
 (``SHFDraws``, ``draw_shf``), or injected: the tests feed the JAX
-package's.
+package's. ``make_sharded_shf_trainer`` splits the ELBO's lanes over a
+mesh's ranks.
 """
 
 from __future__ import annotations
@@ -175,17 +176,27 @@ class _Trainer:
         self.runner = PassRunner(graph)
         self.n_steps = n_steps
 
-    def _step(self) -> None:
+    def _terms(self):
+        """The ELBO's terms log p + log N(rho) - log q of the step's lanes,
+        differentiable in the params."""
         cfg, P = self.cfg, self.params
         at = lambda x: x.index_select(0, self.i)[0]
+        th, rho, log_q = _push(P, self.log_joint, at(self.draws.z_th), at(self.draws.z_rho),
+                               cfg, create_graph=True)
+        batch = self.data.index_select(0, at(self.draws.idx))
+        return self.log_joint(batch, th, self.wb) + _std_normal_logpdf(rho) - log_q
+
+    def _elbo_and_grads(self):
+        """(the ELBO estimate, its negative's gradient in each param)."""
         with torch.enable_grad():
-            th, rho, log_q = _push(P, self.log_joint, at(self.draws.z_th), at(self.draws.z_rho),
-                                   cfg, create_graph=True)
-            batch = self.data.index_select(0, at(self.draws.idx))
-            log_p = self.log_joint(batch, th, self.wb)
-            elbo = torch.mean(log_p + _std_normal_logpdf(rho) - log_q)
-            grads = torch.autograd.grad(-elbo, list(P))
-        bc = at(self.bc)
+            elbo = torch.mean(self._terms())
+            grads = torch.autograd.grad(-elbo, list(self.params))
+        return elbo, grads
+
+    def _step(self) -> None:
+        cfg, P = self.cfg, self.params
+        elbo, grads = self._elbo_and_grads()
+        bc = self.bc.index_select(0, self.i)[0]
         with torch.no_grad():
             for k, (p, m, v, g, mask) in enumerate(zip(P, self.m, self.v, grads, self.nn_mask)):
                 if k == 1 and not cfg.train_pts:
@@ -235,11 +246,86 @@ def make_shf_trainer(data: torch.Tensor, log_joint: Callable, config: SHFConfig 
     return train
 
 
-def make_sharded_shf_trainer(data, log_joint, mesh, config: SHFConfig = SHFConfig()):
-    """Flow training with the ELBO's Monte-Carlo lanes over a mesh: not
-    ported yet."""
-    raise NotImplementedError("make_sharded_shf_trainer: ROADMAP Queue A item 12 "
-                              "(the rest of parallel/) ports it")
+class _ShardedTrainer(_Trainer):
+    """A ``_Trainer`` of this rank's n_mc / P lanes and minibatch: the
+    gradient of its terms' share of the ELBO (their mean times n_loc / n_mc,
+    their sum over n_mc) takes one psum over ``data`` then one over ``samp``
+    (the ELBO rides in the same two); Adam and the projection are
+    replicated. In a world of one the share is the mean times 1.0, so the
+    step computes what ``_Trainer``'s does, bit for bit."""
+
+    def __init__(self, mesh, n_mc: int, *args):
+        super().__init__(*args)
+        self.mesh, self.n_mc = mesh, n_mc
+        self.runner.calls = mesh.calls
+
+    def _elbo_and_grads(self):
+        from ..parallel.mesh import DATA_AXIS, SAMP_AXIS
+
+        with torch.enable_grad():
+            terms = self._terms()
+            elbo = torch.mean(terms) * (terms.shape[0] / self.n_mc)
+            grads = torch.autograd.grad(-elbo, list(self.params))
+        flat = torch.cat([g.reshape(-1) for g in grads] + [elbo.detach().reshape(1)])
+        flat = self.mesh.psum(self.mesh.psum(flat, DATA_AXIS), SAMP_AXIS)
+        parts = torch.split(flat, [g.numel() for g in grads] + [1])
+        return parts[-1][0], [p.reshape(g.shape) for p, g in zip(parts, grads)]
+
+
+def _draw_sharded_shf(generator: torch.Generator, n_steps: int, N: int, d: int, mesh,
+                     config: SHFConfig = SHFConfig(), dtype: torch.dtype = torch.float32
+                     ) -> SHFDraws:
+    """This rank's draws of a sharded training call: every rank draws the
+    whole world's (``draw_shf`` of n_mc lanes and P minibatches of
+    ``n_batch`` rows a step, from a generator seeded alike) and keeps its
+    own n_mc / P lanes and its own minibatch, each rank's differing from
+    every other's; in a world of one they are ``draw_shf``'s."""
+    n_ranks = mesh.n_data * mesh.n_samp
+    n_loc, B = config.n_mc // n_ranks, config.n_batch
+    every = draw_shf(generator, n_steps, N, d, config._replace(n_batch=B * n_ranks), dtype)
+    r = mesh.rank
+    return SHFDraws(every.z_th[:, r * n_loc:(r + 1) * n_loc],
+                    every.z_rho[:, r * n_loc:(r + 1) * n_loc], every.idx[:, r * B:(r + 1) * B])
+
+
+def make_sharded_shf_trainer(data: torch.Tensor, log_joint: Callable, mesh,
+                             config: SHFConfig = SHFConfig(), graph: Optional[bool] = None):
+    """``make_shf_trainer`` with the ELBO's Monte-Carlo lanes split over
+    every rank of ``mesh`` (the reference's lane sharding): each rank
+    pushes its n_mc / P flow lanes and its own B-row minibatch through the
+    flow, and one psum over ``data`` then over ``samp`` of the gradient of
+    its terms' sum over n_mc gives every rank the replicated-mean
+    gradient; the params, Adam, the w >= 0 projection and the ``train_pts``
+    switch are replicated, the ELBO trace psum'd. ``data`` is whole on
+    every rank, moved to the mesh's device. ``train(key, params, n_steps)
+    -> (params, elbo_trace)``: ``key`` a generator seeded alike on every
+    rank (``_draw_sharded_shf``), or this rank's ``SHFDraws`` of its n_mc / P
+    lanes and minibatch. ``config.n_mc`` must divide over the P ranks.
+    ``graph`` as ``make_shf_trainer``'s: a captured step holds its two
+    all-reduces."""
+    from ..parallel.mesh import require_axes
+
+    n_data, n_samp = require_axes(mesh)
+    n_ranks = n_data * n_samp
+    if config.n_mc % n_ranks:
+        raise ValueError(f"n_mc {config.n_mc} must divide over {n_ranks} ranks")
+    data = data.to(mesh.device)
+    graph = resolve_graph(graph, mesh.device)
+    cfg_loc = config._replace(n_mc=config.n_mc // n_ranks)
+    trainers: dict = {}
+
+    def train(key, params: SHFParams, n_steps: int):
+        params = SHFParams(*(x.to(mesh.device) for x in params))
+        sig = (n_steps, tuple(tuple(x.shape) for x in params))
+        if sig not in trainers:
+            trainers[sig] = _ShardedTrainer(mesh, config.n_mc, data, log_joint, cfg_loc,
+                                            params, n_steps, graph)
+        draws = (_draw_sharded_shf(key, n_steps, data.shape[0], params.mu0.shape[0], mesh,
+                                  config, data.dtype)
+                 if isinstance(key, torch.Generator) else key)
+        return trainers[sig].run(params, draws)
+
+    return train
 
 
 def beta_log_joint(model, beta: float, log_prior: Callable = None) -> Callable:

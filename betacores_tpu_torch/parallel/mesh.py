@@ -11,9 +11,12 @@ One process per rank. Rank r sits at (ax_d, ax_s) with
 r = ax_d * n_samp + ax_s, the layout of the reference's
 ``devices.reshape(n_data, n_samp)``. ``make_mesh`` makes one process group
 per ``data`` line (the ranks that share ax_s) and one per ``samp`` line (the
-ranks that share ax_d), each in axis order. The collectives go through
-``torch.distributed`` even on an axis of size 1; a backend that cannot
-serve a tensor's device raises instead of copying through the host.
+ranks that share ax_d), each in axis order; ``LANE_AXES`` names the whole
+mesh, both axes at once, in rank order (the lane split of the reference's
+``P((DATA_AXIS, SAMP_AXIS))``: BPSVI lanes, MCMC chains, flow lanes and
+Shapley permutations). The collectives go through ``torch.distributed``
+even on an axis of size 1; a backend that cannot serve a tensor's device
+raises instead of copying through the host.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 SAMP_AXIS = "samp"
+LANE_AXES = (DATA_AXIS, SAMP_AXIS)
 
 # the devices each backend serves; anything else raises (gloo, for one,
 # has no all_gather on CUDA tensors)
@@ -53,7 +57,8 @@ class Mesh:
 
     @property
     def shape(self) -> dict:
-        return {DATA_AXIS: self.n_data, SAMP_AXIS: self.n_samp}
+        return {DATA_AXIS: self.n_data, SAMP_AXIS: self.n_samp,
+                LANE_AXES: self.n_data * self.n_samp}
 
     @property
     def rank(self) -> int:
@@ -67,17 +72,19 @@ class Mesh:
                              f"tensors (axis {axis!r})")
         return group
 
-    def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        """The sum of ``x`` over the ranks of this rank's ``axis`` line, as a
-        new tensor (``x`` is left alone)."""
+    def psum(self, x: torch.Tensor, axis) -> torch.Tensor:
+        """The sum of ``x`` over the ranks of this rank's ``axis`` line
+        (``LANE_AXES``: every rank), as a new tensor (``x`` is left
+        alone)."""
         out = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, group=self._group(axis, x))
         self.calls["psum"] += 1
         return out
 
-    def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+    def all_gather(self, x: torch.Tensor, axis) -> torch.Tensor:
         """(axis size, *x.shape): ``x`` of every rank of this rank's
-        ``axis`` line, stacked in axis order."""
+        ``axis`` line, stacked in axis order (``LANE_AXES``: every rank's,
+        in rank order)."""
         group = self._group(axis, x)
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(self.shape[axis])]
@@ -121,6 +128,7 @@ def make_mesh(n_data: int, n_samp: int = 1,
         g = dist.new_group([d * n_samp + s for s in range(n_samp)])
         if d == ax_d:
             groups[SAMP_AXIS] = g
+    groups[LANE_AXES] = dist.group.WORLD       # the world is the mesh, in rank order
     if device is None:
         if dist.get_backend() == "nccl":
             device = torch.device("cuda", rank % torch.cuda.device_count())
@@ -155,14 +163,41 @@ def auto_mesh_shape(n_devices: int) -> Tuple[int, int]:
     return n_devices, 1
 
 
-def _local_block(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """This rank's block of ``x``'s rows after zero-padding N up to a
-    multiple of the data-axis size, on the mesh's device."""
+def lane_block(n_lanes: int, mesh: Mesh) -> Tuple[int, int, int]:
+    """(padded lane count, this rank's first lane, lanes per rank): the
+    lanes padded up to a multiple of the mesh's rank count and split into
+    equal contiguous blocks in rank order, as the reference shards a lane
+    axis over ``P((DATA_AXIS, SAMP_AXIS))``."""
+    n_ranks = mesh.n_data * mesh.n_samp
+    per = -(-n_lanes // n_ranks)
+    return per * n_ranks, mesh.rank * per, per
+
+
+def gather_lanes(mesh: Mesh, parts, n_lanes: int) -> list:
+    """Every rank's lanes of each tensor of ``parts`` (this rank's block of
+    ``lane_block``'s split, the lane axis first), in lane order, with the
+    padding lanes (from ``n_lanes`` on) dropped: one all_gather over both
+    axes of the parts packed in float64, which holds every float32 and
+    float64 value, integer below 2^53 and bool exactly."""
+    per = parts[0].shape[0]
+    packed = torch.cat([p.reshape(per, -1).double() for p in parts], dim=1)
+    every = mesh.all_gather(packed, LANE_AXES).flatten(0, 1)[:n_lanes]
+    out, at = [], 0
+    for p in parts:
+        k = p[0].numel()
+        out.append(every[:, at:at + k].reshape((n_lanes,) + tuple(p.shape[1:])).to(p.dtype))
+        at += k
+    return out
+
+
+def _local_block(x: torch.Tensor, mesh: Mesh, pad=0) -> torch.Tensor:
+    """This rank's block of ``x``'s rows after padding N up to a multiple
+    of the data-axis size with rows of ``pad``, on the mesh's device."""
     N = x.shape[0]
     rows = -(-N // mesh.n_data)
     lo = min(N, mesh.ax_d * rows)
     hi = min(N, lo + rows)
-    out = torch.zeros((rows,) + tuple(x.shape[1:]), dtype=x.dtype, device=mesh.device)
+    out = torch.full((rows,) + tuple(x.shape[1:]), pad, dtype=x.dtype, device=mesh.device)
     out[:hi - lo] = x[lo:hi]
     return out
 
@@ -172,6 +207,13 @@ def shard_data(data: torch.Tensor, mesh: Mesh) -> Tuple[torch.Tensor, int]:
     of the data-axis size with zero rows (the last shards hold them); the
     ranks of one ``samp`` line hold the same block."""
     return _local_block(data, mesh), data.shape[0]
+
+
+def shard_group_ids(gid: torch.Tensor, mesh: Mesh, n_groups: int) -> torch.Tensor:
+    """This rank's block of an (N,) group-id vector, split as ``shard_data``
+    splits the rows; padding rows get id ``n_groups``, the segment every
+    group reduction drops, so they join no group."""
+    return _local_block(gid.to(torch.int64), mesh, pad=n_groups)
 
 
 def shard_weights(u: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -26,7 +26,10 @@ The refinement takes one of three routes, as in the reference:
   * composed: any other model, or a weighted build, through
     utils/opt.py::nn_adam on pre-drawn noise and rows;
   * per step: full-data refinement (``n_subsample_opt=None``) projects
-    every local row at each step.
+    every local row at each step; and a sampler without a noise split
+    (the NIW sampler of models/mvn.py, reference sharded.py:442-452)
+    draws inside each step: ``sampler(generator, S, w, pts, aux)`` on the
+    replicated generator, then the step's shard-local subsample.
 
 ``learn_beta`` (route "learn_beta", reference sharded.py:453-477) is the
 single-device builder's joint (w, beta) update, replicated: every step
@@ -40,7 +43,11 @@ Draws are separate from compute, as in the single-device builder:
 replicated noise from one generator and the shard-local subsample indices
 (in [0, max(local_valid, 1))) from another, seeded per data shard;
 ``coresets.FixedDraws`` replays given draws, with each rank's LOCAL
-indices. No loop body reads a device value on the host.
+indices. A sampler without a noise split is called on the draws'
+``replicated`` generator at select and at every step, and the subsample
+indices come from ``local_indices(n)``: a world of one given the same
+generator for both draws what the single-device per-step-draw route draws
+(coresets/incremental.py). No loop body reads a device value on the host.
 
 The fused route's pass is a device-resident program, as in the
 single-device builder (coresets/incremental.py): static buffers
@@ -87,20 +94,21 @@ class ShardedGeneratorDraws:
         return self.sampler.draw_noise(self.replicated, n, st.wts, st.pts,
                                        st.sampler_aux)
 
-    def _sub(self, n):
+    def local_indices(self, n):
+        """n shard-local subsample indices in [0, max(local_valid, 1))."""
         return torch.randint(0, max(self.local_valid, 1), (n,), generator=self.local,
                              device=self.local.device)
 
     def select(self, it, st):
         z = self._noise(self.n_samples, st)
-        return z, None if self.n_sel is None else self._sub(self.n_sel)
+        return z, None if self.n_sel is None else self.local_indices(self.n_sel)
 
     def optimize(self, it, st):
         T, S = self.n_steps, self.n_samples
         z = self._noise(T * S, st).reshape(T, S, -1)
         if self.n_opt is None:
             return z, None
-        return z, self._sub(T * self.n_opt).reshape(T, self.n_opt)
+        return z, self.local_indices(T * self.n_opt).reshape(T, self.n_opt)
 
 
 class ShardedIncrementalBuilder:
@@ -141,11 +149,12 @@ class ShardedIncrementalBuilder:
                               else self.opt_scale.to(torch.float32))
         self.row_valid = (torch.arange(rows, device=dev) < self.local_valid).to(dt)
         self.lagged = config.refit_every > 1
+        self.per_step_draws = not noise_split(sampler)
         self.fstep = getattr(model, "fused_beta_shard_partials" if config.use_beta
                              else "fused_ll_shard_partials", None)
         if config.learn_beta:
             self.route = "learn_beta"
-        elif self.n_opt is None:
+        elif self.n_opt is None or self.per_step_draws:
             self.route = "per_step"
         elif self.fstep is not None and u_local is None and laplace_family(sampler):
             self.route = "fused"
@@ -196,8 +205,12 @@ class ShardedIncrementalBuilder:
     def select(self, st: CoresetState, draws: Draws, it: int = 0) -> CoresetState:
         """Reference sharded.py:166-240: local scoring, distributed argmax."""
         cfg, mesh, data, S = self.config, self.mesh, self.data, self.S
-        z, sub = draws.select(it, st)
-        samples, aux = self.sampler.from_noise(z, st.wts, st.pts, st.sampler_aux)
+        if self.per_step_draws:
+            samples, aux = self.sampler(draws.replicated, S, st.wts, st.pts, st.sampler_aux)
+            sub = None if self.n_sel is None else draws.local_indices(self.n_sel)
+        else:
+            z, sub = draws.select(it, st)
+            samples, aux = self.sampler.from_noise(z, st.wts, st.pts, st.sampler_aux)
         samples_loc = self._samples_loc(samples)
         mask = st.slot_mask[:, None].to(data.dtype)
         rows = data if sub is None else data[sub]
@@ -373,24 +386,55 @@ class ShardedIncrementalBuilder:
         aux = self.sampler.fit_aux(carry) if self.lagged else carry
         return st._replace(wts=w_new, sampler_aux=aux)
 
+    def _step_draws(self, st: CoresetState, draws: Draws, it: int):
+        """(xs, draw) of a per-step or learn_beta pass: nn_adam's per-step
+        inputs and ``draw(w, aux, xs_i) -> (samples, aux, idx)``, idx the
+        step's shard-local subsample (None: every local row). Pre-drawn
+        noise and indices ride in ``xs``; a sampler without a noise split
+        is called on the replicated generator, then the subsample drawn."""
+        smp, n_opt = self.sampler, self.n_opt
+        if self.per_step_draws:
+            def draw(w, aux, xs_i):
+                samples, aux = smp(draws.replicated, self.S, w, st.pts, aux)
+                return samples, aux, None if n_opt is None else draws.local_indices(n_opt)
+
+            return None, draw
+        z_all, idx_all = draws.optimize(it, st)
+
+        def draw(w, aux, xs_i):
+            samples, aux = smp.from_noise(xs_i[0], w, st.pts, aux)
+            return samples, aux, None if idx_all is None else xs_i[1]
+
+        return ((z_all,) if idx_all is None else (z_all, idx_all)), draw
+
+    def _rows(self, idx):
+        """(rows, their weights or None, their mask, the target's scale) of
+        a step's subsample, or of every local row when ``idx`` is None."""
+        if idx is None:
+            return self.data, self.u, self.row_valid[:, None], None
+        return (self.data[idx], None if self.u is None else self.u[idx], self.has_rows,
+                self.opt_scale)
+
     def _optimize_per_step(self, st: CoresetState, draws: Draws, it: int) -> CoresetState:
-        """Full-data refinement (reference sharded.py:442-451): every step
-        refits the posterior and projects every local row; the target's
-        psum over data is exact."""
-        S, mesh, smp = self.S, self.mesh, self.sampler
-        z_all, _ = draws.optimize(it, st)
+        """Full-data refinement (reference sharded.py:442-451), or a
+        sampler without a noise split: every step refits the posterior
+        (the sampler draws from the refit), projects its rows (every local
+        row, or its subsample) and the buffer, and takes the target: exact
+        over every row, or the stratified estimate."""
+        S, mesh = self.S, self.mesh
+        xs, draw = self._step_draws(st, draws, it)
         mask = st.slot_mask[:, None].to(self.data.dtype)
 
-        def grad_fn(w, aux, i, xs_i):
-            samples, aux = smp.from_noise(xs_i[0], w, st.pts, aux)
-            vecs, corevecs = self._project([self.data, st.pts], self._samples_loc(samples),
-                                           st.beta)
-            total = self._target(vecs * self.row_valid[:, None], self.u, None)
+        def grad_fn(w, aux, i, xs_i=None):
+            samples, aux, idx = draw(w, aux, xs_i)
+            rows, usub, valid, scale = self._rows(idx)
+            vecs, corevecs = self._project([rows, st.pts], self._samples_loc(samples), st.beta)
+            total = self._target(vecs * valid, usub, scale)
             corevecs = corevecs * mask
             resid = total - w @ corevecs
             return -mesh.psum(corevecs @ resid, SAMP_AXIS) / S, aux
 
-        w_new, aux = nn_adam(st.wts, grad_fn, st.sampler_aux, self.step_sizes, xs=(z_all,),
+        w_new, aux = nn_adam(st.wts, grad_fn, st.sampler_aux, self.step_sizes, xs=xs,
                              bias_corrections=self._bc(st.wts))
         return st._replace(wts=w_new, sampler_aux=aux)
 
@@ -401,32 +445,24 @@ class ShardedIncrementalBuilder:
         separately, the buffer with its centred beta-gradient; one psum
         over ``samp`` centres all three blocks and one more takes both
         inner products over S."""
-        cfg, S, mesh, smp = self.config, self.S, self.mesh, self.sampler
-        z_all, idx_all = draws.optimize(it, st)
+        cfg, S, mesh = self.config, self.S, self.mesh
+        xs, draw = self._step_draws(st, draws, it)
         M_buf = st.wts.shape[0]
         mask = st.slot_mask[:, None].to(self.data.dtype)
         clamp = lambda b: torch.clamp(b, BETA_FLOOR, cfg.beta_cap)
-        if idx_all is None:
-            xs = (z_all,)
-        else:
-            xs = (z_all, self.data[idx_all]) + (() if self.u is None else (self.u[idx_all],))
 
-        def grad_fn(x, aux, i, xs_i):
+        def grad_fn(x, aux, i, xs_i=None):
             w, beta = x[:M_buf], clamp(x[M_buf])
-            samples, aux = smp.from_noise(xs_i[0], w, st.pts, aux)
+            samples, aux, idx = draw(w, aux, xs_i)
             samples_loc = self._samples_loc(samples)
-            rows = self.data if idx_all is None else xs_i[1]
+            rows, usub, valid, scale = self._rows(idx)
             lls = [self._lik(rows, samples_loc, beta), self._lik(st.pts, samples_loc, beta),
                    self.model.beta_gradient(st.pts, samples_loc, beta)]
             sums = mesh.psum(torch.cat([v.sum(dim=1) for v in lls]), SAMP_AXIS)
             means = torch.split(sums / S, [v.shape[0] for v in lls])
             vecs, corevecs, betagrads = (v - mu[:, None] for v, mu in zip(lls, means))
             corevecs, betagrads = corevecs * mask, betagrads * mask
-            if idx_all is None:
-                total = self._target(vecs * self.row_valid[:, None], self.u, None)
-            else:
-                total = self._target(vecs * self.has_rows,
-                                     xs_i[2] if len(xs_i) > 2 else None, self.opt_scale)
+            total = self._target(vecs * valid, usub, scale)
             resid = total - w @ corevecs
             dots = mesh.psum(torch.cat([corevecs @ resid, betagrads @ resid]), SAMP_AXIS)
             betagrad = -cfg.beta_grad_scale * (w @ dots[M_buf:]) / S
@@ -466,17 +502,18 @@ def make_sharded_incremental_builder(
     (n_true, D) dataset (``shard_data``'s output; zero rows pad N to a
     multiple of the data-axis size). ``data_weights`` is this rank's block
     of (N,) base-data weights (``shard_weights``): row n counts u_n times
-    in the target, and zero-weight rows are never selected. The sampler
-    needs ``draw_noise``/``from_noise`` (the Laplace, conjugate, fixed and
-    prior samplers), and ``fit``/``from_fit``/``fit_aux`` for lagged
-    refits; ``learn_beta`` needs a model with
+    in the target, and zero-weight rows are never selected. A sampler
+    with ``draw_noise``/``from_noise`` (the Laplace, conjugate, fixed and
+    prior samplers) has its noise drawn per pass, one without (the NIW
+    sampler) is called inside each step (route "per_step");
+    ``fit``/``from_fit``/``fit_aux`` serve lagged refits; ``learn_beta``
+    needs a model with
     ``beta_gradient``. ``graph``: whether the fused route's passes run as
     replayed CUDA graphs (None: on a CUDA device; True elsewhere raises)."""
-    if not noise_split(sampler):
-        raise NotImplementedError("the sharded build of a sampler without a noise split "
-                                  "(draw_noise, from_noise), such as the NIW sampler, is "
-                                  "not ported yet (ROADMAP Queue A item 12)")
     n_data, n_samp = require_axes(mesh)
+    if not noise_split(sampler) and not callable(sampler):
+        raise ValueError("the sampler has neither a noise split (draw_noise, from_noise) "
+                         "nor a call sampler(generator, n, wts, pts, aux)")
     if config.learn_beta and getattr(model, "beta_gradient", None) is None:
         raise ValueError("learn_beta requires a model with beta_gradient")
     S = config.projection_dim

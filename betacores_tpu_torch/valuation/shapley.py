@@ -19,6 +19,14 @@ per prefix: a truncated prefix skips its fit. The draws (the permutation,
 the cap's uniforms and each prefix's posterior noise) are made apart from
 the compute, from a ``torch.Generator`` or replayed
 (``PermutationDraws``). Everything runs on the device of the data.
+
+With a ``mesh`` (parallel/mesh.py) the T rounds are the reference's
+process-pool axis: padded up to a multiple of the mesh's rank count and
+split into contiguous blocks in rank order (``lane_block``), each rank
+running its block's rounds in turn (the padding rounds run nothing), and
+one psum over both axes sums (phis, occs). Every rank draws the rounds'
+draws from a generator seeded alike, in round order, and keeps its own,
+so the estimate is ``mesh=None``'s up to float summation order.
 """
 
 from __future__ import annotations
@@ -101,8 +109,10 @@ class _PermutationRunner:
     def __init__(self, gid, groups: Groups, value_fn, group_cap, mesh, value_args,
                  n_prefixes: int):
         if mesh is not None:
-            raise NotImplementedError("Shapley permutations sharded over a mesh are not "
-                                      "ported yet (ROADMAP Queue A item 12)")
+            from ..parallel.mesh import require_axes
+
+            require_axes(mesh)
+        self.mesh = mesh
         self.G, self.N = groups.n_groups, gid.shape[0]
         self.groups, self.value_fn, self.cap = groups, value_fn, group_cap
         self.vargs, self.n_prefixes = tuple(value_args), n_prefixes
@@ -125,17 +135,35 @@ class _PermutationRunner:
 
     def rounds(self, draws, T: int):
         """(perm, rank of each row's group, capped member mask, noise) of
-        each of T rounds; ``draws`` is a generator or a sequence of T
-        ``PermutationDraws``."""
+        each of T rounds, or with a mesh of this rank's; ``draws`` is a
+        generator or a sequence of T ``PermutationDraws``."""
         dev = self.groups.members.device
-        for t in range(T):
+        lo, hi = 0, T
+        if self.mesh is not None:
+            from ..parallel.mesh import lane_block
+
+            _, lo, per = lane_block(T, self.mesh)
+            hi = min(T, lo + per)
+        for t in range(hi):
             d = self.draws(draws) if isinstance(draws, torch.Generator) else draws[t]
+            if t < lo:
+                continue
             perm = d.perm.to(dev)
             pos = torch.empty(self.G, dtype=torch.int64, device=dev)
             pos.scatter_(0, perm, torch.arange(self.G, device=dev))
             cmask = capped_member_mask(d.cap_u, self.groups, self.cap if self.capped else None,
                                        self.N)
             yield perm, pos[self.gid_c], cmask & self.in_group, d.noise
+
+    def estimate(self, phis, occs) -> torch.Tensor:
+        """phis / occs where a group was reached (else 0), summed over the
+        mesh's ranks first (one psum over both axes)."""
+        if self.mesh is not None:
+            from ..parallel.mesh import LANE_AXES
+
+            both = self.mesh.psum(torch.cat([phis, occs]), LANE_AXES)
+            phis, occs = both[:self.G], both[self.G:]
+        return torch.where(occs > 0, phis / occs, 0.0)
 
     def value(self, noise_j, rank, member, j: int):
         w = ((rank <= j) & member).to(torch.float32)
@@ -149,7 +177,8 @@ def make_dshapley(gid: torch.Tensor, groups: Groups, value_fn: Callable, max_gro
     prefixes of T permutations. ``prior_value`` is the value of the empty
     prefix (accuracy 0.5 under the prior). ``draws``: a
     ``torch.Generator`` or T ``PermutationDraws`` (``dshapley.draws(gen)``
-    makes one round's)."""
+    makes one round's). ``mesh``: the rounds split over its ranks (module
+    docstring), every rank returning the whole estimate."""
     mg = min(max_groups, groups.n_groups)
     runner = _PermutationRunner(gid, groups, value_fn, group_cap, mesh, value_args, mg)
 
@@ -166,7 +195,7 @@ def make_dshapley(gid: torch.Tensor, groups: Groups, value_fn: Callable, max_gro
                 v_prev = v
             phis.index_add_(0, perm[:mg], torch.stack(margs))
             occs.index_add_(0, perm[:mg], torch.ones(mg, dtype=torch.float32, device=dev))
-        return torch.where(occs > 0, phis / occs, 0.0)
+        return runner.estimate(phis, occs)
 
     dshapley.draws = runner.draws
     return dshapley
@@ -202,7 +231,7 @@ def make_tmc_shapley(gid: torch.Tensor, groups: Groups, value_fn: Callable,
                 truncated = bool(torch.abs(full_value - v) < tol)
             phis.index_add_(0, perm, torch.stack(margs))
             occs.index_add_(0, perm, torch.ones(G, dtype=torch.float32, device=dev))
-        return torch.where(occs > 0, phis / occs, 0.0)
+        return runner.estimate(phis, occs)
 
     tmc.draws = runner.draws
     return tmc

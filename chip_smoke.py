@@ -175,7 +175,30 @@ toolkit. Phases, each of which raises on failure:
      parser against numpy on a 100 MB file; (f) ``save_state`` /
      ``load_state`` between two halves of a build; (g) ``Timings`` and one
      ``trace`` written under chiprun_out/. K1, K2 and K3 launch 0 times in
-     it.
+     it;
+ 19. the rest of parallel/ (``phase_parallel``), every mesh a (1, 1) NCCL
+     world of one rank, each entry point held against its single-device
+     counterpart on the card under the same draws: (a) the sharded
+     exact-gradient logistic group build of phase 15 (b)'s widths for
+     PAR_GB_SELECTIONS selections after a warm-up (groups, m, idcs equal,
+     weights within 1e-6 max|w|); (b) the sharded multiclass group build of
+     phase 15 (c)'s widths, one selection after a warm-up, K2 launched 402
+     times (the local rows and the buffer at select and every step, the
+     samp = 1 route), then at N = 9000 on the card against the
+     single-device build on the CPU in both select modes; (c)
+     ``make_sharded_bpsvi_batch`` over sizes 10, 50, 100 at phase 15 (d)'s
+     widths, every lane bit for bit ``bpsvi_build_batch``'s; (d)
+     ``run_chains_sharded``, HMC and NUTS, 2 chains of 1000 + 1000 on phase
+     17's m = 100 coreset, every chain ``run_chains``'s (``run_chains_nuts``'s)
+     within 1e-6; (e) ``make_sharded_shf_trainer`` at examples/shf_logreg.py's
+     widths for PAR_SHF_STEPS of its 6000 steps, bit for bit
+     ``make_shf_trainer``'s; (f) DShapley (T = 50) and TMC (T = 5) with
+     ``mesh=`` on phase 15 (a)'s movielens groups, equal to ``mesh=None``
+     under the same ``PermutationDraws``; (g) the sharded NIW build at
+     examples/mvn_unknown_cov.py's widths over 2^20 rows plus outliers for
+     PAR_V_SELECTIONS selections, equal to the single-device per-step-draw
+     build under one generator (``check_same_build``'s 5e-3 max(1, max|w|):
+     the two centre the projections in another order).
 Phase 14 also builds GIGAO and GIGAR at examples/zellner_gaussian.py's own
 N = 5000 and raises if either reverse KL is more than an order of magnitude
 off the JAX package's record.
@@ -309,6 +332,10 @@ OC_N_SEL, OC_N_OPT, OC_SIG, OC_SHIFT, OC_CUT_M = 1000, 200, 2.0, 1.0, 25
 # chunk, selections, Adam steps; and the size of the parsed CSV
 SM_N, SM_CHUNK, SM_M, SM_ITRS, CSV_MB = 20_000, 5_000, 3, 50, 100
 TRACE_ITRS = 5                  # the Adam steps of phase 18's traced selection
+# phase 19, the rest of parallel/ on a (1, 1) NCCL mesh: selections of (a) the logistic
+# and (b) the multiclass sharded group build after a warm-up, (e) the sharded flow's
+# training steps (of SHF_STEPS), (g) selections of the sharded NIW build
+PAR_GB_SELECTIONS, PAR_GC_SELECTIONS, PAR_SHF_STEPS, PAR_V_SELECTIONS = 2, 1, 500, 2
 # operations per likelihood value (csrc/logreg_common.cuh::Likelihood),
 # each arithmetic or transcendental operation counted once: beta, log
 TRANSFORM_OPS = {True: 17, False: 6}
@@ -2764,7 +2791,8 @@ def phase_mcmc_eval(seed: int, card: str, dev: str = "cuda") -> dict:
         in chunks of 2000, 2000 samples) and its baseline, 2 HMC chains of
         1000 + 1000 on every row;
     (e) ``mcmc_self_check``.
-    Returns K1's launches in (a)'s build and one summary line."""
+    Returns K1's launches in (a)'s build, the m = 100 coreset (points and
+    weights, padded, on the card) and one summary line."""
     import betacores_tpu_torch as bc
     from betacores_tpu_torch import gen_synthetic_logreg, logreg, logreg_laplace_sampler, perturb_logreg
     from betacores_tpu_torch.evaluation import compute_accuracy, predictive_loglik
@@ -2972,8 +3000,9 @@ def phase_mcmc_eval(seed: int, card: str, dev: str = "cuda") -> dict:
 
     # --- (e) self-checks ---
     mcmc_self_check(dev)
-    return {"K1": k1, "line": f"mcmc (phase 17, {time.perf_counter() - t_phase:.1f} s): "
-                              + "; ".join(summary)}
+    return {"K1": k1, "coreset": padded(ZL_M),
+            "line": f"mcmc (phase 17, {time.perf_counter() - t_phase:.1f} s): "
+                    + "; ".join(summary)}
 
 
 def _same_bits(what: str, got, want) -> None:
@@ -3298,6 +3327,327 @@ def phase_streaming(seed: int, card: str, dev: str = "cuda", oc_n: int = OC_N,
                    f"K1/K2/K3 launches {list(launched.values())}")
     return res
 
+def _same_group_build(what: str, got, ref, tol: float) -> str:
+    """Raises unless two group builds select the same groups, indices and
+    m, with weights within tol * max|w|; returns a summary."""
+    if not torch.equal(got.selected.cpu(), ref.selected.cpu()):
+        raise AssertionError(f"{what}: selected groups differ: "
+                             f"{torch.nonzero(got.selected)[:, 0].tolist()} against "
+                             f"{torch.nonzero(ref.selected)[:, 0].tolist()}")
+    g, r = got.core, ref.core
+    if int(g.m) != int(r.m) or not torch.equal(g.idcs.cpu(), r.idcs.cpu()):
+        raise AssertionError(f"{what}: selections differ: m={int(g.m)} against m={int(r.m)}")
+    scale = float(r.wts.abs().max())
+    err = float((g.wts.cpu() - r.wts.cpu()).abs().max())
+    if not err <= tol * scale:
+        raise AssertionError(f"{what}: weights differ by {err:.3e} > {tol * scale:.3e}")
+    return f"same groups, m={int(g.m)} and indices, max |dw| {err:.3e} <= {tol * scale:.3e}"
+
+
+def _same_tensors(what: str, got, want, tol: float = 0.0) -> str:
+    """Raises unless each pair of tensors agrees within tol * max(1, max|want|)
+    (tol 0: bit for bit); returns a summary."""
+    errs = []
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape:
+            raise AssertionError(f"{what}[{k}]: shape {tuple(g.shape)} != {tuple(w.shape)}")
+        err = float((g.double() - w.double()).abs().max()) if g.numel() else 0.0
+        bound = tol * max(1.0, float(w.double().abs().max()) if w.numel() else 0.0)
+        if not err <= bound:
+            raise AssertionError(f"{what}[{k}]: differs by {err:.3e} > {bound:.3e}")
+        errs.append(err)
+    return f"max |diff| {max(errs):.3e} ({'bit for bit' if max(errs) == 0 else f'tol {tol:g}'})"
+
+
+def phase_parallel(seed: int, card: str, mcmc: dict, dev: str = "cuda",
+                   gc_n: int = GC_N, v_n: int = FAM_ROWS) -> dict:
+    """Phase 19: the rest of parallel/ (the sharded group build, BPSVI lanes,
+    HMC/NUTS chains, the flow trainer, Shapley over a mesh and the sharded
+    NIW build), each on a (1, 1) NCCL mesh (a world of one rank met through
+    a FileStore) at its example's widths and held against its single-device
+    counterpart on the card under the same draws (the module docstring's
+    a-g). Returns K2's launches in (b)'s measured selection and one line."""
+    import betacores_tpu_torch as bc
+    from betacores_tpu_torch.coresets import (BPSVIConfig, FixedDraws, bpsvi_build_batch,
+                                              group_ids_from_groups, init_group_state,
+                                              make_bpsvi_builder,
+                                              make_group_incremental_builder)
+    from betacores_tpu_torch.inference import (HMCConfig, SHFConfig, default_nuts_config,
+                                               init_shf_params, make_sharded_shf_trainer,
+                                               make_shf_trainer, run_chains, run_chains_nuts,
+                                               run_chains_sharded)
+    from betacores_tpu_torch.models import multiclass, mvn
+    from betacores_tpu_torch.ops import kernels
+    from betacores_tpu_torch.ops.projection import Groups
+    from betacores_tpu_torch.parallel import (make_mesh, make_sharded_bpsvi_batch,
+                                              make_sharded_group_builder, shard_data,
+                                              shard_group_ids, world_of_one)
+    from betacores_tpu_torch.valuation import (logreg_laplace_value_fn, make_dshapley,
+                                               make_tmc_shapley)
+
+    t_phase = time.perf_counter()
+    k2 = kernels.multiclass_projection
+    keyed = lambda s: torch.Generator(device=dev).manual_seed(s)
+    gen = keyed(seed + 19)
+    summary = []
+    with world_of_one("nccl" if dev == "cuda" else "gloo"):
+        mesh = make_mesh(1, 1, device=dev)
+
+        def sharded_groups(Z, gp, model, sampler, cfg):
+            Zs, n_true = shard_data(Z, mesh)
+            gid = shard_group_ids(group_ids_from_groups(gp, Z.shape[0]), mesh, gp.n_groups)
+            return make_sharded_group_builder(Zs, gid, n_true, gp, model, sampler, cfg, mesh)
+
+        # --- a. examples/bench_group_pass.py --end-to-end through the sharded builder ---
+        X, y, _ = bc.gen_synthetic_logreg(gen, GB_N, d=N_FEAT)
+        X, y, Zb, _ = bc.perturb_logreg(gen, X, y, f_rate=0.1)
+        del X, y
+        per = GB_N // GB_G
+        gp = Groups.from_lists([range(g * per, (g + 1) * per) for g in range(GB_G)], dev)
+        cfg = bc.IncrementalConfig(projection_dim=S, n_subsample_select=None,
+                                   n_subsample_opt=None, opt_itrs=GB_ITRS, i0=1.0, use_beta=True)
+        sb = sharded_groups(Zb, gp, bc.logreg.bundle(), bc.logreg_laplace_sampler(), cfg)
+        if sb.onehot is not None:
+            raise AssertionError("N G 4 bytes above the gate: the sharded build should scatter")
+        gst0 = init_group_state(bc.init_state((GB_M + 1) * per, N_FEAT, beta=GB_BETA,
+                                              device=dev), GB_G)
+        _, t_warm = _synced(lambda: sb.build(gst0, 1, sb.generator_draws(seed)))
+        mesh.calls.clear()
+        got, secs = _synced(lambda: sb.build(gst0, PAR_GB_SELECTIONS,
+                                             sb.generator_draws(seed + 191)))
+        calls = dict(mesh.calls)
+        single = make_group_incremental_builder(Zb, gp, bc.logreg.bundle(),
+                                                bc.logreg_laplace_sampler(), cfg)
+        ref, secs_1 = _synced(lambda: single.build(gst0, PAR_GB_SELECTIONS,
+                                                   single.generator_draws(keyed(seed + 191))))
+        check_state(got.core)
+        same = _same_group_build("parallel a", got, ref, GRAPH_TOL)
+        steps = PAR_GB_SELECTIONS * GB_ITRS
+        log(f"parallel a, sharded logistic group build on a {mesh.shape} mesh: N={GB_N}, "
+            f"G={GB_G} groups of {per}, buffer {(GB_M + 1) * per} slots, S={S}, {GB_ITRS} "
+            f"exact-gradient steps (eager); warm-up {t_warm:.2f} s; {PAR_GB_SELECTIONS} "
+            f"selections {secs:.3f} s ({secs / PAR_GB_SELECTIONS:.4f} s per selection, "
+            f"{secs / steps * 1e3:.3f} ms per Adam step), collectives {calls}; the "
+            f"single-device build (captured) {secs_1:.3f} s; {card}")
+        log(f"parallel a, sharded == single-device: {same}")
+        summary.append(f"group {secs / PAR_GB_SELECTIONS:.3f} s/selection")
+        del sb, single, got, ref, Zb, gp
+        torch.cuda.empty_cache()
+
+        # --- b. the multiclass sharded group build: K2 on the samp = 1 route ---
+        K, d = MC_K, MC_D
+        _, _, Zm = bc.gen_synthetic_multiclass(gen, gc_n, d=d, n_classes=K)
+        Zm, _ = bc.flip_labels(gen, Zm, K, MC_F_RATE)
+        per = gc_n // GC_G
+        gp = Groups.from_lists([range(g * per, (g + 1) * per) for g in range(GC_G)], dev)
+        cfg = bc.IncrementalConfig(projection_dim=S, n_subsample_select=None,
+                                   n_subsample_opt=None, opt_itrs=GC_ITRS, i0=1.0, use_beta=True)
+        sb = sharded_groups(Zm, gp, multiclass.bundle(K), bc.multiclass_laplace_sampler(K), cfg)
+        gst0 = init_group_state(bc.init_state(GC_BUF_GROUPS * per, d + 1, beta=MC_BETA,
+                                              device=dev,
+                                              sampler_aux=torch.zeros(K * d, device=dev)), GC_G)
+        _, t_warm = _synced(lambda: sb.build(gst0, 1, sb.generator_draws(seed)))
+        k2.launches = 0
+        got, secs = _synced(lambda: sb.build(gst0, PAR_GC_SELECTIONS,
+                                             sb.generator_draws(seed + 192)))
+        launches = k2.launches
+        per_sel = (2 + 2 * GC_ITRS if kernels.maybe_fused(GC_BUF_GROUPS * per)
+                   else 1 + GC_ITRS)
+        if dev == "cuda" and launches != PAR_GC_SELECTIONS * per_sel:
+            raise AssertionError(f"parallel b: K2 launched {launches} times, want "
+                                 f"{PAR_GC_SELECTIONS * per_sel}")
+        check_state(got.core)
+        steps = PAR_GC_SELECTIONS * GC_ITRS
+        log(f"parallel b, sharded multiclass group build: N={gc_n}, K={K}, d={d}, G={GC_G} "
+            f"groups of {per}, buffer {GC_BUF_GROUPS * per} slots, {GC_ITRS} exact-gradient "
+            f"steps (eager); warm-up {t_warm:.2f} s; {PAR_GC_SELECTIONS} selection(s) "
+            f"{secs:.3f} s ({secs / steps * 1e3:.3f} ms per Adam step); {launches} K2 launches "
+            f"({per_sel} a selection: the local rows and the buffer at select and every step); "
+            f"selected {torch.nonzero(got.selected)[:, 0].tolist()}; {card}")
+        summary.append(f"multiclass group {secs / PAR_GC_SELECTIONS:.3f} s/selection, "
+                       f"{launches} K2")
+        del sb, got, Zm, gp
+        torch.cuda.empty_cache()
+        # at N = 9000 on the card (K2 every select and step) against the CPU
+        N9, K9, d9, S9, itrs, T9 = 9000, 3, 4, 32, 3, 20
+        g9 = torch.Generator().manual_seed(seed)
+        _, _, Z9 = bc.gen_synthetic_multiclass(g9, N9, d=d9, n_classes=K9)
+        Z9, _ = bc.flip_labels(g9, Z9, K9, MC_F_RATE)
+        lists = [range(g * 100, (g + 1) * 100) for g in range(N9 // 100 - 1)]
+        for dedup in (False, True):
+            cfg9 = bc.IncrementalConfig(projection_dim=S9, n_subsample_select=None,
+                                        n_subsample_opt=None, opt_itrs=T9, i0=0.5, use_beta=True,
+                                        dedup_select=dedup)
+            at = lambda where: init_group_state(bc.init_state(
+                400, d9 + 1, beta=MC_BETA, device=where,
+                sampler_aux=torch.zeros(K9 * d9, device=where)), len(lists))
+            cpu = make_group_incremental_builder(Z9, Groups.from_lists(lists, "cpu"),
+                                                 multiclass.bundle(K9),
+                                                 bc.multiclass_laplace_sampler(K9), cfg9)
+            rec = cpu.generator_draws(g9)
+            draws = FixedDraws([rec.select(i, at("cpu").core) for i in range(itrs)],
+                               [rec.optimize(i, at("cpu").core) for i in range(itrs)])
+            want = cpu.build(at("cpu"), itrs, draws)
+            card_b = sharded_groups(Z9.to(dev), Groups.from_lists(lists, dev),
+                                    multiclass.bundle(K9), bc.multiclass_laplace_sampler(K9),
+                                    cfg9)
+            before = k2.launches
+            out = card_b.build(at(dev), itrs, draws)
+            n_k = k2.launches - before
+            tag = f"parallel b self-check [dedup_select={dedup}]"
+            if dev == "cuda" and n_k != itrs * (1 + T9):
+                raise AssertionError(f"{tag}: K2 launched {n_k} times, want {itrs * (1 + T9)}")
+            log(f"{tag}: sharded build on the card == single-device build on the CPU "
+                f"({_same_group_build(tag, out, want, 5e-3)}); {n_k} K2 launches")
+
+        # --- c. BPSVI lanes at examples/zellner_logreg.py's widths over 1M rows ---
+        X, y, _ = bc.gen_synthetic_logreg(gen, N_ROWS, d=N_FEAT)
+        X, y, Zp, _ = bc.perturb_logreg(gen, X, y, f_rate=0.1)
+        del X, y
+        bcfg = BPSVIConfig(projection_dim=S, n_subsample_opt=N_OPT, opt_itrs=BP_ITRS, i0=1.0)
+        aux0 = torch.zeros(N_FEAT, device=dev)
+        batch = make_sharded_bpsvi_batch(Zp, bc.logreg.bundle(), bc.logreg_laplace_sampler(),
+                                         bcfg, mesh)
+        mesh.calls.clear()
+        lanes, secs = _synced(lambda: batch(keyed(seed + 193), BP_SIZES, BP_M, aux0))
+        calls = dict(mesh.calls)
+        builder = make_bpsvi_builder(Zp, bc.logreg.bundle(), bc.logreg_laplace_sampler(), bcfg)
+        ref, secs_1 = _synced(lambda: bpsvi_build_batch(builder, keyed(seed + 193), BP_SIZES,
+                                                        BP_M, aux0))
+        same = _same_tensors("parallel c", lanes, ref)
+        if not bool(torch.isfinite(lanes[0]).all()):
+            raise AssertionError("parallel c: non-finite lane weights")
+        log(f"parallel c, make_sharded_bpsvi_batch over sizes {BP_SIZES} (N={N_ROWS}, "
+            f"{BP_ITRS} steps on {N_OPT} rows): {secs:.3f} s ({secs / len(BP_SIZES):.3f} s a "
+            f"lane), collectives {calls}; bpsvi_build_batch {secs_1:.3f} s; every lane == "
+            f"bpsvi_build_batch's: {same}; {card}")
+        summary.append(f"BPSVI lanes {secs / len(BP_SIZES):.3f} s/lane")
+        del batch, builder, Zp, lanes, ref
+        torch.cuda.empty_cache()
+
+        # --- d. HMC and NUTS chains on phase 17's m = 100 coreset ---
+        pm, wm = mcmc["coreset"]
+        lp = lambda th: bc.logreg.log_joint(pm, th, wm)
+        theta0 = torch.zeros(pm.shape[1], device=dev)
+        for name, cfg_c, single_run in (
+                ("HMC", HMCConfig(n_samples=ZL_SAMPLES, n_warmup=ZL_WARMUP, L_max=ZL_L_MAX),
+                 run_chains),
+                ("NUTS", default_nuts_config(ZL_SAMPLES, ZL_WARMUP), run_chains_nuts)):
+            mesh.calls.clear()
+            (s_sh, st_sh), secs = _synced(lambda: run_chains_sharded(
+                keyed(seed + 194), lp, theta0, ZL_CHAINS, mesh, cfg_c))
+            calls = dict(mesh.calls)
+            (s_1, st_1), secs_1 = _synced(lambda: single_run(keyed(seed + 194), lp, theta0,
+                                                             ZL_CHAINS, cfg_c))
+            names = sorted(st_1)
+            same = _same_tensors(f"parallel d {name}", [s_sh] + [st_sh[k] for k in names],
+                                 [s_1] + [st_1[k] for k in names], 1e-6)
+            if not bool(torch.isfinite(s_sh).all()):
+                raise AssertionError(f"parallel d {name}: non-finite draws")
+            log(f"parallel d, run_chains_sharded {name} ({ZL_CHAINS} chains, {ZL_WARMUP} + "
+                f"{ZL_SAMPLES}) on the m={ZL_M} coreset: {secs:.3f} s, collectives {calls}; "
+                f"the single-device runner {secs_1:.3f} s; every chain == its chain: {same}; "
+                f"{card}")
+            summary.append(f"{name} chains {secs:.1f} s")
+
+        # --- e. the sharded flow trainer at examples/shf_logreg.py's widths ---
+        g_s = keyed(seed + 171)
+        _, _, Zs = bc.gen_synthetic_logreg(g_s, SHF_N, d=SHF_D)
+        scfg = SHFConfig(n_blocks=SHF_BLOCKS, n_leapfrog=SHF_LEAP, n_mc=SHF_MC, n_batch=SHF_B,
+                         learning_rate=SHF_LR)
+        params = init_shf_params(Zs[:SHF_M], SHF_D, SHF_N, scfg)
+        train = make_sharded_shf_trainer(Zs, bc.logreg.log_joint, mesh, scfg)
+        mesh.calls.clear()
+        (p_sh, tr_sh), secs = _synced(lambda: train(keyed(seed + 195), params, PAR_SHF_STEPS))
+        calls = dict(mesh.calls)
+        (p_1, tr_1), secs_1 = _synced(lambda: make_shf_trainer(Zs, bc.logreg.log_joint, scfg)(
+            keyed(seed + 195), params, PAR_SHF_STEPS))
+        same = _same_tensors("parallel e", list(p_sh) + [tr_sh], list(p_1) + [tr_1])
+        if not bool(torch.isfinite(tr_sh).all()):
+            raise AssertionError("parallel e: non-finite ELBO")
+        log(f"parallel e, make_sharded_shf_trainer ({SHF_MC} lanes, B={SHF_B}, "
+            f"{PAR_SHF_STEPS} of {SHF_STEPS} steps, captured with its two all-reduces; the "
+            f"trainer's first call, its eager first step and capture included): {secs:.3f} s "
+            f"({secs / PAR_SHF_STEPS * 1e6:.1f} us a step), collectives {calls}; "
+            f"make_shf_trainer {secs_1:.3f} s; params and ELBO == make_shf_trainer's: {same}; "
+            f"{card}")
+        summary.append(f"SHF {secs / PAR_SHF_STEPS * 1e6:.0f} us/step")
+        del Zs, train
+
+        # --- f. Shapley over the mesh on phase 15 (a)'s movielens groups ---
+        Z, Xt, Yt, glists = movielens_groups()
+        vargs = tuple(torch.from_numpy(a).to(dev) for a in (Z, Xt, Yt))
+        G = len(glists)
+        gp = Groups.from_lists(glists, dev)
+        gid = group_ids_from_groups(gp, Z.shape[0])
+        value_fn = logreg_laplace_value_fn(n_samples=256)
+        full_value = float(value_fn(value_fn.draw(gen, *vargs), (gid < G).float(), *vargs))
+        g_v = keyed(seed + 196)
+        for name, make, T in (
+                ("DShapley", lambda mesh: make_dshapley(
+                    gid, gp, value_fn, max_groups=min(SHAP_GROUPS, G), group_cap=SHAP_CAP,
+                    mesh=mesh, value_args=vargs), SHAP_T),
+                ("TMC", lambda mesh: make_tmc_shapley(
+                    gid, gp, value_fn, full_value=full_value, group_cap=SHAP_CAP, mesh=mesh,
+                    value_args=vargs), TMC_T)):
+            est_1, est_sh = make(None), make(mesh)
+            rounds = [est_1.draws(g_v) for _ in range(T)]
+            mesh.calls.clear()
+            phis_sh, secs = _synced(lambda: est_sh(rounds, T))
+            calls = dict(mesh.calls)
+            phis_1, secs_1 = _synced(lambda: est_1(rounds, T))
+            same = _same_tensors(f"parallel f {name}", [phis_sh], [phis_1], 1e-6)
+            log(f"parallel f, {name} with mesh= (T={T}): {secs:.3f} s, collectives {calls}; "
+                f"mesh=None {secs_1:.3f} s; phis == mesh=None's: {same}; top "
+                f"{torch.argsort(phis_sh, descending=True)[:GRP_M].tolist()}; {card}")
+        summary.append("Shapley over the mesh")
+
+        # --- g. the sharded NIW build at examples/mvn_unknown_cov.py's widths ---
+        d = V_D
+        eye = lambda k: torch.eye(k, device=dev)
+        A = 0.3 * torch.randn((d, d), generator=gen, device=dev)
+        L_true = torch.linalg.cholesky(A @ A.T + eye(d))
+        X = 2.0 + torch.randn((v_n, d), generator=gen, device=dev) @ L_true.T
+        Xout = V_SHIFT + 0.5 * torch.randn((int(V_F_RATE * v_n), d), generator=gen, device=dev)
+        Xc = torch.cat([X, Xout])
+        del X, Xout
+        prior = (torch.zeros(d, device=dev), 1.0, 2.0 * eye(d), d + 4.0)
+        vcfg = bc.IncrementalConfig(projection_dim=V_S, n_subsample_select=V_N_SEL,
+                                    n_subsample_opt=V_N_OPT, opt_itrs=V_ITRS, i0=V_I0,
+                                    use_beta=True)
+        Xs, n_true = shard_data(Xc, mesh)
+        sb = bc.make_sharded_incremental_builder(Xs, n_true, mvn.bundle(d),
+                                                 mvn.mvn_niw_sampler(*prior), vcfg, mesh)
+        if sb.route != "per_step":
+            raise AssertionError(f"the sharded NIW build took the {sb.route} route")
+        st0 = bc.init_state(V_M, d, beta=V_BETA, device=dev,
+                            sampler_aux=torch.zeros(d + d * d, device=dev))
+        # one generator for the sampler's and the subsample's draws: the
+        # single-device per-step-draw stream
+        draws = sb.generator_draws(seed + 197)
+        draws.local = draws.replicated
+        mesh.calls.clear()
+        got, secs = _synced(lambda: sb.build(st0, PAR_V_SELECTIONS, draws))
+        calls = dict(mesh.calls)
+        single = bc.make_incremental_builder(Xc, mvn.bundle(d), mvn.mvn_niw_sampler(*prior),
+                                             vcfg)
+        ref, secs_1 = _synced(lambda: single.build(
+            st0, PAR_V_SELECTIONS, single.generator_draws(keyed(seed + 197))))
+        check_state(got)
+        same = check_same_build("parallel g", got, ref)
+        steps = PAR_V_SELECTIONS * V_ITRS
+        log(f"parallel g, sharded NIW build (per-step draws, eager) over {len(Xc)} rows, "
+            f"d={d}, S={V_S}: {PAR_V_SELECTIONS} selections {secs:.3f} s "
+            f"({secs / steps * 1e3:.3f} ms per Adam step), collectives {calls}; the "
+            f"single-device build (captured) {secs_1:.3f} s; sharded == single-device: "
+            f"{same}; {card}")
+        summary.append(f"NIW {secs / steps * 1e3:.2f} ms/step")
+        del Xc, Xs, sb, single
+        torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    log(f"parallel: phase 19 in {secs:.1f} s; {launches} K2 launches in (b)'s selection")
+    return {"K2": launches, "line": f"parallel (phase 19, {secs:.1f} s): " + ", ".join(summary)}
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3329,11 +3679,12 @@ def main() -> int:
     neural = phase_neural_linear(args.seed, card)
     mcmc = phase_mcmc_eval(args.seed, card)
     streaming = phase_streaming(args.seed, card)
+    parallel = phase_parallel(args.seed, card, mcmc)
     entries = [("logreg_adam_step", "logreg_adam_step.cu", "pallas_kernels.py:173",
                 {"launches": main_path["launches"] + api["K1"] + mcmc["K1"]}, k1),
                ("multiclass_projection", "multiclass_projection.cu", "pallas_kernels.py:330",
-                {"launches": mc_path["launches"] + api["K2"] + hilbert["K2"] + groups["K2"]},
-                k2),
+                {"launches": mc_path["launches"] + api["K2"] + hilbert["K2"] + groups["K2"]
+                 + parallel["K2"]}, k2),
                ("logreg_shard_step_partials", "logreg_shard_partials.cu", "pallas_kernels.py:249",
                 sharded, k3)]
     log(families)
@@ -3342,7 +3693,8 @@ def main() -> int:
     log(neural)
     log(mcmc["line"])
     log(streaming["line"])
-    log(f"chip_smoke: phases 0-18 in {time.perf_counter() - t_start:.1f} s")
+    log(parallel["line"])
+    log(f"chip_smoke: phases 0-19 in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"betacores_tpu_torch/csrc/{src}",
          "replaces": f"betacores_tpu/ops/{tpu}", "launches": path["launches"], **k}

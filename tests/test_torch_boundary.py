@@ -29,7 +29,8 @@ def test_import_loads_no_jax():
                     "betacores_tpu_torch.inference.escalation, "
                     "betacores_tpu_torch.coresets.streaming, "
                     "betacores_tpu_torch.data.native_loader, "
-                    "betacores_tpu_torch.utils.checkpoint, betacores_tpu_torch.utils.profiling\n"
+                    "betacores_tpu_torch.utils.checkpoint, betacores_tpu_torch.utils.profiling, "
+                    "betacores_tpu_torch.parallel.groups, betacores_tpu_torch.parallel.bpsvi_batch\n"
                     "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
                     " or m == 'betacores_tpu' or m.startswith('betacores_tpu.')]\n"
                     "assert not bad, bad\n"
@@ -40,15 +41,16 @@ def test_import_loads_no_jax():
 def test_port_sources_never_import_jax():
     paths = list((ROOT / "betacores_tpu_torch").rglob("*.py"))
     # the group, pseudo-coreset and valuation slice, the neural-linear
-    # slice, the MCMC and flow slice and the streaming and I/O slice are
-    # among them
+    # slice, the MCMC and flow slice, the streaming and I/O slice and the
+    # rest of parallel/ are among them
     names = {p.relative_to(ROOT / "betacores_tpu_torch").as_posix() for p in paths}
     assert {"valuation/__init__.py", "valuation/shapley.py", "coresets/groups.py",
             "coresets/bpsvi.py", "coresets/psvi.py", "coresets/dpbpsvi.py",
             "models/neural_linear.py", "data/loaders.py", "data/perturb.py",
             "inference/hmc.py", "inference/nuts.py", "inference/shf.py",
             "inference/diagnostics.py", "inference/escalation.py", "coresets/streaming.py",
-            "data/native_loader.py", "utils/checkpoint.py", "utils/profiling.py"} <= names
+            "data/native_loader.py", "utils/checkpoint.py", "utils/profiling.py",
+            "parallel/groups.py", "parallel/bpsvi_batch.py"} <= names
     for path in paths:
         for line in path.read_text().splitlines():
             words = line.split()

@@ -285,7 +285,7 @@ def test_niw_api_build_error_and_sharded_refusal(mvn_problem):
     clean one than the corrupted full-data fit's, as tests/test_mvn.py
     asks of the JAX build; ``error()`` and ``optimize()`` run (the error's
     generator is made anew from one seed per build, so repeated calls
-    agree); lagged refits and the sharded build raise."""
+    agree); lagged refits raise, and the sharded build without a mesh."""
     X, d, prior = mvn_problem
     tprior = tuple(t(np.asarray(v)) for v in prior)
     smp = tm.mvn_niw_sampler(*tprior)
@@ -306,7 +306,9 @@ def test_niw_api_build_error_and_sharded_refusal(mvn_problem):
     assert np.isfinite(alg.error())
     with pytest.raises(NotImplementedError, match="refit_every"):
         bc.BetaCoreset(X, prj, beta=0.5, refit_every=4, n_subsample_opt=50, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # the sharded NIW build is ported (tests/test_torch_sharded.py): it
+    # refuses only a missing mesh, as the JAX builder's require_axes does
+    with pytest.raises(ValueError, match="mesh must have axes"):
         bc.make_sharded_incremental_builder(t(X), len(X), tm.bundle(d), smp,
                                             IncrementalConfig(projection_dim=S), mesh=None)
 

@@ -209,5 +209,12 @@ def test_autograd_gradient_of_the_log_joint_at_zero():
 
 
 def test_sharded_chains_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        thmc.run_chains_sharded(None, lambda th: th.sum(-1), torch.zeros(2), 2, None)
+    """``run_chains_sharded`` is ported (tests/test_torch_sharded_lanes.py):
+    without a mesh it refuses, as the JAX one's ``require_axes`` does, for
+    HMC and for a NUTS config."""
+    from betacores_tpu_torch.inference import NUTSConfig
+
+    for cfg in (thmc.HMCConfig(), NUTSConfig()):
+        with pytest.raises(ValueError, match="mesh must have axes"):
+            thmc.run_chains_sharded(torch.Generator(), lambda th: th.sum(-1), torch.zeros(2),
+                                    2, None, cfg)

@@ -5,8 +5,9 @@ sharded step's shard-local partials (csrc/logreg_shard_partials.cu); and
 the sparse NNLS solvers on the card (the CPU's columns, no host read in the
 greedy loop, ``nnls_on_support`` at column N - 1); and the MCMC and flow
 runs (inference/hmc.py, nuts.py, shf.py): captured equal to eager bit for
-bit, and the card equal to the CPU in float64. This file imports no
-JAX, so it runs where the card is:
+bit, and the card equal to the CPU in float64; and the sharded multiclass
+group build's K2 route (parallel/groups.py) against its plain version on a
+(1, 1) NCCL mesh. This file imports no JAX, so it runs where the card is:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
@@ -694,6 +695,71 @@ def test_cuda_multiclass_group_select_goes_through_k2(cuda_device, use_beta):
     assert int(out["kernel"][0].core.m) == 100
     err = float((out["kernel"][1] - out["plain"][1]).abs().max())
     assert err <= 2e-5 * 100, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_beta", [False, True])
+def test_cuda_sharded_multiclass_group_build_goes_through_k2(cuda_device, use_beta):
+    """The sharded multiclass group build on a (1, 1) NCCL mesh: on its
+    samp = 1 route every select and every refinement step projects the
+    9000 local rows through K2 (one launch each; the 400-slot buffer stays
+    below FUSED_MIN_ROWS), and it builds what the same build through the
+    plain projection builds: the same groups and m, weights within
+    5e-3 * max|w| (K2 sums in another order, within 2e-5 a row)."""
+    from betacores_tpu_torch import (IncrementalConfig, init_state, multiclass,
+                                     multiclass_laplace_sampler)
+    from betacores_tpu_torch.coresets import (FixedDraws, group_ids_from_groups,
+                                              init_group_state)
+    from betacores_tpu_torch.ops.projection import Groups
+    from betacores_tpu_torch.parallel import (make_mesh, make_sharded_group_builder,
+                                              shard_data, shard_group_ids, world_of_one)
+
+    K, d, S, T, itrs = 3, 4, 32, 5, 2
+    Z, groups = _group_problem(cuda_device, K=K, d=d)
+    cfg = IncrementalConfig(projection_dim=S, opt_itrs=T, i0=0.5, use_beta=use_beta)
+    fused = multiclass.bundle(K)
+    plain = fused._replace(fused_ll_projection=None, fused_beta_projection=None)
+    smp = multiclass_laplace_sampler(K)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    z = lambda *shape: torch.randn(shape + (K * d,), generator=g, device=cuda_device)
+    draws = FixedDraws([(z(S), None) for _ in range(itrs)], [(z(T, S), None)
+                                                            for _ in range(itrs)])
+    out = {}
+    with world_of_one("nccl"):
+        mesh = make_mesh(1, 1)
+        gp = Groups.from_lists(groups, device=cuda_device)
+        data, n = shard_data(Z, mesh)
+        gid = shard_group_ids(group_ids_from_groups(gp, n), mesh, gp.n_groups)
+        for name, model in (("kernel", fused), ("plain", plain)):
+            b = make_sharded_group_builder(data, gid, n, gp, model, smp, cfg, mesh)
+            gst = init_group_state(init_state(400, d + 1, beta=0.3, device=cuda_device,
+                                              sampler_aux=torch.zeros(K * d,
+                                                                      device=cuda_device)),
+                                   len(groups))
+            before = kernels.multiclass_projection.launches
+            got = b.build(gst, itrs, draws)
+            torch.cuda.synchronize()
+            out[name] = (got, kernels.multiclass_projection.launches - before)
+    assert out["kernel"][1] == itrs * (1 + T) and out["plain"][1] == 0
+    (got, _), (ref, _) = out["kernel"], out["plain"]
+    assert torch.equal(got.selected, ref.selected)
+    assert int(got.core.m) == int(ref.core.m) > 0
+    assert torch.equal(got.core.idcs, ref.core.idcs)
+    err = float((got.core.wts - ref.core.wts).abs().max())
+    assert err <= 5e-3 * float(ref.core.wts.abs().max()), err
+
+
+@pytest.mark.cuda
+def test_cuda_shard_group_ids_stay_on_the_card(cuda_device):
+    """``shard_group_ids`` on a CUDA tensor: this rank's block on the
+    mesh's device as int64 ids, whatever their dtype was."""
+    from betacores_tpu_torch.parallel import make_mesh, shard_group_ids, world_of_one
+
+    gid = torch.tensor([0, 0, 1, 2, 3], dtype=torch.int32, device=cuda_device)
+    with world_of_one("nccl"):
+        out = shard_group_ids(gid, make_mesh(1, 1), 3)
+    assert out.device.type == "cuda" and out.dtype == torch.int64
+    assert out.tolist() == [0, 0, 1, 2, 3]
 
 
 @pytest.mark.cuda

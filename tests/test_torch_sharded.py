@@ -16,7 +16,18 @@ on the CPU) and the port through K3's plain version; a weighted or
 multiclass build takes the composed route in both. Both compute in
 float32 on a well-separated problem, so the selections are compared
 exactly and the weights within 5e-3 * max(1, max|w|), as in
-test_torch_incremental.py. Every rank must return the same state."""
+test_torch_incremental.py. Every rank must return the same state.
+
+A sampler without a noise split (the NIW family) takes the per-step-draw
+route: the sampler is called at select and at every step, then the step's
+shard-local subsample is drawn. Its draws depend on the weights, so no
+JAX stream can be replayed through it: the route is held against the JAX
+sharded build through a deterministic sampler without a noise split
+(tests/test_parallel.py:345-371's NIW problem and configuration, the
+JAX per-step keys' shard-local indices replayed in float64), and the real
+NIW sampler on the port's own generator against the quality that test
+asks of the JAX build, and, in a world of one given one generator for both
+streams, against the single-device per-step-draw build."""
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +43,7 @@ from betacores_tpu.inference.samplers import (gaussian_conjugate_sampler as jg_s
 from betacores_tpu.models import gaussian as jgauss
 from betacores_tpu.models import logreg as jlogreg
 from betacores_tpu.models import multiclass as jmc
+from betacores_tpu.models import mvn as jmvn
 from betacores_tpu.parallel import (make_mesh as jmake_mesh,
                                     make_sharded_incremental_builder as jsharded,
                                     shard_data as jshard_data,
@@ -160,6 +172,53 @@ def _jax_case(name, n_data, n_samp, key):
     return job, _np_state(jst)
 
 
+# tests/test_parallel.py:345-371's NIW problem: d, clean rows, the
+# configuration, buffer, beta and iterations
+NIW_D, NIW_N = 3, 240
+NIW_CFG = dict(projection_dim=16, n_subsample_select=64, n_subsample_opt=32, opt_itrs=15,
+               i0=0.5, use_beta=True)
+NIW_M, NIW_BETA, NIW_ITRS = 20, 0.5, 10
+NIW_PRIOR = (np.zeros(NIW_D), 1.0, np.eye(NIW_D), NIW_D + 4.0)
+
+
+def _niw_problem():
+    rng = np.random.default_rng(4)
+    return np.vstack([rng.normal(size=(NIW_N, NIW_D)) + 1.0,
+                      rng.normal(size=(NIW_N // 10, NIW_D)) * 0.5 + 9.0])
+
+
+class _NoNoise:
+    """``replay_sharded_draws``'s noise for a sampler that draws none."""
+
+    def draw_noise(self, key, n, wts, pts, aux):
+        return jnp.zeros((n, 1))
+
+
+def _jax_call_only_case(n_data, n_samp, **change):
+    """The JAX sharded build of the NIW problem through a deterministic
+    sampler without a noise split (S draws of the JAX NIW posterior of the
+    clean rows), its per-step route's draws, and the port's job."""
+    X = _niw_problem()
+    td = NIW_D + NIW_D * NIW_D
+    samples, _ = jmvn.mvn_niw_sampler(*(jnp.asarray(v) for v in NIW_PRIOR))(
+        jax.random.PRNGKey(8), NIW_CFG["projection_dim"], jnp.ones(NIW_N),
+        jnp.asarray(X[:NIW_N]), jnp.zeros(td))
+    cfg = dict(NIW_CFG, **change)
+    mesh = jmake_mesh(n_data, n_samp)
+    ds, n_true = jshard_data(jnp.asarray(X), mesh)
+    b = jsharded(ds, n_true, jmvn.bundle(NIW_D), lambda k, n, w, p, a: (samples[:n], a),
+                 JConfig(**cfg), mesh)
+    st0 = jinit_state(NIW_M, NIW_D, beta=NIW_BETA, sampler_aux=jnp.zeros(td), dtype=ds.dtype)
+    key = jax.random.PRNGKey(1)
+    jst = b(key, st0, NIW_ITRS)
+    sel, opt = replay_sharded_draws(key, st0, NIW_ITRS, _NoNoise(), n_true, n_data,
+                                    cfg["projection_dim"], cfg["opt_itrs"],
+                                    cfg["n_subsample_select"], cfg["n_subsample_opt"])
+    job = dict(data=X, model=("call_only", NIW_D, np.asarray(samples)), cfg=cfg,
+               state=_np_state(st0), itrs=NIW_ITRS, sel=sel, opt=opt)
+    return job, _np_state(jst)
+
+
 @pytest.fixture(scope="module", params=[(1, 1), (2, 2), (4, 1)], ids=lambda s: f"{s[0]}x{s[1]}")
 def mesh_run(request, tmp_path_factory):
     """(JAX states, per-rank port results) of every case on one mesh."""
@@ -173,6 +232,18 @@ def mesh_run(request, tmp_path_factory):
     # the builder's own generator draws: the ranks must stay in step
     jobs["generator"] = dict(jobs["dedup_lagged"], generator_seed=5)
     jobs["trace"] = dict(jobs["parity"], trace=True)
+    # the full-data case projects with the log-likelihood: under the
+    # beta-likelihood every outlier row projects to one vector up to
+    # rounding, and rounding would decide the argmax among them
+    for name, change in (("niw_call_only", {}),
+                         ("niw_call_only_full", dict(n_subsample_select=None,
+                                                     n_subsample_opt=None, use_beta=False))):
+        jobs[name], want[name] = _jax_call_only_case(n_data, n_samp, **change)
+    niw = dict(jobs["niw_call_only"], model=("mvn", NIW_D, NIW_PRIOR), generator_seed=3)
+    del niw["sel"], niw["opt"]
+    jobs["niw"] = niw
+    # one generator for both streams: a world of one draws the single-device stream
+    jobs["niw_one_generator"] = dict(niw, one_generator=True)
     ranks = run_world(n_data, n_samp, jobs,
                       tmp_path_factory.mktemp(f"world{n_data}x{n_samp}"))
     return want, ranks, (n_data, n_samp)
@@ -331,3 +402,60 @@ def test_learn_beta_matches_jax_and_the_single_device_build(mesh_run):
                                     draws))
     _assert_same_build(job["state"], single)
     np.testing.assert_allclose(job["state"]["beta"], single["beta"], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["niw_call_only", "niw_call_only_full"])
+def test_per_step_draw_route_matches_jax(mesh_run, name):
+    """A sampler without a noise split, subsampled and full-data: the
+    sampler called at select and at every step, the shard-local indices
+    drawn after it, as the JAX per-step route under its keys (float64)."""
+    want, ranks, _ = mesh_run
+    assert all(r["jobs"][name]["route"] == "per_step" for r in ranks)
+    _assert_same_build(_every_rank(ranks, name), want[name])
+
+
+def test_niw_build_keeps_ranks_in_step_and_is_robust(mesh_run):
+    """The NIW sampler on the port's own generator: every rank the same
+    state, and (tests/test_parallel.py:368-371) the coreset's NIW
+    posterior mean near the clean cluster, not the outliers."""
+    from betacores_tpu_torch.models import mvn as tmvn
+
+    _, ranks, _ = mesh_run
+    st = _every_rank(ranks, "niw")
+    m = int(st["m"])
+    w, p = st["wts"], st["pts"]
+    assert m > 0 and (w >= 0).all() and np.isfinite(w).all()
+    keep = w > 0
+    post = tmvn.weighted_post(*(torch.as_tensor(np.asarray(v)) for v in NIW_PRIOR),
+                              torch.from_numpy(p[keep]), torch.from_numpy(w[keep]))
+    assert np.linalg.norm(post.mu.numpy() - 1.0) < 2.0, post.mu
+
+
+def test_niw_world_of_one_equals_the_single_device_build(mesh_run):
+    """On the (1, 1) mesh, given one generator for the sampler's and the
+    subsample's draws, the sharded NIW build draws what the single-device
+    per-step-draw route draws (its generator's stream): the same idcs and
+    m, weights within 1e-9 * max|w| (the sharded projections centre by a
+    psum of row sums, the single-device ones by a mean)."""
+    from betacores_tpu_torch.coresets import (IncrementalConfig, make_incremental_builder,
+                                             state_from_numpy, state_to_numpy)
+    from betacores_tpu_torch.models import mvn as tmvn
+
+    _, ranks, shape = mesh_run
+    if shape != (1, 1):
+        assert not np.array_equal(_every_rank(ranks, "niw_one_generator")["wts"],
+                                  np.zeros(NIW_M))
+        return
+    job = ranks[0]["jobs"]["niw_one_generator"]
+    b = make_incremental_builder(torch.from_numpy(_niw_problem()), tmvn.bundle(NIW_D),
+                                 tmvn.mvn_niw_sampler(*(torch.as_tensor(np.asarray(v))
+                                                        for v in NIW_PRIOR)),
+                                 IncrementalConfig(**NIW_CFG))
+    st0 = _jax_call_only_case(1, 1)[0]["state"]
+    single = state_to_numpy(b.build(state_from_numpy(st0, device="cpu"), NIW_ITRS,
+                                    b.generator_draws(torch.Generator().manual_seed(3))))
+    got = job["state"]
+    assert int(got["m"]) == int(single["m"]) > 0
+    np.testing.assert_array_equal(got["idcs"], single["idcs"])
+    np.testing.assert_allclose(got["wts"], single["wts"], rtol=0,
+                               atol=1e-9 * np.abs(single["wts"]).max())

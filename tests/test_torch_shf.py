@@ -134,5 +134,15 @@ def test_beta_and_gaussian_log_joints_match_jax():
 
 
 def test_sharded_trainer_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 12"):
+    """``make_sharded_shf_trainer`` is ported (tests/test_torch_sharded_lanes.py):
+    it refuses a missing mesh, and n_mc lanes that do not split evenly over
+    the mesh's ranks (the JAX one's ``n_mc % P`` check)."""
+    with pytest.raises(ValueError, match="mesh must have axes"):
         tshf.make_sharded_shf_trainer(torch.zeros((4, D)), tlogreg.log_joint, None)
+
+    class ThreeRanks:
+        shape = {"data": 3, "samp": 1}
+
+    with pytest.raises(ValueError, match="must divide over 3 ranks"):
+        tshf.make_sharded_shf_trainer(torch.zeros((4, D)), tlogreg.log_joint, ThreeRanks(),
+                                      tshf.SHFConfig(n_mc=5))

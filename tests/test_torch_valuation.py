@@ -171,10 +171,13 @@ def test_own_stream_ranks_the_corrupted_groups_lowest(problem):
 
 
 def test_mesh_names_its_roadmap_item(problem):
+    """``mesh=`` is ported (tests/test_torch_sharded_lanes.py): an object
+    that is not a mesh is refused, as the JAX runners' ``require_axes``
+    refuses it."""
     gp, gid, args = _port(problem)
     for make in (lambda: make_dshapley(gid, gp, logreg_laplace_value_fn(), 3, mesh=object(),
                                        value_args=args),
                  lambda: make_tmc_shapley(gid, gp, logreg_laplace_value_fn(), 0.9,
                                           mesh=object(), value_args=args)):
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(ValueError, match="mesh must have axes"):
             make()

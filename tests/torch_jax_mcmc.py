@@ -11,7 +11,8 @@ k_off``, draws j from k_off and one reservoir uniform per step from
 ``split(k_sel, L_max)``. NUTS (nuts.py): an iteration splits ``k_mom,
 k_loop``; doubling t splits ``k, k_dir, k_sub, k_swap = split(k, 4)`` and
 its leaves ``k, k_take = split(k)`` from k_sub. SHF (shf.py): step keys
-``split(key, n_steps)``, each ``k_s, k_b``, with ``k_th, k_rho`` from k_s.
+``split(key, n_steps)``, each ``k_s, k_b``, with ``k_th, k_rho`` from k_s;
+the sharded trainer folds the device index into each step key first.
 """
 
 from functools import partial
@@ -116,9 +117,7 @@ def nuts_draws(key, C: int, d: int, cfg, chains: bool = True) -> NUTSDraws:
     return NUTSDraws(_init(key, C, d) if chains else None, tuple(phases))
 
 
-def shf_draws(key, n_steps: int, N: int, d: int, cfg) -> SHFDraws:
-    """The draws of ``make_shf_trainer(...)(key, params, n_steps)``."""
-
+def _shf_step_draws(keys, N: int, d: int, cfg) -> SHFDraws:
     def one(k):
         k_s, k_b = jax.random.split(k)
         k_th, k_rho = jax.random.split(k_s)
@@ -126,5 +125,20 @@ def shf_draws(key, n_steps: int, N: int, d: int, cfg) -> SHFDraws:
                 jax.random.normal(k_rho, (cfg.n_mc, d), dtype=jnp.float64),
                 jax.random.randint(k_b, (cfg.n_batch,), 0, N))
 
-    z_th, z_rho, idx = jax.jit(jax.vmap(one))(jax.random.split(key, n_steps))
+    z_th, z_rho, idx = jax.jit(jax.vmap(one))(keys)
     return SHFDraws(_t(z_th), _t(z_rho), _t(idx).long())
+
+
+def shf_draws(key, n_steps: int, N: int, d: int, cfg) -> SHFDraws:
+    """The draws of ``make_shf_trainer(...)(key, params, n_steps)``."""
+    return _shf_step_draws(jax.random.split(key, n_steps), N, d, cfg)
+
+
+def sharded_shf_draws(key, n_steps: int, N: int, d: int, cfg, n_dev: int) -> list:
+    """Each device's draws of ``make_sharded_shf_trainer(...)(key, params,
+    n_steps)`` over ``n_dev`` devices: device r folds r into every step key
+    and draws its n_mc / n_dev lanes and its minibatch from it."""
+    keys = jax.random.split(key, n_steps)
+    loc = cfg._replace(n_mc=cfg.n_mc // n_dev)
+    return [_shf_step_draws(jax.vmap(lambda k: jax.random.fold_in(k, r))(keys), N, d, loc)
+            for r in range(n_dev)]
