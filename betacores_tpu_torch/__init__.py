@@ -49,38 +49,39 @@ Modules keep the JAX package's paths and names.
 This package imports torch and never jax.
 """
 
-from . import (coresets, data, evaluation, inference, models, ops, parallel, snnls, utils,
-               valuation)
-from .coresets import (BatchPSVICoreset, BetaBlackBoxProjector, BetaCoreset,
-                       BlackBoxProjector, CoresetState, DiffPrivBatchPSVICoreset,
-                       FixedDraws, GeneratorDraws, HilbertCoreset, IncrementalConfig,
-                       PseudoSparseVICoreset, SparseVICoreset, UniformSamplingCoreset,
-                       init_state, make_incremental_builder, select_beta, state_from_numpy,
-                       state_to_numpy, trimmed_mean)
-from .data import (flip_labels, gen_synthetic_gaussian, gen_synthetic_linreg,
-                   gen_synthetic_logreg, gen_synthetic_multiclass, gen_synthetic_poisson,
-                   perturb_logreg)
-from .inference import (fixed_sampler, gaussian_conjugate_sampler, linreg_conjugate_sampler,
-                        logreg_laplace_sampler, multiclass_laplace_sampler,
-                        poisson_laplace_sampler, prior_gaussian_sampler)
-from .models import gaussian, linreg, logreg, multiclass, mvn, neural_linear, poisson
-from .parallel import (make_mesh, make_sharded_incremental_builder, shard_data,
-                       shard_weights)
-from .utils import NumericalPrecisionError, set_tolerance, set_verbosity
+from ._lazy import lazy_namespace
 
-__all__ = [
-    "coresets", "data", "evaluation", "inference", "models", "ops", "parallel", "snnls",
-    "utils", "valuation",
-    "BatchPSVICoreset", "DiffPrivBatchPSVICoreset", "PseudoSparseVICoreset", "BetaBlackBoxProjector", "BetaCoreset", "BlackBoxProjector",
-    "HilbertCoreset", "SparseVICoreset", "UniformSamplingCoreset", "select_beta",
-    "trimmed_mean", "NumericalPrecisionError", "set_tolerance", "set_verbosity",
-    "CoresetState", "FixedDraws", "GeneratorDraws", "IncrementalConfig",
-    "init_state", "make_incremental_builder", "state_from_numpy",
-    "state_to_numpy", "flip_labels", "gen_synthetic_gaussian", "gen_synthetic_linreg",
-    "gen_synthetic_logreg", "gen_synthetic_multiclass", "gen_synthetic_poisson",
-    "perturb_logreg", "fixed_sampler", "gaussian_conjugate_sampler",
-    "linreg_conjugate_sampler", "logreg_laplace_sampler", "multiclass_laplace_sampler",
-    "poisson_laplace_sampler", "prior_gaussian_sampler", "gaussian", "linreg", "logreg",
-    "multiclass", "mvn", "neural_linear", "poisson", "make_mesh",
-    "make_sharded_incremental_builder", "shard_data", "shard_weights",
-]
+_NAMES = {
+    "coresets": ("BatchPSVICoreset", "BetaBlackBoxProjector", "BetaCoreset", "BlackBoxProjector",
+                 "CoresetState", "DiffPrivBatchPSVICoreset", "FixedDraws", "GeneratorDraws",
+                 "HilbertCoreset", "IncrementalConfig", "PseudoSparseVICoreset", "SparseVICoreset",
+                 "UniformSamplingCoreset", "init_state", "make_incremental_builder", "select_beta",
+                 "state_from_numpy", "state_to_numpy", "trimmed_mean",),
+    "data": ("flip_labels", "gen_synthetic_gaussian", "gen_synthetic_linreg",
+             "gen_synthetic_logreg", "gen_synthetic_multiclass", "gen_synthetic_poisson",
+             "perturb_logreg",),
+    "inference": ("fixed_sampler", "gaussian_conjugate_sampler", "linreg_conjugate_sampler",
+                  "logreg_laplace_sampler", "multiclass_laplace_sampler", "poisson_laplace_sampler",
+                  "prior_gaussian_sampler",),
+    "models": ("gaussian", "linreg", "logreg", "multiclass", "mvn", "neural_linear", "poisson",),
+    "parallel": ("make_mesh", "make_sharded_incremental_builder", "shard_data", "shard_weights",),
+    "utils": ("NumericalPrecisionError", "set_tolerance", "set_verbosity",),
+}
+
+__all__ = ["coresets", "data", "evaluation", "inference", "models", "ops", "parallel", "snnls",
+           "utils", "valuation", "BatchPSVICoreset", "DiffPrivBatchPSVICoreset",
+           "PseudoSparseVICoreset", "BetaBlackBoxProjector", "BetaCoreset", "BlackBoxProjector",
+           "HilbertCoreset", "SparseVICoreset", "UniformSamplingCoreset", "select_beta",
+           "trimmed_mean", "NumericalPrecisionError", "set_tolerance", "set_verbosity",
+           "CoresetState", "FixedDraws", "GeneratorDraws", "IncrementalConfig", "init_state",
+           "make_incremental_builder", "state_from_numpy", "state_to_numpy", "flip_labels",
+           "gen_synthetic_gaussian", "gen_synthetic_linreg", "gen_synthetic_logreg",
+           "gen_synthetic_multiclass", "gen_synthetic_poisson", "perturb_logreg", "fixed_sampler",
+           "gaussian_conjugate_sampler", "linreg_conjugate_sampler", "logreg_laplace_sampler",
+           "multiclass_laplace_sampler", "poisson_laplace_sampler", "prior_gaussian_sampler",
+           "gaussian", "linreg", "logreg", "multiclass", "mvn", "neural_linear", "poisson",
+           "make_mesh", "make_sharded_incremental_builder", "shard_data", "shard_weights"]
+
+__getattr__, __dir__ = lazy_namespace(
+    __name__, _NAMES, ("coresets", "data", "evaluation", "inference", "models", "ops",
+    "parallel", "snnls", "utils", "valuation"))

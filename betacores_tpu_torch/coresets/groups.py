@@ -39,7 +39,7 @@ on the host: ``add``, ``take_new`` and ``room`` stay tensors.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -49,20 +49,13 @@ from ..utils.opt import step_schedule
 from .incremental import (ContextBuffers, GeneratorDraws, IncrementalBuilder,
                           IncrementalConfig, _generator_of, laplace_family,
                           make_tangent_error, noise_split)
-from .state import CoresetState
+from .state import CoresetState, GroupCoresetState
 
 # The (G, S) group reduction is a (G, N) x (N, S) product with the one-hot
 # group matrix while that matrix takes at most this many bytes (N * G * 4),
 # and a scatter-add above it. Module-level, so tests can patch the gate and
 # hold the two paths against each other.
 ONEHOT_MAX_BYTES = 256 * 1024 * 1024
-
-
-class GroupCoresetState(NamedTuple):
-    core: CoresetState
-    selected: torch.Tensor      # (G,) bool: the group is in the coreset
-    initialized: torch.Tensor   # 0-d int32: warm-start slots left out of the
-                                # take-new comparison
 
 
 def group_ids_from_groups(groups: Groups, n_data: int) -> torch.Tensor:

@@ -420,12 +420,7 @@ class _ComposedPass:
         else:
             samples, rows, usub = self._pre_drawn_step(w, refit)
         scaling = 1.0 if self.full else b.data.shape[0] / b.n_opt
-        if self.learn_beta:
-            g = b._joint_grad(self.x, samples, rows, usub, scaling, sst)
-        else:
-            vecs, corevecs = b._tangent(rows, sst, samples, self.joint)
-            resid = scaling * _target_sum(vecs, usub) - w @ corevecs
-            g = -(corevecs @ resid) / b.config.projection_dim
+        g = b._composed_grad(self.x, sst, samples, rows, usub, scaling, self.joint)
         sclr = self.sclr.index_select(0, self.i)[0]
         x, m1, m2 = adam_update(self.x, self.m1, self.m2, g, sclr[0], sclr[1], sclr[2])
         self.x.copy_(x)
@@ -585,6 +580,16 @@ class IncrementalBuilder:
         resid = scaling * _target_sum(vecs, usub) - w @ corevecs
         betagrad = -cfg.beta_grad_scale * (w @ (betagrads @ resid)) / S
         return torch.cat([-(corevecs @ resid) / S, betagrad.reshape(1)])
+
+    def _composed_grad(self, x, st: CoresetState, samples, rows, usub, scaling: float,
+                       joint: bool):
+        """The composed route's gradient at x (the weights, or [w, beta]
+        under learn_beta) on one step's samples and rows."""
+        if self.config.learn_beta:
+            return self._joint_grad(x, samples, rows, usub, scaling, st)
+        vecs, corevecs = self._tangent(rows, st, samples, joint)
+        resid = scaling * _target_sum(vecs, usub) - x[:st.wts.shape[0]] @ corevecs
+        return -(corevecs @ resid) / self.config.projection_dim
 
     def select(self, st: CoresetState, draws: Draws, it: int = 0) -> CoresetState:
         """Reference bcores.py:74-90 / sparsevi.py:74-96."""

@@ -28,6 +28,15 @@ class CoresetState(NamedTuple):
         return torch.arange(self.wts.shape[0], device=self.wts.device) < self.m
 
 
+class GroupCoresetState(NamedTuple):
+    """The group builder's state (coresets/groups.py)."""
+
+    core: CoresetState
+    selected: torch.Tensor      # (G,) bool: the group is in the coreset
+    initialized: torch.Tensor   # 0-d int32: warm-start slots left out of the
+                                # take-new comparison
+
+
 def init_state(max_size: int, dim: int, beta: float = 0.5,
                sampler_aux: torch.Tensor | None = None,
                dtype: torch.dtype = torch.float32,
@@ -100,12 +109,10 @@ def state_to_numpy(state: CoresetState) -> dict:
 
 def group_state_from_numpy(arrays: Mapping[str, object],
                            device: torch.device | str = "cuda"):
-    """A group state (coresets/groups.py::GroupCoresetState) from numpy
+    """A group state (``GroupCoresetState``) from numpy
     arrays: ``arrays["core"]`` as ``state_from_numpy`` takes it,
     ``selected`` (G,) and ``initialized`` (e.g. a JAX ``GroupCoresetState``
     passed through ``np.asarray`` field by field). The arrays are copied."""
-    from .groups import GroupCoresetState
-
     return GroupCoresetState(
         core=state_from_numpy(arrays["core"], device),
         selected=torch.tensor(np.array(arrays["selected"]), dtype=torch.bool, device=device),

@@ -43,9 +43,12 @@ def _nan_lower(d: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor
 
 @functools.cache
 def _ts(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    # made once per dtype and device: a host-to-device copy in every refit
-    # would synchronise the stream
-    return torch.tensor(_TS, dtype=dtype, device=device)
+    """The grid ``_TS`` = 2^-k, k = 0..7, made once per dtype and device (a
+    host-to-device copy in every refit would synchronise the stream) and
+    made on the device by exact halvings, so that a traced program (which
+    traces through the cache) holds the same values without a constant."""
+    halves = torch.cumprod(torch.full((len(_TS) - 1,), 0.5, dtype=dtype, device=device), 0)
+    return torch.cat([torch.ones(1, dtype=dtype, device=device), halves])
 
 
 class LaplaceApprox(NamedTuple):

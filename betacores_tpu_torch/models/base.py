@@ -42,9 +42,14 @@ class Prior:
 
     def at(self, dtype: torch.dtype, device) -> tuple:
         key = (dtype, torch.device(device))
-        if key not in self._at:
-            self._at[key] = tuple(t.to(dtype=dtype, device=device) for t in self.tensors)
-        return self._at[key]
+        got = self._at.get(key)
+        if got is None:
+            got = tuple(t.to(dtype=dtype, device=device) for t in self.tensors)
+            # a traced program computes the cast itself and keeps no tensor
+            # of the trace
+            if not torch.compiler.is_compiling():
+                self._at[key] = got
+        return got
 
 
 class ModelFns(NamedTuple):

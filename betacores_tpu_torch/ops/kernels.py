@@ -26,18 +26,24 @@ captured in a CUDA graph is counted at every replay (utils/graphs.py).
 K1 and K3 split the packed rows over the C CTAs of their cluster
 (``cluster_rows``, C from ``cluster_size``) and sum across the cluster
 through distributed shared memory (csrc/logreg_common.cuh).
+
+The K1 and K2 wrappers call ``torch.library`` ops
+(``betacores_torch::logreg_adam_step``, ``betacores_torch::multiclass_projection``):
+functional (fresh outputs, no argument mutated), a CPU kernel that is the
+plain version, a CUDA kernel that is the launch, and a fake that gives the
+shapes, so that a traced or exported program holds each as one node
+(utils/export.py). K3 has none: no exported program runs it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
-from ..models import logreg, multiclass
 from ..models.base import identity
 from ..utils.graphs import counted, signature
 from ..utils.opt import adam_bias_corrections
@@ -93,6 +99,8 @@ def logreg_adam_step_plain(xin, z, mu, linv, w, m1, m2, sc, sclr, s_true: int,
     PyTorch, on the operands of ``logreg_adam_step``. Padding of any size
     is allowed: padded sample rows of ``z`` are sliced off, padded rows of
     ``xin`` carry mask 0, padded Adam slots have zero core rows."""
+    from ..models import logreg
+
     d = xin.shape[1] - 1
     n_sub_pad = xin.shape[0] - w.shape[1]
     th = z[:s_true] @ linv + mu                                   # (S, d)
@@ -172,16 +180,42 @@ def logreg_adam_step(xin, z, mu, linv, w, m1, m2, sc, sclr, s_true: int,
     d+1) rows [x | mask], subsample rows first; z (s_pad >= s_true, d)
     pre-drawn noise; mu (1, d) and linv (d, d) = L^-1 of the current Laplace
     fit (theta = mu + z @ L^-1); w, m1, m2 (1, M_pad) Adam state;
-    sc = [beta, sum_scaling]; sclr = [lr, 1-b1^t, 1-b2^t]."""
-    if xin.device.type == "cpu":
-        return logreg_adam_step_plain(xin, z, mu, linv, w, m1, m2, sc, sclr,
-                                      s_true, use_beta)
-    if xin.device.type != "cuda":
+    sc = [beta, sum_scaling]; sclr = [lr, 1-b1^t, 1-b2^t]. The call is the
+    op ``betacores_torch::logreg_adam_step``, so a traced or exported
+    program holds it as one node."""
+    if xin.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {xin.device}")
+    return torch.ops.betacores_torch.logreg_adam_step(xin, z, mu, linv, w, m1, m2, sc, sclr,
+                                                      int(s_true), bool(use_beta))
+
+
+@torch.library.custom_op("betacores_torch::logreg_adam_step", mutates_args=())
+def _adam_step_op(xin: torch.Tensor, z: torch.Tensor, mu: torch.Tensor, linv: torch.Tensor,
+                  w: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor, sc: torch.Tensor,
+                  sclr: torch.Tensor, s_true: int,
+                  use_beta: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1 as a functional op: fresh (w', m1', m2'), no argument mutated. The
+    CPU kernel is the plain version, the CUDA kernel the launch; a device
+    without a kernel raises."""
+    raise NotImplementedError(f"no kernel for device {xin.device}")
+
+
+@_adam_step_op.register_kernel("cpu")
+def _(xin, z, mu, linv, w, m1, m2, sc, sclr, s_true, use_beta):
+    return logreg_adam_step_plain(xin, z, mu, linv, w, m1, m2, sc, sclr, s_true, use_beta)
+
+
+@_adam_step_op.register_kernel("cuda")
+def _(xin, z, mu, linv, w, m1, m2, sc, sclr, s_true, use_beta):
     out = launch_adam_step(xin, z, mu, linv, w, m1, m2, sc, sclr, s_true, use_beta,
                            cluster_size(xin.shape[0]))
     logreg_adam_step.launches += 1
     return out
+
+
+@_adam_step_op.register_fake
+def _(xin, z, mu, linv, w, m1, m2, sc, sclr, s_true, use_beta):
+    return tuple(torch.empty_like(w) for _ in range(3))
 
 
 def launch_adam_step(xin, z, mu, linv, w, m1, m2, sc, sclr, s_true: int,
@@ -289,6 +323,8 @@ def multiclass_projection_plain(z, thetas, n_classes: int, beta=1.0,
                                 use_beta: bool = False):
     """The centred (N, S) projection of ``multiclass_projection`` as the
     plain composition of models/multiclass.py."""
+    from ..models import multiclass
+
     if use_beta:
         return center(multiclass.make_beta_likelihood(n_classes)(z, thetas, beta))
     return center(multiclass.make_log_likelihood(n_classes)(z, thetas))
@@ -344,11 +380,33 @@ def multiclass_projection(z, thetas, n_classes: int, beta=1.0,
     column; ``thetas`` (S, K*d) packed row-major (K, d); ``beta`` a float
     or a tensor with one element on z's device (read by the kernel, never
     on the host). On the card both operands are float32 and contiguous,
-    d <= 32 and 2 <= K <= 16."""
-    if z.device.type == "cpu":
-        return multiclass_projection_plain(z, thetas, n_classes, beta, use_beta)
-    if z.device.type != "cuda":
+    d <= 32 and 2 <= K <= 16. The call is the op
+    ``betacores_torch::multiclass_projection``."""
+    if z.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {z.device}")
+    beta_t = beta if isinstance(beta, torch.Tensor) else None
+    beta_f = 1.0 if beta_t is not None else float(beta)
+    return torch.ops.betacores_torch.multiclass_projection(z, thetas, int(n_classes), beta_f,
+                                                           beta_t, bool(use_beta))
+
+
+@torch.library.custom_op("betacores_torch::multiclass_projection", mutates_args=())
+def _mc_projection_op(z: torch.Tensor, thetas: torch.Tensor, n_classes: int, beta: float,
+                      beta_t: Optional[torch.Tensor], use_beta: bool) -> torch.Tensor:
+    """K2 as a functional op: beta is ``beta_t`` when given (a tensor of one
+    element), else the float ``beta``. The CPU kernel is the plain version,
+    the CUDA kernel the launch; a device without a kernel raises."""
+    raise NotImplementedError(f"no kernel for device {z.device}")
+
+
+@_mc_projection_op.register_kernel("cpu")
+def _(z, thetas, n_classes, beta, beta_t, use_beta):
+    return multiclass_projection_plain(z, thetas, n_classes,
+                                       beta if beta_t is None else beta_t, use_beta)
+
+
+@_mc_projection_op.register_kernel("cuda")
+def _(z, thetas, n_classes, beta, beta_t, use_beta):
     _check_mc_operands(z, thetas, n_classes)
     N, D1 = z.shape
     d, K, S = D1 - 1, n_classes, thetas.shape[0]
@@ -356,12 +414,12 @@ def multiclass_projection(z, thetas, n_classes: int, beta=1.0,
     limit = torch.cuda.get_device_properties(z.device).shared_memory_per_block_optin
     _check_smem("projection", mc_plan_built(d, K, S, limit).smem, z.device,
                 f"d={d}, K={K}, S={S}")
-    if isinstance(beta, torch.Tensor):
-        if beta.numel() != 1 or beta.device != z.device:
+    if beta_t is not None:
+        if beta_t.numel() != 1 or beta_t.device != z.device:
             raise ValueError(f"beta must be one element on {z.device}")
-        beta_t = beta.reshape(1).to(torch.float32)
+        beta_t = beta_t.reshape(1).to(torch.float32)
     else:
-        beta_t = torch.full((1,), float(beta), dtype=torch.float32, device=z.device)
+        beta_t = torch.full((1,), beta, dtype=torch.float32, device=z.device)
     out = torch.empty((N, S), dtype=torch.float32, device=z.device)
     if N == 0 or S == 0:
         return out
@@ -374,6 +432,11 @@ def multiclass_projection(z, thetas, n_classes: int, beta=1.0,
         raise RuntimeError(f"multiclass_projection launch failed: cudaError {rc}")
     multiclass_projection.launches += 1
     return out
+
+
+@_mc_projection_op.register_fake
+def _(z, thetas, n_classes, beta, beta_t, use_beta):
+    return z.new_empty((z.shape[0], thetas.shape[0]))
 
 
 counted(multiclass_projection)
@@ -389,6 +452,8 @@ def logreg_shard_step_partials_plain(xin, z, mu, linv, w_row, sc, s_true: int,
     plain PyTorch: theta = z[:s_true] @ L^-1 + mu, the uncentred
     (beta-)log-likelihoods of the packed rows times the row mask, the
     sample columns from s_true to z's row count zero."""
+    from ..models import logreg
+
     d = xin.shape[1] - 1
     M_pad = w_row.shape[1]
     n_sub_pad = xin.shape[0] - M_pad
@@ -509,7 +574,10 @@ def pack_fused_step_rows(rows_all, core_pts, slot_mask, n_sub: int, sub_mask=Non
     elif tuple(xin.shape) != (T, R, D + 1):
         raise ValueError(f"out has shape {tuple(xin.shape)}, want {(T, R, D + 1)}")
     xin[:, :n_sub, :D] = rows_all
-    xin[:, :n_sub, D] = 1.0 if sub_mask is None else sub_mask
+    if sub_mask is None:
+        xin[:, :n_sub, D].fill_(1.0)    # no tensor constant: a traced program holds this
+    else:
+        xin[:, :n_sub, D] = sub_mask
     xin[:, n_sub_pad:n_sub_pad + M_buf, :D] = core_pts
     xin[:, n_sub_pad:n_sub_pad + M_buf, D] = slot_mask.to(torch.float32)
     return xin, M_pad, R

@@ -199,6 +199,22 @@ toolkit. Phases, each of which raises on failure:
      PAR_V_SELECTIONS selections, equal to the single-device per-step-draw
      build under one generator (``check_same_build``'s 5e-3 max(1, max|w|):
      the two centre the projections in another order).
+ 20. the build as a loadable program and the ported drivers
+     (``phase_export``): (a) the headline build of phase 4 exported on the
+     card (``utils.export.export_incremental_build``: an outer while_loop
+     over selections, the refinement an inner one, every Adam step K1's
+     ``torch.library`` op) with its draws stacked for EXP_STACK selections,
+     saved, loaded by a fresh process that imports ``utils.export`` and no
+     builder or model family, run at 2 and 3 selections from that one
+     artifact and held against the live, graph-captured build on the same
+     draws (``check_same_build``; prints whether bit-identical and the
+     seconds a selection of both); (b) the multiclass build of phase 6
+     exported the same way, run at 2 selections, K2's op once a select;
+     (c) every ported driver (``python -m betacores_tpu_torch.examples.<name>``)
+     once through its ``main()`` at its defaults cut in depth (EX_CUTS),
+     each pickle carrying the JAX driver's keys (EX_KEYS) with finite
+     numbers, ``run_sweep`` at one grid point and ``plot_results`` (skipped,
+     and said, without matplotlib).
 Phase 14 also builds GIGAO and GIGAR at examples/zellner_gaussian.py's own
 N = 5000 and raises if either reverse KL is more than an order of magnitude
 off the JAX package's record.
@@ -336,6 +352,39 @@ TRACE_ITRS = 5                  # the Adam steps of phase 18's traced selection
 # and (b) the multiclass sharded group build after a warm-up, (e) the sharded flow's
 # training steps (of SHF_STEPS), (g) selections of the sharded NIW build
 PAR_GB_SELECTIONS, PAR_GC_SELECTIONS, PAR_SHF_STEPS, PAR_V_SELECTIONS = 2, 1, 500, 2
+# phase 20: the headline build exported with its draws stacked for EXP_STACK selections
+# (the headline's M) and run at each of EXP_ITRS selections from that one artifact; the
+# multiclass build of phase 6 exported and run at MCX_ITRS selections
+EXP_STACK, EXP_ITRS, MCX_ITRS = 100, (2, 3), 2
+# and the ported drivers, each once at its defaults cut in depth: fewer selections (--M),
+# evaluated sizes and MCMC draws, flow steps and samples (the cuts are printed)
+EX_CUTS = {
+    "zellner_logreg": ["--M", "10", "--eval-every", "5", "--mcmc-samples", "200",
+                       "--mcmc-warmup", "200"],
+    "zellner_gaussian": ["--M", "5"],
+    "multiclass": ["--M", "4", "--eval-every", "2"],
+    "group_selection": ["--M", "3"],
+    "poisson_regression": ["--M", "5"],
+    "mvn_unknown_cov": ["--M", "5"],
+    "zellner_neural_linear": ["--M", "2"],
+    "shf_logreg": ["--train-steps", "500", "--chunk", "500", "--n-samples", "400"],
+}
+# the keys of each JAX driver's results pickle (examples/<name>.py), which the port's
+# must carry
+EX_KEYS = {
+    "zellner_logreg": {"args", "w", "p", "accs", "plls", "build_time_s", "mcmc_times",
+                       "mcmc_diagnostics", "full_data", "select_beta"},
+    "zellner_gaussian": {"alg", "trial", "w", "p", "rklw", "fklw", "betas", "build_time_s",
+                         "select_beta", "mup", "Sigp"},
+    "multiclass": {"args", "sizes", "accs", "build_s", "base", "select_beta",
+                   "mcmc_escalations"},
+    "group_selection": {"args", "order", "accs", "select_time_s", "select_beta"},
+    "poisson_regression": {"args", "w", "p", "plls", "build_time_s", "mcmc_times",
+                           "mcmc_diagnostics", "select_beta"},
+    "mvn_unknown_cov": {"args", "w", "p", "mu_err", "sig_tr", "rkl", "pll", "build_time_s",
+                        "select_beta"},
+    "zellner_neural_linear": {"args", "rmses", "nlls", "time_s", "select_beta"},
+}
 # operations per likelihood value (csrc/logreg_common.cuh::Likelihood),
 # each arithmetic or transcendental operation counted once: beta, log
 TRANSFORM_OPS = {True: 17, False: 6}
@@ -3648,6 +3697,296 @@ def phase_parallel(seed: int, card: str, mcmc: dict, dev: str = "cuda",
     log(f"parallel: phase 19 in {secs:.1f} s; {launches} K2 launches in (b)'s selection")
     return {"K2": launches, "line": f"parallel (phase 19, {secs:.1f} s): " + ", ".join(summary)}
 
+# the child that loads an exported build: it imports utils.export and nothing of a
+# builder or a model family, runs the artifact at each requested size and saves what
+# came out with its seconds and the kernels' launches
+EXPORT_CHILD = """
+import sys, time, torch
+from betacores_tpu_torch.utils.export import BuildDraws, load_program_file
+from betacores_tpu_torch.ops import kernels
+art, ops, out, runs, dev = sys.argv[1:6]
+sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+call = load_program_file(art, device=dev)
+loaded = sorted(m for m in sys.modules if m.startswith("betacores_tpu_torch."))
+builders = [m for m in loaded if m.startswith(("betacores_tpu_torch.coresets.incremental",
+                                               "betacores_tpu_torch.coresets.api"))
+            or (m.startswith("betacores_tpu_torch.models.") and not m.endswith(".base"))]
+if builders:
+    raise SystemExit(f"loading the artifact imported {builders}")
+from betacores_tpu_torch.coresets.state import CoresetState
+o = torch.load(ops)
+res = {"modules": len(loaded), "runs": {}}
+for itrs in (int(r) for r in runs.split(",")):
+    k1, k2 = kernels.logreg_adam_step.launches, kernels.multiclass_projection.launches
+    sync()
+    t0 = time.perf_counter()
+    st = call(o["data"], BuildDraws(*o["draws"]), CoresetState(*o["state"]),
+              torch.tensor(itrs, device=dev))
+    sync()
+    res["runs"][itrs] = {"s": time.perf_counter() - t0,
+                         "state": tuple(t.cpu() for t in st),
+                         "K1": kernels.logreg_adam_step.launches - k1,
+                         "K2": kernels.multiclass_projection.launches - k2}
+torch.save(res, out)
+"""
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+class _ExportRun:
+    """One exported build: ``export`` exports ``builder``'s build and saves
+    it with its operands, ``launch`` starts a fresh process that loads it
+    and runs it at each size of ``runs`` (``EXPORT_CHILD``), ``finish``
+    waits for that process and holds each run against the live builder on
+    the same stacked draws, and returns the artifact's launches and the
+    seconds a selection of both."""
+
+    def __init__(self, tag: str, builder, data, st0, draws, runs, tmp: str, dev: str):
+        import os
+
+        self.tag, self.builder, self.data, self.st0, self.draws = tag, builder, data, st0, draws
+        self.runs, self.dev = runs, dev
+        self.art, self.ops, self.out = (os.path.join(tmp, f"{tag}.{ext}")
+                                        for ext in ("pt2", "ops.pt", "out.pt"))
+
+    def export(self) -> "_ExportRun":
+        from betacores_tpu_torch.utils.export import export_incremental_build
+
+        t0 = time.perf_counter()
+        blob = export_incremental_build(self.builder, self.data, self.st0,
+                                        draws_spec=self.draws)
+        self.t_export, self.mib = time.perf_counter() - t0, len(blob) / 2**20
+        with open(self.art, "wb") as fh:
+            fh.write(blob)
+        torch.save({"data": self.data, "draws": tuple(self.draws), "state": tuple(self.st0)},
+                   self.ops)
+        return self
+
+    def launch(self) -> "_ExportRun":
+        import os
+
+        env = dict(os.environ)
+        here = os.path.dirname(os.path.abspath(__file__))
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (here, env.get("PYTHONPATH")) if p)
+        self.t_launch = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", EXPORT_CHILD, self.art, self.ops, self.out,
+             ",".join(map(str, self.runs)), self.dev], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        return self
+
+    def finish(self) -> dict:
+        from betacores_tpu_torch.coresets.state import CoresetState
+        from betacores_tpu_torch.ops import kernels
+        from betacores_tpu_torch.utils.export import fixed_draws
+
+        tag, dev = self.tag, self.dev
+        sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+        try:
+            _, err = self.proc.communicate(timeout=900)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        t_child = time.perf_counter() - self.t_launch
+        if self.proc.returncode != 0:
+            raise RuntimeError(f"export {tag}: the loading process failed:\n{err[-4000:]}")
+        res = torch.load(self.out)
+        lines, k1, k2, live_k2 = [], 0, 0, 0
+        for itrs in self.runs:
+            r = res["runs"][itrs]
+            got = CoresetState(*(t.to(dev) for t in r["state"]))
+            k2_0 = kernels.multiclass_projection.launches
+            sync()
+            t0 = time.perf_counter()
+            live = self.builder.build(self.st0, itrs, fixed_draws(self.draws))
+            sync()
+            r["live_s"] = time.perf_counter() - t0
+            live_k2 += kernels.multiclass_projection.launches - k2_0
+            check_state(got)
+            summary = check_same_build(f"export {tag}, itrs={itrs}", got, live)
+            same = all(torch.equal(a, b) for a, b in zip(got, live))
+            first = ", its first build capturing" if itrs == self.runs[0] else ""
+            lines.append(f"itrs={itrs}: {summary}, bit-identical {same}; "
+                         f"{r['s'] / itrs:.3f} s a selection (artifact) against "
+                         f"{r['live_s'] / itrs:.3f} s (live, captured{first}); "
+                         f"launches in the artifact K1 {r['K1']}, K2 {r['K2']}")
+            k1, k2 = k1 + r["K1"], k2 + r["K2"]
+        log(f"export {tag}: exported in {self.t_export:.2f} s ({self.mib:.1f} MiB artifact, "
+            f"draws operand {_nbytes(self.draws) / 2**20:.1f} MiB), loaded and run in a fresh "
+            f"process importing {res['modules']} modules of the port and no builder or model "
+            f"family ({t_child:.1f} s with its start)")
+        for line in lines:
+            log(f"export {tag}, {line}")
+        last = res["runs"][self.runs[-1]]
+        return {"K1": k1, "K2": k2, "live_K2": live_k2,
+                "art_s": last["s"] / self.runs[-1], "live_s": last["live_s"] / self.runs[-1]}
+
+
+def _finite(what: str, value) -> None:
+    """Raises unless every number in ``value`` (dicts, lists, arrays) is
+    finite; None, strings and a driver's ``args`` are skipped."""
+    if isinstance(value, dict):
+        for k, v in value.items():
+            if k != "args":
+                _finite(f"{what}.{k}", v)
+    elif isinstance(value, (list, tuple)):
+        for i, v in enumerate(value):
+            _finite(f"{what}[{i}]", v)
+    elif isinstance(value, (float, int, np.ndarray, np.generic)) and not isinstance(value, bool):
+        a = np.asarray(value)
+        if a.dtype.kind in "fiu" and not np.isfinite(a).all():
+            raise AssertionError(f"{what} is not finite: {value}")
+
+
+def phase_export(seed: int, card: str, dev: str = "cuda", n: int = N_ROWS,
+                 mc_n: int = MC_ROWS, stack: int = EXP_STACK) -> dict:
+    """Phase 20: the build exported as a loadable program, and the ported
+    drivers.
+
+    (a) the headline logistic build (bench.py's widths: n contaminated rows,
+        d = 10, a 128-slot buffer, S = 100, a 1000-row select, 500 Adam steps
+        on 200 rows, beta = 0.1) exported on the card
+        (``export_incremental_build``) with its draws stacked for ``stack``
+        selections, saved, loaded by a fresh process that imports
+        ``utils.export`` and no builder, and run at 2 and 3 selections from
+        that one artifact (every Adam step K1's op); each run held against
+        the live, graph-captured build on the same draws: the same ``idcs``
+        and m, weights within 5e-3 max(1, max|w|), and whether bit-identical;
+    (b) the multiclass build of phase 6 (N = mc_n, K = 5, d = 10, full
+        select, S = 100) exported the same way and run at 2 selections
+        (K2's op at every select);
+    (c) each ported driver once through its ``main()`` on the card, at its
+        defaults cut in depth (EX_CUTS); each pickle must carry the JAX
+        driver's keys (EX_KEYS) with finite numbers; ``run_sweep`` runs one
+        grid point with ``--index`` and ``plot_results`` plots the Gaussian
+        pickles (skipped, and said, without matplotlib).
+    Returns the launches of K1 and K2 in the phase and one summary line."""
+    import importlib
+    import importlib.util
+    import os
+    import pickle
+    import tempfile
+
+    from betacores_tpu_torch import (IncrementalConfig, flip_labels, gen_synthetic_logreg,
+                                     gen_synthetic_multiclass, init_state, logreg,
+                                     logreg_laplace_sampler, make_incremental_builder,
+                                     multiclass, multiclass_laplace_sampler, perturb_logreg)
+    from betacores_tpu_torch.ops import kernels
+    from betacores_tpu_torch.utils.export import stack_draws
+
+    t_phase = time.perf_counter()
+    summary = []
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    with tempfile.TemporaryDirectory() as tmp:
+        # --- (a) the headline logistic build ---
+        gen = torch.Generator(device=dev).manual_seed(seed + 20)
+        X, y, _ = gen_synthetic_logreg(gen, n, d=N_FEAT)
+        X, y, Z, _ = perturb_logreg(gen, X, y, f_rate=0.1)
+        cfg = IncrementalConfig(projection_dim=S, n_subsample_select=N_SEL,
+                                n_subsample_opt=N_OPT, opt_itrs=OPT_ITRS, i0=1.0,
+                                use_beta=True)
+        builder = make_incremental_builder(Z, logreg.bundle(), logreg_laplace_sampler(), cfg)
+        st0 = init_state(M_BUF, N_FEAT, beta=BETA, device=dev)
+        draws = stack_draws(builder, gen, st0, stack)
+        k1_0 = kernels.logreg_adam_step.launches
+        a = _ExportRun("headline", builder, Z, st0, draws, EXP_ITRS, tmp, dev).export().launch()
+        a = a.finish()
+        k1_live = kernels.logreg_adam_step.launches - k1_0
+        want = sum(EXP_ITRS) * OPT_ITRS if dev == "cuda" else 0
+        if a["K1"] != want or k1_live != want:
+            raise AssertionError(f"export headline: K1 launched {a['K1']} times in the "
+                                 f"artifact and {k1_live} in the live builds, want {want} each")
+        summary.append(f"headline {a['art_s']:.2f} s/sel exported, {a['live_s']:.3f} live")
+        del X, y, Z, builder, draws
+
+        # --- (b) the multiclass build, full select ---
+        K, d = MC_K, MC_D
+        gen = torch.Generator(device=dev).manual_seed(seed + 21)
+        _, _, Zm = gen_synthetic_multiclass(gen, mc_n, d=d, n_classes=K)
+        Zm, _ = flip_labels(gen, Zm, K, MC_F_RATE)
+        cfg = IncrementalConfig(projection_dim=S, n_subsample_select=None,
+                                n_subsample_opt=MC_N_OPT, opt_itrs=MC_OPT_ITRS, i0=1.0,
+                                use_beta=True)
+        builder = make_incremental_builder(Zm, multiclass.bundle(K),
+                                           multiclass_laplace_sampler(K), cfg)
+        st0 = init_state(MC_M, d + 1, beta=MC_BETA, device=dev,
+                         sampler_aux=torch.zeros(K * d, device=dev))
+        draws = stack_draws(builder, gen, st0, MCX_ITRS)
+        b = _ExportRun("multiclass", builder, Zm, st0, draws, (MCX_ITRS,), tmp, dev)
+        b = b.export().launch().finish()
+        want = MCX_ITRS if dev == "cuda" else 0
+        if b["K2"] != want or b["live_K2"] != want:
+            raise AssertionError(f"export multiclass: K2 launched {b['K2']} times in the "
+                                 f"artifact and {b['live_K2']} in the live build, want "
+                                 f"{want} each (one a select)")
+        summary.append(f"multiclass {b['art_s']:.2f} s/sel exported, {b['live_s']:.3f} live")
+        del Zm, builder, draws
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+
+        # --- (c) the drivers ---
+        k1_0, k2_0 = kernels.logreg_adam_step.launches, kernels.multiclass_projection.launches
+        secs = {}
+        for name, cut in EX_CUTS.items():
+            out_dir = os.path.join(tmp, "results", name)
+            log(f"driver {name}: python -m betacores_tpu_torch.examples.{name} "
+                f"{' '.join(cut)} (its defaults otherwise; the cut: {' '.join(cut)})")
+            mod = importlib.import_module(f"betacores_tpu_torch.examples.{name}")
+            sync()
+            t0 = time.perf_counter()
+            got = mod.main(cut + ([] if name == "shf_logreg" else ["--results-dir", out_dir])
+                           + ["--device", dev])
+            sync()
+            secs[name] = time.perf_counter() - t0
+            if name == "shf_logreg":
+                _finite(name, got)
+                log(f"driver {name}: {secs[name]:.1f} s, {got}")
+                continue
+            with open(got, "rb") as fh:
+                res = pickle.load(fh)
+            missing = EX_KEYS[name] - set(res)
+            if missing or set(res) - EX_KEYS[name]:
+                raise AssertionError(f"driver {name}: pickle keys {sorted(res)}, the JAX "
+                                     f"driver's {sorted(EX_KEYS[name])}")
+            _finite(name, res)
+            log(f"driver {name}: {secs[name]:.1f} s, {os.path.basename(got)} with the JAX "
+                f"driver's keys, every number finite")
+        from betacores_tpu_torch.examples import plot_results, run_sweep
+
+        sweep_dir = os.path.join(tmp, "results", "sweep")
+        t0 = time.perf_counter()
+        run_sweep.main(["--exp", "gaussian", "--index", "0", "--results-dir", sweep_dir,
+                        "--", "--M", "3", "--device", dev])
+        secs["run_sweep"] = time.perf_counter() - t0
+        files = sorted(os.listdir(sweep_dir)) if os.path.isdir(sweep_dir) else []
+        if files != ["results_BCORES_1_b0.1.pk"]:
+            raise AssertionError(f"run_sweep --index 0 wrote {files}")
+        log(f"driver run_sweep: --exp gaussian --index 0 -- --M 3 in {secs['run_sweep']:.1f} "
+            f"s (a fresh process), wrote {files[0]}")
+        if importlib.util.find_spec("matplotlib") is None:
+            log("driver plot_results: skipped, matplotlib is not installed on this machine")
+        else:
+            t0 = time.perf_counter()
+            png = plot_results.main(["--kind", "gaussian", "--results-dir",
+                                     os.path.join(tmp, "results", "zellner_gaussian"),
+                                     "--out", os.path.join(tmp, "gaussian.png")])
+            secs["plot_results"] = time.perf_counter() - t0
+            if png is None or not os.path.getsize(png):
+                raise AssertionError("plot_results wrote no figure")
+            log(f"driver plot_results: --kind gaussian in {secs['plot_results']:.1f} s")
+        k1_d = kernels.logreg_adam_step.launches - k1_0
+        k2_d = kernels.multiclass_projection.launches - k2_0
+    log(f"drivers: seconds {', '.join(f'{k} {v:.1f}' for k, v in secs.items())}; K1 "
+        f"{k1_d} and K2 {k2_d} launches in them; {card}")
+    summary.append(f"drivers {sum(secs.values()):.0f} s")
+    t = time.perf_counter() - t_phase
+    log(f"export: phase 20 in {t:.1f} s")
+    return {"K1": a["K1"] + k1_live + k1_d, "K2": b["K2"] + b["live_K2"] + k2_d,
+            "line": f"export (phase 20, {t:.1f} s): " + ", ".join(summary)}
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3680,11 +4019,13 @@ def main() -> int:
     mcmc = phase_mcmc_eval(args.seed, card)
     streaming = phase_streaming(args.seed, card)
     parallel = phase_parallel(args.seed, card, mcmc)
+    export = phase_export(args.seed, card)
     entries = [("logreg_adam_step", "logreg_adam_step.cu", "pallas_kernels.py:173",
-                {"launches": main_path["launches"] + api["K1"] + mcmc["K1"]}, k1),
+                {"launches": main_path["launches"] + api["K1"] + mcmc["K1"] + export["K1"]},
+                k1),
                ("multiclass_projection", "multiclass_projection.cu", "pallas_kernels.py:330",
                 {"launches": mc_path["launches"] + api["K2"] + hilbert["K2"] + groups["K2"]
-                 + parallel["K2"]}, k2),
+                 + parallel["K2"] + export["K2"]}, k2),
                ("logreg_shard_step_partials", "logreg_shard_partials.cu", "pallas_kernels.py:249",
                 sharded, k3)]
     log(families)
@@ -3694,7 +4035,8 @@ def main() -> int:
     log(mcmc["line"])
     log(streaming["line"])
     log(parallel["line"])
-    log(f"chip_smoke: phases 0-19 in {time.perf_counter() - t_start:.1f} s")
+    log(export["line"])
+    log(f"chip_smoke: phases 0-20 in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"betacores_tpu_torch/csrc/{src}",
          "replaces": f"betacores_tpu/ops/{tpu}", "launches": path["launches"], **k}

@@ -332,19 +332,13 @@ def test_entry_points_need_a_card_or_the_cpu(det, monkeypatch):
             make()
 
 
-@pytest.mark.parametrize("what", ["groups", "bpsvi", "hmc_chains", "shf_trainer",
-                                  "export_program", "export_incremental_build",
-                                  "load_program"])
+@pytest.mark.parametrize("what", ["groups", "bpsvi", "hmc_chains", "shf_trainer"])
 def test_unported_parts_name_their_roadmap_item(det, what):
-    """Exporting the build (the JAX package's utils/export.py) is item 13,
-    and its stubs name it. The sharded group build, BPSVI lanes, chains and
-    flow trainer (item 12) are ported: without a mesh each refuses, as the
-    JAX one's ``require_axes`` does."""
+    """The sharded group build, BPSVI lanes, chains and flow trainer (item
+    12) are ported: without a mesh each refuses, as the JAX one's
+    ``require_axes`` does. (Exporting the build, item 13, is ported too:
+    tests/test_torch_export.py.)"""
     Z, samples = det
-    if what in ("export_program", "export_incremental_build", "load_program"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            getattr(bc.utils, what)(Z)
-        return
     with pytest.raises(ValueError, match="mesh must have axes"):
         if what == "groups":
             gp = bc.ops.projection.Groups.from_lists([[0, 1], [2]], "cpu")

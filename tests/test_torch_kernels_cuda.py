@@ -7,7 +7,9 @@ greedy loop, ``nnls_on_support`` at column N - 1); and the MCMC and flow
 runs (inference/hmc.py, nuts.py, shf.py): captured equal to eager bit for
 bit, and the card equal to the CPU in float64; and the sharded multiclass
 group build's K2 route (parallel/groups.py) against its plain version on a
-(1, 1) NCCL mesh. This file imports no JAX, so it runs where the card is:
+(1, 1) NCCL mesh; and K1's and K2's ``torch.library`` ops and an exported
+build (utils/export.py) on the card. This file imports no JAX, so it runs
+where the card is:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
@@ -951,3 +953,54 @@ def test_cuda_capture_survives_a_dead_graph_in_a_cycle(cuda_device):
     graphs.capture(body).replay()
     torch.cuda.synchronize()
     assert torch.equal(x.cpu(), torch.full((4,), 2.0))
+
+
+@pytest.mark.cuda
+def test_cuda_ops_launch_the_kernels_and_count(cuda_device):
+    """K1's and K2's ``torch.library`` ops on card tensors launch the
+    hand-written kernels (one count a call, the plain version's values
+    within the kernels' tolerances), never the plain version."""
+    ops_np, S = step_operands(np.random.default_rng(5))
+    ops = _torch(ops_np, cuda_device)
+    before = kernels.logreg_adam_step.launches
+    got = torch.ops.betacores_torch.logreg_adam_step(*ops, S, True)
+    assert kernels.logreg_adam_step.launches == before + 1
+    want = kernels.logreg_adam_step_plain(*_torch(ops_np, "cpu"), S, True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), **TOL)
+    z = torch.cat([torch.randn(9000, 10, device=cuda_device),
+                   torch.randint(0, 5, (9000, 1), device=cuda_device).float()], 1)
+    th = torch.randn(100, 50, device=cuda_device)
+    beta = torch.tensor(0.3, device=cuda_device)
+    before = kernels.multiclass_projection.launches
+    got = torch.ops.betacores_torch.multiclass_projection(z, th, 5, 1.0, beta, True)
+    assert kernels.multiclass_projection.launches == before + 1
+    want = kernels.multiclass_projection_plain(z.cpu(), th.cpu(), 5, beta.cpu(), True)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_exported_build_equals_the_live_build(cuda_device):
+    """A logistic build exported on the card (K1's op at every step) and
+    run from its artifact equals the live, captured build on the same
+    stacked draws, and launches K1 once an Adam step."""
+    import betacores_tpu_torch as bc
+    from betacores_tpu_torch.utils.export import (export_incremental_build, fixed_draws,
+                                                  load_program, stack_draws)
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    _, _, Z = bc.gen_synthetic_logreg(gen, 20_000, d=10)
+    cfg = bc.IncrementalConfig(projection_dim=100, n_subsample_select=1000,
+                               n_subsample_opt=200, opt_itrs=20, i0=1.0, use_beta=True)
+    b = bc.make_incremental_builder(Z, bc.logreg.bundle(), bc.logreg_laplace_sampler(), cfg)
+    st0 = bc.init_state(128, 10, beta=0.1, device=cuda_device)
+    draws = stack_draws(b, gen, st0, 3)
+    call = load_program(export_incremental_build(b, Z, st0, draws_spec=draws),
+                        device=cuda_device)
+    before = kernels.logreg_adam_step.launches
+    art = call(Z, draws, st0, torch.tensor(3, device=cuda_device))
+    assert kernels.logreg_adam_step.launches == before + 3 * 20
+    live = b.build(st0, 3, fixed_draws(draws))
+    assert torch.equal(art.idcs, live.idcs) and int(art.m) == int(live.m)
+    scale = max(1.0, float(live.wts.abs().max()))
+    assert float((art.wts - live.wts).abs().max()) <= 5e-3 * scale
