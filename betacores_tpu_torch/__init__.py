@@ -45,6 +45,9 @@ drives (``coresets.ContextualProjector`` and ``alg.ctx``; the builders'
 (``inference``: adaptive HMC, iterative NUTS, split-R-hat and ESS, the
 HMC-to-NUTS escalation) with the sparse Hamiltonian flows (``inference.shf``);
 on a CUDA device their iterations replay as CUDA graphs.
+The experiment drivers are ``betacores_tpu_torch.examples`` (each JAX
+driver's flags, files and keys, plus ``--device`` and ``--seed``), and
+``betacores_tpu_torch.entry`` holds ``entry()`` and ``dryrun_multichip(n)``.
 Modules keep the JAX package's paths and names.
 This package imports torch and never jax.
 """

@@ -392,7 +392,18 @@ def export_incremental_build(builder, data_spec, state, data_weights_spec=None,
     given, with ``itrs`` a 0-d int64 operand: one artifact serves every
     build size up to the draws' selections. A builder the program cannot
     express (the per-step-draw route, learn_beta, a contextual builder)
-    raises NotImplementedError (``build_program``)."""
+    raises NotImplementedError (``build_program``).
+
+    An ``itrs`` past the draws' selections is refused by an assert inside
+    the program. On the CPU the call raises ``RuntimeError("itrs exceeds
+    the selections of the draws")``. On a card the assert runs on the
+    device: the call returns, and the next operation that waits for the
+    card raises ``RuntimeError: CUDA error: device-side assert
+    triggered``; the process's CUDA context is then unusable, so every
+    later CUDA call in it fails too (tests/test_torch_kernels_cuda.py runs
+    it in a subprocess). A caller that takes ``itrs`` from outside checks
+    it against ``draws.z_sel.shape[0]`` on the host first, or runs the
+    artifact in a process of its own."""
     if data_weights_spec is None:
         data_weights_spec = builder.u
     weighted = data_weights_spec is not None

@@ -153,7 +153,7 @@ toolkit. Phases, each of which raises on failure:
  17. the MCMC evaluation and the sparse Hamiltonian flows
      (``phase_mcmc_eval``): (a) examples/zellner_logreg.py at its defaults,
      a BetaCoreset of 100 points over synth_lr's 12,000 rows (K1 every Adam
-     step) scored at every tenth size by 2 HMC chains of 1000 + 1000
+     step) scored at every ZL_CUT_EVERY-th size by 2 HMC chains of 1000 + 1000
      iterations through ``run_with_escalation``, each iteration a replayed
      CUDA graph; (b) NUTS at m = 100 and the 5000-row full-data baseline;
      (c) an escalation to NUTS that happens by itself; (d)
@@ -215,6 +215,19 @@ toolkit. Phases, each of which raises on failure:
      each pickle carrying the JAX driver's keys (EX_KEYS) with finite
      numbers, ``run_sweep`` at one grid point and ``plot_results`` (skipped,
      and said, without matplotlib).
+ 21. the rest of the ported drivers and the entry points
+     (``phase_drivers``), each through its ``main(argv)``: (a) dp_bpsvi at
+     its defaults, every finite-eps row's reverse KL below a tenth of the
+     prior's; (b) virtual_mesh_headline --mesh 1x1 (an NCCL world of one)
+     at full width for MESH_ITRS selections, K3 launched 500 times a
+     selection, then --full-data, --full-gradient and --census (the
+     design's collective counts); (c) preprocess covtype, mnist2, housing
+     and movielens on raw files it writes, and data_tabulate over them; (d)
+     bench_native_loader, bench_select_pass, bench_group_pass and
+     fulldata_roofline --configs fullopt, at cut repetitions; (e)
+     ``betacores_tpu_torch.entry.entry()`` once (K1 ten times) and
+     ``dryrun_multichip(1)`` (NCCL, every subsystem). Phase 18 (a) and (b)
+     run the ported streaming_build and streaming_outofcore drivers.
 Phase 14 also builds GIGAO and GIGAR at examples/zellner_gaussian.py's own
 N = 5000 and raises if either reverse KL is more than an order of magnitude
 off the JAX package's record.
@@ -280,7 +293,7 @@ NL_F, NL_S, NL_ITRS, NL_N_OPT, NL_I0, NL_BETA, NL_M = 30, 100, 500, 1000, 0.1, 0
 NL_EPOCHS, NL_LR, NL_WD, NL_ROUNDS = 200, 1e-2, 0.1, (0, 5, 10, 15, 20)
 # SVI and RAND run this many of the rounds (BCORES all of them), to keep the
 # script within its time (PERF.md)
-NL_CUT_ROUNDS = 10
+NL_CUT_ROUNDS = 5
 # the JAX package's test RMSE at rounds 0 and 20 of that example (RESULTS.md:236-238)
 NL_JAX_RMSE = {"BCORES": (24.6, 28.9), "RAND": (24.6, 71.7)}
 # and at scale: 2^19 rows at YearPredictionMSD's width, the largest set the
@@ -316,6 +329,9 @@ N_TEST = 10_000                 # held-out rows of the object API's accuracy che
 ZL_N, ZL_D, ZL_N_TEST, ZL_F_RATE, ZL_TRIAL, ZL_BETA = 12_000, 10, 2000, 0.1, 1, 0.1
 ZL_S, ZL_ITRS, ZL_N_OPT, ZL_N_SEL, ZL_I0, ZL_M, ZL_EVERY = 100, 500, 200, 1000, 1.0, 100, 10
 ZL_SAMPLES, ZL_WARMUP, ZL_CHAINS, ZL_L_MAX, ZL_FULL_CAP = 1000, 1000, 2, 32, 5000
+# the sizes the phase scores: every ZL_CUT_EVERY-th (of --eval-every's ZL_EVERY), to keep
+# the script within its time (PERF.md)
+ZL_CUT_EVERY = 20
 # the JAX package's test accuracy of BCORES on synth_lr at m = 100 (RESULTS.md:440-442)
 ZL_JAX_ACC_M100 = (0.993, 0.995)
 # tests/test_inference.py:354-373's ill-conditioned target: d, chains, draws,
@@ -333,17 +349,17 @@ H_JAX_RKL = {"GIGAO": 4.6e5, "GIGAR": 1.9e5, "PRIOR": 4.9e3}
 # phase 18: examples/streaming_build.py at its defaults: --N, --d, --chunk-size,
 # --f-rate, --m-leaf, --m-final, --m-buf, --proj-dim, --opt-itrs, --beta, the select
 # and refinement subsamples, the final build's Adam steps (max(--opt-itrs, 500), over
-# every union row) and the clean test rows
+# every union row)
 SB_N, SB_D, SB_CHUNK, SB_F_RATE, SB_M_LEAF, SB_M_FINAL, SB_M_BUF = 200_000, 10, 50_000, 0.1, 50, 100, 64
-SB_S, SB_ITRS, SB_BETA, SB_N_SEL, SB_N_OPT, SB_FINAL_ITRS, SB_N_TEST = 100, 300, 0.1, 1000, 200, 500, 20_000
+SB_S, SB_ITRS, SB_BETA, SB_N_SEL, SB_N_OPT, SB_FINAL_ITRS = 100, 300, 0.1, 1000, 200, 500
 # the selections the phase runs of them, leaf and final, to keep the script within its
 # time (PERF.md): the final build's full-data refinement runs eagerly
 SB_CUT_LEAF, SB_CUT_FINAL = 5, 3
 # examples/streaming_outofcore.py's small usage line (--n, --chunk) with its other
-# defaults (--d, --m-leaf = --m-final, --proj-dim, --opt-itrs, --i0, the select and
-# refinement subsamples, sigma^2, the mean offset), and the selections run of them
-OC_N, OC_CHUNK, OC_D, OC_M, OC_S, OC_ITRS, OC_I0 = 20_000_000, 5_000_000, 10, 100, 100, 300, 1.0
-OC_N_SEL, OC_N_OPT, OC_SIG, OC_SHIFT, OC_CUT_M = 1000, 200, 2.0, 1.0, 25
+# defaults (--d, --m-leaf = --m-final, --proj-dim, --opt-itrs, the refinement
+# subsample), and the selections run of them
+OC_N, OC_CHUNK, OC_D, OC_M, OC_S, OC_ITRS = 20_000_000, 5_000_000, 10, 100, 100, 300
+OC_N_OPT, OC_CUT_M = 200, 25
 # the crash and resume, mesh and state-checkpoint checks at a small depth: rows,
 # chunk, selections, Adam steps; and the size of the parsed CSV
 SM_N, SM_CHUNK, SM_M, SM_ITRS, CSV_MB = 20_000, 5_000, 3, 50, 100
@@ -385,6 +401,11 @@ EX_KEYS = {
                         "select_beta"},
     "zellner_neural_linear": {"args", "rmses", "nlls", "time_s", "select_beta"},
 }
+# phase 21: the headline mesh driver's selections (K3 OPT_ITRS times each), the raw rows
+# of each preprocess file, K1's launches in one entry() iteration (one a step), and the
+# rows of bench_native_loader's numpy comparison (of its 126,185: numpy's rate does not
+# depend on the size, and writing and parsing the full files took 52 s of the phase)
+MESH_ITRS, PRE_ROWS, ENTRY_K1, BNL_ROWS = 3, 400, 10, 20_000
 # operations per likelihood value (csrc/logreg_common.cuh::Likelihood),
 # each arithmetic or transcendental operation counted once: beta, log
 TRANSFORM_OPS = {True: 17, False: 6}
@@ -2859,7 +2880,7 @@ def phase_mcmc_eval(seed: int, card: str, dev: str = "cuda") -> dict:
     keyed = lambda s: torch.Generator(device=dev).manual_seed(s)
     summary = []
 
-    # --- (a) the main experiment: the build, then HMC at every tenth size ---
+    # --- (a) the main experiment: the build, then HMC at every ZL_CUT_EVERY-th size ---
     gen = keyed(seed + 17)
     X, y, _ = gen_synthetic_logreg(gen, ZL_N, d=ZL_D)
     Xt, yt, Zt = gen_synthetic_logreg(gen, ZL_N_TEST, d=ZL_D)
@@ -2883,7 +2904,7 @@ def phase_mcmc_eval(seed: int, card: str, dev: str = "cuda") -> dict:
         f"({t_build / ZL_M:.3f} s per selection), K1 launches {k1}; {card}")
     w = [np.zeros(1)] + [np.atleast_1d(t[0]) for t in trace]
     p = [np.zeros((1, ZL_D))] + [np.atleast_2d(t[1]) for t in trace]
-    eval_ms = sorted(set(range(0, ZL_M + 1, ZL_EVERY)) | {ZL_M})
+    eval_ms = sorted(set(range(0, ZL_M + 1, ZL_CUT_EVERY)) | {ZL_M})
     cap = max(len(w[m]) for m in eval_ms)
 
     def padded(m):
@@ -3069,21 +3090,23 @@ def phase_streaming(seed: int, card: str, dev: str = "cuda", oc_n: int = OC_N,
     with its checkpoints, the host loaders' native parser and the coreset
     checkpoints and timing utilities, float32.
 
-    (a) examples/streaming_build.py at its widths: N = 200,000 contaminated
-        logistic rows (d = 10, 10 % corrupted) made on the card chunk by
-        chunk and kept on the host, 4 leaves of 50,000 rows (64-slot buffer,
-        S = 100, 1000-row select, 300 Adam steps on 200 rows, beta 0.1)
-        streamed through one builder, then the weighted final build over
-        the 256-row union (100 slots, every row, 500 Adam steps), for
-        SB_CUT_LEAF and SB_CUT_FINAL selections; raises unless the
-        coreset's held-out accuracy beats the prior's, and unless
-        ``parallel_leaves=True`` gives the same leaf union bits;
-    (b) examples/streaming_outofcore.py --n 20_000_000 --chunk 5_000_000
-        (Gaussian, d = 10, 800 MB of host data in 4 chunks, a checkpoint
-        per leaf) for OC_CUT_M selections a build; raises unless the peak
-        device memory of the build stays below two chunks' bytes plus the
-        builder's pass buffers, and unless the reverse KL to the exact
-        full-data posterior is below the prior's;
+    (a) the ported examples/streaming_build.py (``main(argv)``) at its
+        widths: N = 200,000 contaminated logistic rows (d = 10, 10 %
+        corrupted) made on the card chunk by chunk and kept on the host, 4
+        leaves of 50,000 rows (64-slot buffer, S = 100, 1000-row select, 300
+        Adam steps on 200 rows, beta 0.1) streamed through one builder, then
+        the weighted final build over the 256-row union (every row, 500 Adam
+        steps), with --m-leaf SB_CUT_LEAF and --m-final SB_CUT_FINAL; raises
+        unless the coreset's held-out accuracy beats the prior's, and unless
+        the driver's ``--parallel-leaves`` (with --m-final 0) gives the same
+        leaf union bits;
+    (b) the ported examples/streaming_outofcore.py --n 20_000_000 --chunk
+        5_000_000 (Gaussian, d = 10, 800 MB of host data in 4 chunks,
+        ``--checkpoint``: one a leaf) with --m-leaf = --m-final = OC_CUT_M
+        and --n-single 0; raises unless the peak device memory of the driver
+        stays below two chunks' bytes plus the builder's pass buffers, the
+        checkpoint is gone, and the reverse KL to the exact full-data
+        posterior is below the prior's;
     (c) a crash after 2 of 4 leaves and the rerun from the checkpoint, bit
         for bit the uninterrupted build (SM_* depth), checkpoint removed;
     (d) the mesh leaf pass on a (1, 1) mesh (NCCL, a world of one): the
@@ -3103,13 +3126,11 @@ def phase_streaming(seed: int, card: str, dev: str = "cuda", oc_n: int = OC_N,
     import tempfile
     from pathlib import Path
 
-    import betacores_tpu_torch as bc
     from betacores_tpu_torch.coresets import (IncrementalConfig, init_state,
                                              make_incremental_builder, merge_reduce_build)
     from betacores_tpu_torch.data import native_loader
-    from betacores_tpu_torch.evaluation import compute_accuracy, reverse_forward_kl
-    from betacores_tpu_torch.inference import gaussian_conjugate_sampler, logreg_laplace_sampler
-    from betacores_tpu_torch.models import gaussian, logreg
+    from betacores_tpu_torch.inference import logreg_laplace_sampler
+    from betacores_tpu_torch.models import logreg
     from betacores_tpu_torch.ops import kernels
     from betacores_tpu_torch.parallel import make_mesh, world_of_one
     from betacores_tpu_torch.utils import Timings, annotate, load_state, save_state, trace
@@ -3138,101 +3159,64 @@ def phase_streaming(seed: int, card: str, dev: str = "cuda", oc_n: int = OC_N,
     res = {}
     tmp = tempfile.TemporaryDirectory()
 
-    # --- (a) examples/streaming_build.py ---
+    # --- (a) the ported examples/streaming_build.py at the cut ---
+    from betacores_tpu_torch.examples import streaming_build, streaming_outofcore
+
+    sb_argv = ["--N", str(SB_N), "--d", str(SB_D), "--chunk-size", str(SB_CHUNK),
+               "--m-leaf", str(SB_CUT_LEAF), "--m-final", str(SB_CUT_FINAL),
+               "--m-buf", str(SB_M_BUF), "--proj-dim", str(SB_S), "--opt-itrs", str(SB_ITRS),
+               "--device", dev, "--seed", str(seed)]
+    log(f"streaming a: python -m betacores_tpu_torch.examples.streaming_build "
+        f"{' '.join(sb_argv)} (its defaults otherwise)")
     t0 = time.perf_counter()
-    chunks = []
-    for i in range(-(-SB_N // SB_CHUNK)):
-        g = keyed(seed * 1000 + 100 + i)
-        X, y, _ = bc.gen_synthetic_logreg(g, min(SB_CHUNK, SB_N - i * SB_CHUNK), d=SB_D)
-        chunks.append(bc.perturb_logreg(g, X, y, f_rate=SB_F_RATE)[2].cpu().numpy())
-    host = np.concatenate(chunks)
-    Xt, Yt, _ = bc.gen_synthetic_logreg(keyed(seed * 1000 + 999), SB_N_TEST, d=SB_D)
-    t_gen = time.perf_counter() - t0
-    leaf_cfg = IncrementalConfig(projection_dim=SB_S, n_subsample_select=min(SB_N_SEL, SB_CHUNK),
-                                 n_subsample_opt=min(SB_N_OPT, SB_CHUNK), opt_itrs=SB_ITRS,
-                                 i0=1.0, use_beta=True)
-    final_cfg = IncrementalConfig(projection_dim=SB_S, opt_itrs=max(SB_ITRS, SB_FINAL_ITRS),
-                                  i0=1.0, use_beta=True)
-    lr = dict(model=logreg.bundle(), sampler=logreg_laplace_sampler(), device=dev)
-    st_leaf = init_state(SB_M_BUF, SB_D, beta=SB_BETA, device=dev)
-    st_final = init_state(SB_M_FINAL, SB_D, beta=SB_BETA, device=dev)
-    tm = Timings()
-    t0 = time.perf_counter()
-    st_f, lp, lw = merge_reduce_build(seed, host, leaf_config=leaf_cfg, final_config=final_cfg,
-                                      chunk_size=SB_CHUNK, m_leaf=SB_CUT_LEAF,
-                                      m_final=SB_CUT_FINAL, st_leaf=st_leaf, st_final=st_final,
-                                      timings=tm, **lr)
-    sync()
-    t_stream = time.perf_counter() - t0
+    sb = streaming_build.main(sb_argv)
+    t_sb = time.perf_counter() - t0
+    st_f, lp, lw, tm, host = sb["state"], sb["leaf_pts"], sb["leaf_wts"], sb["timings"], sb["rows"]
     w_f, m_f = check_state(st_f)
-    mask = st_f.slot_mask
-
-    def acc_of(w, p):
-        th = laplace_thetas(w, p, SB_D, keyed(seed + 2), n=SB_S)
-        return float(compute_accuracy(Xt, Yt, th))
-
-    acc = acc_of(w_f[mask], st_f.pts[mask])
-    acc_prior = acc_of(torch.zeros(1, device=dev), torch.zeros((1, SB_D), device=dev))
+    acc, acc_prior = sb["acc"], sb["acc_prior"]
     if not acc > acc_prior:
         raise AssertionError(f"streaming a: the coreset's accuracy {acc:.4f} does not beat the "
                              f"prior's {acc_prior:.4f}")
     # the batched leaf pass: the same leaves in turn (a final build of 0 selections)
-    par = merge_reduce_build(seed, host, leaf_config=leaf_cfg, final_config=final_cfg,
-                             chunk_size=SB_CHUNK, m_leaf=SB_CUT_LEAF, m_final=0, st_leaf=st_leaf,
-                             st_final=st_final, parallel_leaves=True, **lr)
-    if not (torch.equal(par[1], lp) and torch.equal(par[2], lw)):
+    par = streaming_build.main(sb_argv + ["--parallel-leaves", "--m-final", "0"])
+    if not (torch.equal(par["leaf_pts"], lp) and torch.equal(par["leaf_wts"], lw)):
         raise AssertionError("streaming a: parallel_leaves differs from the streamed pass")
+    del par
     leaf_s = tm.sections["leaf"]
     res.update(leaf_s=leaf_s, final_s=tm.sections["final"][0], acc=acc, acc_prior=acc_prior)
-    log(f"streaming a, examples/streaming_build.py: {SB_N} rows (d={SB_D}, {SB_F_RATE:.0%} "
-        f"corrupted, made in {t_gen:.2f} s) in {len(leaf_s)} leaves of {SB_CHUNK} rows x "
-        f"{SB_CUT_LEAF} selections (of --m-leaf {SB_M_LEAF}; {SB_ITRS} Adam steps, "
-        f"{SB_M_BUF}-slot buffer), then the weighted final build over the {lw.shape[0]}-row "
-        f"union for {SB_CUT_FINAL} selections (of --m-final {SB_M_FINAL}; "
-        f"{final_cfg.opt_itrs} eager full-data Adam steps): {t_stream:.3f} s; s per leaf "
+    log(f"streaming a, streaming_build: {SB_N} rows (d={SB_D}, {SB_F_RATE:.0%} corrupted) in "
+        f"{len(leaf_s)} leaves of {SB_CHUNK} rows x {SB_CUT_LEAF} selections (of --m-leaf "
+        f"{SB_M_LEAF}; {SB_ITRS} Adam steps, {SB_M_BUF}-slot buffer), then the weighted final "
+        f"build over the {lw.shape[0]}-row union for {SB_CUT_FINAL} selections (of --m-final "
+        f"{SB_M_FINAL}; {max(SB_ITRS, SB_FINAL_ITRS)} eager full-data Adam steps): the driver "
+        f"{t_sb:.3f} s, the build {sb['t_stream']:.3f} s; s per leaf "
         f"{[round(t, 4) for t in leaf_s]}, {leaf_s[-1] / SB_CUT_LEAF:.4f} s a leaf selection "
         f"after the first leaf; final build {res['final_s']:.3f} s "
         f"({res['final_s'] / SB_CUT_FINAL:.3f} s a selection); m={m_f}; held-out accuracy "
-        f"{acc:.4f} (prior {acc_prior:.4f}); parallel_leaves == streamed bit for bit; {card}")
+        f"{acc:.4f} (prior {acc_prior:.4f}); --parallel-leaves == streamed bit for bit; {card}")
 
-    # --- (b) examples/streaming_outofcore.py --n 20_000_000 --chunk 5_000_000 ---
-    rng = np.random.default_rng(seed + 1)
-    t0 = time.perf_counter()
-    data = np.empty((oc_n, OC_D), dtype=np.float32)
-    xsum = np.zeros(OC_D)
-    for i in range(0, oc_n, 10_000_000):
-        blk = rng.standard_normal((min(i + 10_000_000, oc_n) - i, OC_D), dtype=np.float32)
-        blk *= np.float32(math.sqrt(OC_SIG))
-        blk += np.float32(OC_SHIFT)
-        data[i:i + len(blk)] = blk
-        xsum += blk.sum(axis=0, dtype=np.float64)
-    t_gen = time.perf_counter() - t0
-    eye = torch.eye(OC_D, device=dev)
-    Siginv = eye / OC_SIG
-    mu0 = torch.zeros(OC_D, device=dev)
-    gmodel = gaussian.bundle(Siginv, OC_D * math.log(OC_SIG))
-    gsmp = gaussian_conjugate_sampler(mu0, eye, Siginv)
-    oc_cfg = IncrementalConfig(projection_dim=OC_S, n_subsample_select=OC_N_SEL,
-                               n_subsample_opt=OC_N_OPT, opt_itrs=OC_ITRS, i0=OC_I0)
+    # --- (b) the ported examples/streaming_outofcore.py --n 20_000_000 --chunk 5_000_000 ---
     ckpt = os.path.join(tmp.name, "outofcore.npz")
-    tm_oc = Timings()
+    oc_argv = ["--n", str(oc_n), "--chunk", str(oc_chunk), "--m-leaf", str(OC_CUT_M),
+               "--m-final", str(OC_CUT_M), "--n-single", "0", "--checkpoint", ckpt,
+               "--opt-itrs", str(OC_ITRS), "--seed", str(seed + 1), "--device", dev]
+    log(f"streaming b: python -m betacores_tpu_torch.examples.streaming_outofcore "
+        f"{' '.join(oc_argv)} (its defaults otherwise)")
     if dev == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    st_o, _, _ = merge_reduce_build(seed, data, gmodel, gsmp, oc_cfg, oc_cfg, oc_chunk, OC_CUT_M,
-                                    OC_CUT_M, init_state(OC_M, OC_D, device=dev),
-                                    st_final=init_state(OC_M, OC_D, device=dev),
-                                    checkpoint_path=ckpt, device=dev, timings=tm_oc)
+    oc = streaming_outofcore.main(oc_argv)
     sync()
     t_oc = time.perf_counter() - t0
+    tm_oc = oc["timings"]
     if os.path.exists(ckpt):
         raise AssertionError("streaming b: the checkpoint outlived the build")
     chunk_bytes = oc_chunk * (OC_D + 1) * 4                # rows and row weights
     # the composed pass's static rows (the buffer appended), noise and row weights,
     # and one pass's draws (noise, int64 row indices)
-    pass_bytes = OC_ITRS * (4 * ((OC_N_OPT + OC_M) * OC_D + 2 * OC_S * OC_D + OC_N_OPT)
+    pass_bytes = OC_ITRS * (4 * ((OC_N_OPT + OC_CUT_M) * OC_D + 2 * OC_S * OC_D + OC_N_OPT)
                             + 8 * OC_N_OPT)
     peak = None
     if dev == "cuda":
@@ -3241,14 +3225,8 @@ def phase_streaming(seed: int, card: str, dev: str = "cuda", oc_n: int = OC_N,
             raise AssertionError(f"streaming b: peak device memory {peak} B is not below two "
                                  f"chunks ({2 * chunk_bytes} B) plus the pass buffers "
                                  f"({pass_bytes} B)")
-    w_o, m_o = check_state(st_o)
-    f64 = lambda x: x.to(torch.float64)
-    post = gaussian.weighted_post(f64(mu0), f64(eye), f64(Siginv), f64(st_o.pts), f64(w_o))
-    full = gaussian.posterior_from_precision(
-        f64(eye) + oc_n * f64(Siginv), f64(Siginv) @ torch.from_numpy(xsum).to(dev))
-    prior = gaussian.GaussianPosterior(mu=f64(mu0), prec_chol=f64(eye))
-    rkl, rkl_prior = (float(reverse_forward_kl(p, full)[0]) for p in (post, prior))
-    if not rkl < rkl_prior:
+    rkl, rkl_prior = oc["rkl_stream"], oc["rkl_prior"]
+    if not (math.isfinite(rkl) and rkl < rkl_prior):
         raise AssertionError(f"streaming b: reverse KL {rkl:.4g} is not below the prior's "
                              f"{rkl_prior:.4g}")
     ck_s = tm_oc.sections["checkpoint"]
@@ -3257,18 +3235,20 @@ def phase_streaming(seed: int, card: str, dev: str = "cuda", oc_n: int = OC_N,
     peak_txt = ("not measured" if peak is None else
                 f"{peak / 2**20:.1f} MiB against one chunk's {chunk_bytes / 2**20:.1f} MiB "
                 f"(limit {(2 * chunk_bytes + pass_bytes) / 2**20:.1f} MiB)")
-    log(f"streaming b, examples/streaming_outofcore.py --n {oc_n} --chunk {oc_chunk}: "
-        f"{data.nbytes / 1e6:.0f} MB of host data (made in {t_gen:.2f} s) in "
+    log(f"streaming b, streaming_outofcore --n {oc_n} --chunk {oc_chunk}: "
+        f"{oc_n * OC_D * 4 / 1e6:.0f} MB of host data (made in {oc['t_generate_s']} s) in "
         f"{len(tm_oc.sections['leaf'])} leaves, {OC_CUT_M} selections a build (of --m-leaf "
-        f"{OC_M}), a checkpoint a leaf: {t_oc:.3f} s; s per leaf "
+        f"{OC_M}), a checkpoint a leaf: the driver {t_oc:.3f} s; s per leaf "
         f"{[round(t, 4) for t in tm_oc.sections['leaf']]}; final {res['oc_final_s']:.3f} s; "
         f"checkpoint (host copy + atomic npz) ms per leaf {[round(1e3 * t, 3) for t in ck_s]}; "
-        f"peak device memory {peak_txt}; m={m_o}; reverse KL to the exact "
+        f"peak device memory {peak_txt}; nnz {oc['nnz_stream']}; reverse KL to the exact "
         f"{oc_n}-row posterior {rkl:.4g} (prior {rkl_prior:.4g}); {card}")
-    del data
+    del oc
 
     # --- (c) a crash and the resume, (d) the mesh pass, at a small depth ---
     small = host[:SM_N]
+    lr = dict(model=logreg.bundle(), sampler=logreg_laplace_sampler(), device=dev)
+    st_leaf = init_state(SB_M_BUF, SB_D, beta=SB_BETA, device=dev)
     sm_cfg = IncrementalConfig(projection_dim=SB_S, n_subsample_select=SB_N_SEL,
                                n_subsample_opt=SB_N_OPT, opt_itrs=SM_ITRS, i0=1.0, use_beta=True)
     sm = dict(leaf_config=sm_cfg, final_config=sm_cfg, chunk_size=SM_CHUNK, m_leaf=SM_M,
@@ -3988,6 +3968,188 @@ def phase_export(seed: int, card: str, dev: str = "cuda", n: int = N_ROWS,
             "line": f"export (phase 20, {t:.1f} s): " + ", ".join(summary)}
 
 
+def write_raw_files(out: str, seed: int) -> dict:
+    """Raw files of four preprocess subcommands, made from ``seed`` as
+    tests/test_examples.py makes them (covtype: a numeric CSV with labels
+    1-3; mnist2: an npz of byte pixels and digit labels; housing: a
+    price-paid CSV and a GB_FULL.txt geocoding table; movielens: a ratings
+    CSV): {subcommand: preprocess arguments}."""
+    import os
+
+    rng = np.random.default_rng(seed)
+    cov = os.path.join(out, "cov.csv")
+    np.savetxt(cov, np.c_[rng.normal(size=(PRE_ROWS, 5)), rng.integers(1, 4, size=PRE_ROWS)],
+               delimiter=",")
+    mnist = os.path.join(out, "mnist.npz")
+    np.savez(mnist, X=rng.integers(0, 255, size=(PRE_ROWS, 16)),
+             y=rng.integers(0, 10, size=PRE_ROWS))
+    geo = os.path.join(out, "GB_FULL.txt")
+    with open(geo, "w") as f:
+        f.write("header\n" + "\n".join(
+            "\t".join(["GB", code, "x", "x", "x", "x", "x", "x", "x", str(lat), str(lon), "1"])
+            for code, lat, lon in [("AB1 0AA", 57.1, -2.2), ("ZZ9 9ZZ", 50.0, 0.1)]) + "\n")
+    pp = os.path.join(out, "pp-2018.csv")
+    with open(pp, "w") as f:
+        f.write('"id","100000","2018","AB1 0AA","x"\n"id","250000","2018","ZZ9 9ZZ","x"\n'
+                '"id","50000","2018","NO1 1NO","x"\n')
+    ml = os.path.join(out, "ml.csv")
+    with open(ml, "w") as f:
+        f.write("\n".join(["userId,movieId,rating,timestamp"] + [
+            f"{rng.integers(1, 12)},{rng.integers(1, 30)},"
+            f"{rng.choice([1.0, 2.0, 3.0, 4.0, 5.0])},{rng.integers(9e8, 1e9)}"
+            for _ in range(PRE_ROWS)]))
+    return {"covtype": ["--raw", cov, "--pca", "3"], "mnist2": ["--raw", mnist],
+            "housing": ["--raw", pp, geo], "movielens": ["--raw", ml, "--n-groups", "5",
+                                                        "--cap", "20"]}
+
+
+def phase_drivers(seed: int, card: str, dev: str = "cuda") -> dict:
+    """Phase 21: the rest of the ported drivers and the entry points, each
+    through its ``main(argv)`` (or ``entry``/``dryrun_multichip``) on the
+    card, each printing its times beside the card's name and power limit.
+
+    (a) dp_bpsvi at its defaults (N = 5000, d = 10, M = 30, 300 steps, the
+        noise grid 0.5, 1, 2, 4): raises unless every finite-eps row's
+        reverse KL is below a tenth of the prior's;
+    (b) virtual_mesh_headline --mesh 1x1 (an NCCL world of one) --itrs
+        MESH_ITRS at full width: raises unless ok, m = MESH_ITRS and K3
+        launched MESH_ITRS x 500 times; then --full-data --itrs 2,
+        --full-gradient --itrs 2 --opt-itrs 50, and --census --itrs 1, whose
+        counts must equal the design's (``CENSUS``);
+    (c) preprocess covtype, mnist2, housing and movielens on raw files
+        written here (``write_raw_files``), then data_tabulate over the
+        output, which must list every npz written;
+    (d) bench_native_loader --rows BNL_ROWS --scale-rows 200000,
+        bench_select_pass --reps 5,
+        bench_group_pass --reps 5 --shapes 10000x100 1000000x100 and
+        fulldata_roofline --configs fullopt --fullopt-itrs 5 --repeats 1,
+        every number finite;
+    (e) ``entry()`` once: raises unless K1 launched ENTRY_K1 times (one a
+        step); then ``dryrun_multichip(1)``, NCCL in a world of one, every
+        subsystem.
+    Returns the launches of K1 and K3 in the phase and one summary line."""
+    import importlib
+    import os
+    import tempfile
+
+    from betacores_tpu_torch import entry as port_entry
+    from betacores_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    ex = lambda name: importlib.import_module(f"betacores_tpu_torch.examples.{name}")
+    k1, k3 = kernels.logreg_adam_step, kernels.logreg_shard_step_partials
+    k1_0, k3_0 = k1.launches, k3.launches
+    secs, summary = {}, []
+
+    def run(tag: str, name: str, argv: list):
+        log(f"driver {tag}: python -m betacores_tpu_torch.examples.{name} {' '.join(argv)}")
+        t0 = time.perf_counter()
+        out = ex(name).main(argv)
+        secs[tag] = time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # --- (a) DP-BPSVI at its defaults ---
+        rec = run("dp_bpsvi", "dp_bpsvi", ["--results-dir", os.path.join(tmp, "dp"),
+                                           "--device", dev, "--seed", str(seed)])
+        _finite("dp_bpsvi", [r["rkl"] for r in rec["rows"]] + [rec["rkl_prior"]])
+        bad = [r for r in rec["rows"] if math.isfinite(r["eps"])
+               and not r["rkl"] < rec["rkl_prior"] / 10]
+        if bad or len(rec["rows"]) != 5:
+            raise AssertionError(f"dp_bpsvi: rows {bad} not below a tenth of the prior's reverse "
+                                 f"KL {rec['rkl_prior']:.4g} ({len(rec['rows'])} rows)")
+        summary.append("dp eps " + "/".join(f"{r['eps']:g}" for r in rec["rows"][1:]))
+
+        # --- (b) the headline on a (1, 1) NCCL mesh: K3 every Adam step ---
+        mesh = ["--mesh", "1x1", "--device", dev, "--seed", str(seed)]
+        k3_b = k3.launches
+        rec = run("mesh headline", "virtual_mesh_headline", mesh + ["--itrs", str(MESH_ITRS)])
+        launched = k3.launches - k3_b
+        if not (rec["ok"] and rec["m"] == MESH_ITRS and launched == MESH_ITRS * OPT_ITRS
+                and rec["route"] == "fused"):
+            raise AssertionError(f"mesh headline: ok={rec['ok']}, m={rec['m']}, route "
+                                 f"{rec['route']}, K3 {launched} launches (want "
+                                 f"{MESH_ITRS * OPT_ITRS})")
+        log(f"driver mesh headline: K3 launched {launched} times ({MESH_ITRS} x {OPT_ITRS}), "
+            f"collectives {rec['calls']}")
+        summary.append(f"mesh headline {rec['t_total'] / MESH_ITRS:.3f} s/selection, "
+                       f"K3 {launched}")
+        for tag, extra in (("mesh full-data", ["--full-data", "--itrs", "2"]),
+                           ("mesh full-gradient", ["--full-gradient", "--itrs", "2",
+                                                   "--opt-itrs", "50"]),
+                           ("mesh census", ["--census", "--itrs", "1"])):
+            rec = run(tag, "virtual_mesh_headline", mesh + extra)
+            if not rec["ok"]:
+                raise AssertionError(f"{tag}: not ok")
+        if rec["census"] != ex("virtual_mesh_headline").CENSUS["headline"]:
+            raise AssertionError(f"mesh census: {rec['census']}")
+
+        # --- (c) preprocess on raw files written here, then the table ---
+        raw = os.path.join(tmp, "raw")
+        data_dir = os.path.join(tmp, "data")
+        os.makedirs(raw)
+        for cmd, argv in write_raw_files(raw, seed).items():
+            run(f"preprocess {cmd}", "preprocess", [cmd] + argv + ["--out-dir", data_dir])
+        written = sorted(f[:-4].upper() for f in os.listdir(data_dir) if f.endswith(".npz"))
+        rows = run("data_tabulate", "data_tabulate", ["--dirs", data_dir])
+        if sorted(r[0] for r in rows) != written or len(written) != 5:
+            raise AssertionError(f"data_tabulate listed {[r[0] for r in rows]}, the npz files "
+                                 f"are {written}")
+        for r in rows:
+            _finite(f"data_tabulate {r[0]}", r[1:])
+
+        # --- (d) the microbenchmarks ---
+        rec = run("bench_native_loader", "bench_native_loader",
+                  ["--rows", str(BNL_ROWS), "--scale-rows", "200000",
+                   "--workdir", os.path.join(tmp, "bnl"), "--device", dev])
+        if rec is None:
+            raise AssertionError("bench_native_loader: no C++ compiler for the native parser")
+        _finite("bench_native_loader", rec)
+        summary.append(f"native CSV {rec['csv']['native_mb_s']} MB/s, upload onto {dev} "
+                       f"{rec['upload']['mb_s']} MB/s")
+        rec = run("bench_select_pass", "bench_select_pass",
+                  ["--reps", "5", "--device", dev, "--seed", str(seed)])
+        _finite("bench_select_pass", rec)
+        summary.append(f"select {rec['select']:.3f} ms/pass")
+        rec = run("bench_group_pass", "bench_group_pass",
+                  ["--reps", "5", "--shapes", "10000x100", "1000000x100", "--device", dev,
+                   "--seed", str(seed)])
+        _finite("bench_group_pass", rec)
+        rec = run("fulldata_roofline", "fulldata_roofline",
+                  ["--configs", "fullopt", "--fullopt-itrs", "5", "--repeats", "1",
+                   "--device", dev, "--seed", str(seed)])
+        _finite("fulldata_roofline", rec)
+        if rec["fullopt"]["m"] < 1:
+            raise AssertionError(f"fulldata_roofline: {rec}")
+        summary.append(f"fullopt {rec['fullopt']['wall_s']} s")
+
+    # --- (e) the entry points ---
+    log("entry: betacores_tpu_torch.entry.entry() once, then dryrun_multichip(1)")
+    t0 = time.perf_counter()
+    fn, args = port_entry.entry(dev)
+    k1_e = k1.launches
+    out = fn(*args)
+    check_state(out)
+    k1_e = k1.launches - k1_e
+    if k1_e != ENTRY_K1:
+        raise AssertionError(f"entry: K1 launched {k1_e} times, want {ENTRY_K1}")
+    secs["entry"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dry = port_entry.dryrun_multichip(1, dev)
+    secs["dryrun_multichip(1)"] = time.perf_counter() - t0
+    want = "cuda" if dev == "cuda" else "cpu"
+    if dry["platform"] != want or len(dry["subsystems"]) != 9:
+        raise AssertionError(f"dryrun_multichip: {dry}")
+    log(f"entry: m={int(out.m)}, K1 {k1_e} launches; dryrun_multichip(1) on "
+        f"{dry['platform']} over {dry['backend']}, {len(dry['subsystems'])} subsystems")
+
+    launches = {"K1": k1.launches - k1_0, "K3": k3.launches - k3_0}
+    t = time.perf_counter() - t_phase
+    log(f"drivers (phase 21): seconds {', '.join(f'{k} {v:.1f}' for k, v in secs.items())}; "
+        f"launches {launches}; {card}")
+    return dict(launches, line=f"drivers (phase 21, {t:.1f} s): " + ", ".join(summary))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4020,14 +4182,15 @@ def main() -> int:
     streaming = phase_streaming(args.seed, card)
     parallel = phase_parallel(args.seed, card, mcmc)
     export = phase_export(args.seed, card)
+    drivers = phase_drivers(args.seed, card)
     entries = [("logreg_adam_step", "logreg_adam_step.cu", "pallas_kernels.py:173",
-                {"launches": main_path["launches"] + api["K1"] + mcmc["K1"] + export["K1"]},
-                k1),
+                {"launches": main_path["launches"] + api["K1"] + mcmc["K1"] + export["K1"]
+                 + drivers["K1"]}, k1),
                ("multiclass_projection", "multiclass_projection.cu", "pallas_kernels.py:330",
                 {"launches": mc_path["launches"] + api["K2"] + hilbert["K2"] + groups["K2"]
                  + parallel["K2"] + export["K2"]}, k2),
                ("logreg_shard_step_partials", "logreg_shard_partials.cu", "pallas_kernels.py:249",
-                sharded, k3)]
+                {"launches": sharded["launches"] + drivers["K3"]}, k3)]
     log(families)
     log(hilbert["line"])
     log(groups["line"])
@@ -4036,7 +4199,8 @@ def main() -> int:
     log(streaming["line"])
     log(parallel["line"])
     log(export["line"])
-    log(f"chip_smoke: phases 0-20 in {time.perf_counter() - t_start:.1f} s")
+    log(drivers["line"])
+    log(f"chip_smoke: phases 0-21 in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"betacores_tpu_torch/csrc/{src}",
          "replaces": f"betacores_tpu/ops/{tpu}", "launches": path["launches"], **k}

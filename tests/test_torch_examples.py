@@ -239,17 +239,19 @@ def test_plot_results_logreg_modal_config_reads_missing_keys_as_defaults(tmp_pat
 
 
 def test_drivers_import_no_jax_and_no_matplotlib():
-    """Every ported driver, the plotting kit and the export import neither
-    JAX nor the JAX package, and nothing imports matplotlib until a figure
-    is drawn (the card's machine may lack it)."""
+    """Every ported driver, the entry points, the plotting kit and the export
+    import neither JAX nor the JAX package, and nothing imports matplotlib
+    until a figure is drawn (the card's machine may lack it)."""
     import subprocess
 
     mods = ["betacores_tpu_torch.config", "betacores_tpu_torch.plotting",
-            "betacores_tpu_torch.utils.export"] + [
+            "betacores_tpu_torch.utils.export", "betacores_tpu_torch.entry"] + [
         f"betacores_tpu_torch.examples.{n}" for n in
         ("zellner_logreg", "zellner_gaussian", "multiclass", "group_selection",
          "poisson_regression", "mvn_unknown_cov", "zellner_neural_linear", "shf_logreg",
-         "run_sweep", "plot_results")]
+         "run_sweep", "plot_results", "dp_bpsvi", "streaming_build", "streaming_outofcore",
+         "preprocess", "data_tabulate", "virtual_mesh_headline", "bench_select_pass",
+         "bench_group_pass", "bench_native_loader", "fulldata_roofline")]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'betacores_tpu', "

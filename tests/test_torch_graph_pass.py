@@ -118,7 +118,7 @@ def test_composed_pass_matches_jax(mc_problem, refit_every):
 
 
 @pytest.mark.parametrize("refit_every", [1, 4])
-def test_sharded_fused_pass_matches_jax(problem, refit_every, tmp_path):
+def test_sharded_fused_pass_matches_jax(problem, refit_every):
     """The sharded fused route on a (2, 1) gloo mesh of spawned processes
     against the JAX sharded build through K3 (interpret mode)."""
     n_data, kw = 2, _kw(refit_every=refit_every)
@@ -132,7 +132,7 @@ def test_sharded_fused_pass_matches_jax(problem, refit_every, tmp_path):
                                     N_SUB, N_SUB)
     job = dict(data=problem, weights=None, model="logreg", cfg=kw, state=_np_state(st0),
                itrs=ITRS, sel=sel, opt=opt)
-    ranks = run_world(n_data, 1, {"job": job}, tmp_path)
+    ranks = run_world(n_data, 1, {"job": job})
     assert all(r["jobs"]["job"]["route"] == "fused" for r in ranks)
     for r in ranks:
         _assert_same_build(r["jobs"]["job"]["state"], _np_state(jst))

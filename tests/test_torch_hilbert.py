@@ -259,7 +259,7 @@ def test_refine_matches_jax_through_the_api(logistic):
 # --- the sharded Hilbert coreset -----------------------------------------
 
 @pytest.fixture(scope="module")
-def sharded_runs(gauss, tmp_path_factory):
+def sharded_runs(gauss):
     """Each mesh's ranks' reports of the ll and beta jobs."""
     X = gauss["X"]
     samples, _ = gauss["jsampler"](jax.random.key(SEED), S_G, jnp.zeros(1),
@@ -268,8 +268,7 @@ def sharded_runs(gauss, tmp_path_factory):
     job = dict(kind="hilbert", data=X, model=gauss["spec"], samples=samples,
                trace=TRACE_ITRS, itrs=SHARD_ITRS - TRACE_ITRS)
     jobs = {"ll": job, "beta": dict(job, beta=BETA)}
-    out = {shape: run_world(*shape, jobs, tmp_path_factory.mktemp(f"hilbert{shape[0]}"))
-           for shape in ((1, 1), (2, 1), (4, 1))}
+    out = {shape: run_world(*shape, jobs) for shape in ((1, 1), (2, 1), (4, 1))}
     return samples, out
 
 

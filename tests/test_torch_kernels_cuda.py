@@ -1004,3 +1004,45 @@ def test_cuda_exported_build_equals_the_live_build(cuda_device):
     assert torch.equal(art.idcs, live.idcs) and int(art.m) == int(live.m)
     scale = max(1.0, float(live.wts.abs().max()))
     assert float((art.wts - live.wts).abs().max()) <= 5e-3 * scale
+
+
+# an exported build asked for one selection more than its stacked draws hold,
+# in a process of its own: the failed device assert poisons the card's
+# context for the rest of the process
+_PAST_THE_DRAWS = """
+import torch
+import betacores_tpu_torch as bc
+from betacores_tpu_torch.utils.export import export_incremental_build, load_program, stack_draws
+
+dev = torch.device("cuda")
+gen = torch.Generator(device=dev).manual_seed(0)
+_, _, Z = bc.gen_synthetic_logreg(gen, 2000, d=10)
+cfg = bc.IncrementalConfig(projection_dim=20, n_subsample_select=100, n_subsample_opt=50,
+                           opt_itrs=5, i0=1.0, use_beta=True)
+b = bc.make_incremental_builder(Z, bc.logreg.bundle(), bc.logreg_laplace_sampler(), cfg)
+st0 = bc.init_state(16, 10, beta=0.1, device=dev)
+draws = stack_draws(b, gen, st0, 2)
+call = load_program(export_incremental_build(b, Z, st0, draws_spec=draws), device=dev)
+st = call(Z, draws, st0, torch.tensor(2, device=dev))
+print("WITHIN", int(st.m), flush=True)
+st = call(Z, draws, st0, torch.tensor(3, device=dev))
+torch.cuda.synchronize()
+print("PAST", int(st.m), flush=True)
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_exported_build_past_its_draws_fails(cuda_device):
+    """``itrs`` past the artifact's stacked selections fails on the card
+    (utils/export.py: a device assert, raised at the next synchronisation
+    as a CUDA error), after the same artifact served ``itrs`` within them."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", _PAST_THE_DRAWS], capture_output=True, text=True,
+                       timeout=600, env=dict(os.environ, PYTHONPATH=root))
+    assert "WITHIN 2" in r.stdout, r.stderr[-3000:]
+    assert r.returncode != 0 and "PAST" not in r.stdout, r.stdout
+    assert "device-side assert" in r.stderr or "itrs exceeds" in r.stderr, r.stderr[-3000:]

@@ -68,7 +68,7 @@ def test_world_of_one(world_of_one):
 
 
 @pytest.fixture(scope="module")
-def world_2x2(tmp_path_factory):
+def world_2x2():
     """Each rank's mesh report, and a tie: both data shards hold the same
     rows and draw the same local indices, so every candidate ties with its
     copy on the other shard."""
@@ -89,8 +89,7 @@ def world_2x2(tmp_path_factory):
                opt=[(rng.normal(size=(T, S, D)).astype(np.float32), [opt_sub, opt_sub])])
     data = np.arange(14, dtype=np.float32).reshape(7, 2)
     report = dict(kind="mesh", data=data, weights=np.arange(1, 8, dtype=np.float32))
-    return run_world(2, 2, {"report": report, "tie": tie},
-                     tmp_path_factory.mktemp("mesh2x2")), n
+    return run_world(2, 2, {"report": report, "tie": tie}), n
 
 
 def test_rank_layout_and_axis_groups(world_2x2):

@@ -220,7 +220,7 @@ def _jax_call_only_case(n_data, n_samp, **change):
 
 
 @pytest.fixture(scope="module", params=[(1, 1), (2, 2), (4, 1)], ids=lambda s: f"{s[0]}x{s[1]}")
-def mesh_run(request, tmp_path_factory):
+def mesh_run(request):
     """(JAX states, per-rank port results) of every case on one mesh."""
     n_data, n_samp = request.param
     key = jax.random.PRNGKey(3)
@@ -244,8 +244,7 @@ def mesh_run(request, tmp_path_factory):
     jobs["niw"] = niw
     # one generator for both streams: a world of one draws the single-device stream
     jobs["niw_one_generator"] = dict(niw, one_generator=True)
-    ranks = run_world(n_data, n_samp, jobs,
-                      tmp_path_factory.mktemp(f"world{n_data}x{n_samp}"))
+    ranks = run_world(n_data, n_samp, jobs)
     return want, ranks, (n_data, n_samp)
 
 

@@ -139,7 +139,7 @@ def _jax_case(name, n_data, n_samp):
 
 
 @pytest.fixture(scope="module", params=[(1, 1), (2, 2), (4, 1)], ids=lambda s: f"{s[0]}x{s[1]}")
-def mesh_run(request, tmp_path_factory):
+def mesh_run(request):
     """(JAX results, per-rank port results, mesh shape) of every case."""
     n_data, n_samp = request.param
     jobs, want = {}, {}
@@ -149,7 +149,7 @@ def mesh_run(request, tmp_path_factory):
     jobs["ones"] = dict(jobs["subsampled"], weights=np.ones(120))
     # the builder's own generator draws: the ranks must stay in step
     jobs["generator"] = dict(jobs["weighted"], generator_seed=7)
-    ranks = run_world(n_data, n_samp, jobs, tmp_path_factory.mktemp(f"groups{n_data}x{n_samp}"))
+    ranks = run_world(n_data, n_samp, jobs)
     return want, ranks, (n_data, n_samp)
 
 
@@ -256,7 +256,7 @@ def test_collectives_per_iteration(mesh_run):
 
 
 @pytest.fixture(scope="module")
-def mc_routes(tmp_path_factory):
+def mc_routes():
     """One multiclass group build (K = 3, 9000 rows in 90 groups, float64,
     full-candidate select and exact refinement) under one set of draws on
     a (1, 1) world, where each block goes to the fused projection, and on a
@@ -284,9 +284,7 @@ def mc_routes(tmp_path_factory):
            for i in range(itrs)]
     job = dict(kind="group", data=Z.numpy(), groups=groups, model=("multiclass", K), cfg=cfg,
                state=state_to_numpy(st0), itrs=itrs, sel=sel, opt=opt, count_fused=True)
-    return {shape: run_world(*shape, {"mc": job},
-                             tmp_path_factory.mktemp(f"mc{shape[0]}x{shape[1]}"))
-            for shape in [(1, 1), (1, 2)]}, itrs, T
+    return {shape: run_world(*shape, {"mc": job}) for shape in [(1, 1), (1, 2)]}, itrs, T
 
 
 def test_multiclass_fused_route_equals_the_samp_psum_route(mc_routes):

@@ -186,11 +186,10 @@ def _cases(n_data, n_samp):
 
 
 @pytest.fixture(scope="module", params=[(1, 1), (2, 2), (4, 1)], ids=lambda s: f"{s[0]}x{s[1]}")
-def lanes(request, tmp_path_factory):
+def lanes(request):
     """(jobs, JAX results, per-rank port results, mesh shape)."""
     jobs, want = _cases(*request.param)
-    ranks = run_world(*request.param, jobs,
-                      tmp_path_factory.mktemp(f"lanes{request.param[0]}x{request.param[1]}"))
+    ranks = run_world(*request.param, jobs)
     return jobs, want, ranks, request.param
 
 

@@ -278,7 +278,7 @@ def test_streaming_runs_on_the_card_unless_asked(monkeypatch):
         merge_reduce_build(3, X, **dict(args, device=None))
 
 
-def test_mesh_leaf_pass_equals_the_streamed_pass(tmp_path):
+def test_mesh_leaf_pass_equals_the_streamed_pass():
     """Two ranks over 5 leaves (a 40-row tail): 3 rounds, the last with a
     pad lane. Every rank returns the single-process streamed result bit for
     bit, with one all_gather a round."""
@@ -287,7 +287,7 @@ def test_mesh_leaf_pass_equals_the_streamed_pass(tmp_path):
     job = dict(kind="stream", seed=3, data=X, model=spec, leaf_cfg=LEAF, final_cfg=FINAL,
                chunk=CHUNK, m_leaf=M_LEAF, m_final=M_FINAL,
                state={k: v.numpy() for k, v in args["st_leaf"]._asdict().items()})
-    ranks = run_world(2, 1, {"stream": job}, tmp_path)
+    ranks = run_world(2, 1, {"stream": job})
     want = merge_reduce_build(3, X, **args)
     for r in ranks:
         got = r["jobs"]["stream"]

@@ -3,12 +3,12 @@ of processes joined by a gloo process group on the CPU, one process per
 mesh rank. Used by tests/test_torch_sharded.py, test_torch_mesh.py,
 test_torch_sharded_groups.py and test_torch_sharded_lanes.py.
 
-The children are started with the spawn method (the test process has JAX's
-threads, which fork would copy half-alive) and import only torch and the
-port. They meet through a FileStore, give every collective a 60 s timeout,
-and write their results to one pickle per rank; the parent joins them
-within a time limit, so a hung collective fails one test rather than the
-suite.
+The world is the port's own (``parallel.run_world``): a world of one runs
+in the test process, a larger one in children started with the spawn
+method (the test process has JAX's threads, which fork would copy
+half-alive) that import only torch and the port, meet through a FileStore
+and send back one pickle per rank; the parent joins them within a time
+limit, so a hung collective fails one test rather than the suite.
 
 A job is a dict of plain data:
   data (N, D) float32, weights (N,) or None, model "logreg",
@@ -54,14 +54,10 @@ indices, served by ``local_indices``.
 
 from __future__ import annotations
 
-import datetime
-import pickle
-from pathlib import Path
+import copy
 
 import numpy as np
 import torch
-
-TIMEOUT_S = 60
 
 
 def _model(spec):
@@ -357,55 +353,27 @@ def run_job(job, mesh):
     return dict(out, state=state_to_numpy(st), calls=dict(mesh.calls))
 
 
-def _worker(rank, world, store_path, n_data, n_samp, jobs, out_dir):
-    import torch.distributed as dist
-
+def _rank_jobs(n_data, n_samp, jobs):
+    """One rank's results: its mesh axes and each job's report, computed on
+    one thread (the world's ranks share the host's cores)."""
     from betacores_tpu_torch.parallel import make_mesh
 
+    threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    store = dist.FileStore(store_path, world)
-    dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
-                            timeout=datetime.timedelta(seconds=TIMEOUT_S))
     try:
         mesh = make_mesh(n_data, n_samp)
-        out = {"ax": (mesh.ax_d, mesh.ax_s),
-               "jobs": {name: run_job(job, mesh) for name, job in jobs.items()}}
+        return {"ax": (mesh.ax_d, mesh.ax_s),
+                "jobs": {name: run_job(job, mesh) for name, job in jobs.items()}}
     finally:
-        dist.destroy_process_group()
-    with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
-        pickle.dump(out, f)
+        torch.set_num_threads(threads)
 
 
-def run_world(n_data: int, n_samp: int, jobs: dict, tmp_dir, timeout: float = 600.0):
-    """Runs ``jobs`` on an (n_data, n_samp) mesh of spawned gloo processes;
-    returns one result dict per rank, in rank order. Raises if a process
-    fails or outlives ``timeout`` seconds (it is then terminated)."""
-    ctx = torch.multiprocessing.get_context("spawn")
-    tmp_dir = Path(tmp_dir)
-    tmp_dir.mkdir(parents=True, exist_ok=True)
-    store = str(tmp_dir / "store")
-    world = n_data * n_samp
-    procs = [ctx.Process(target=_worker, args=(r, world, store, n_data, n_samp, jobs,
-                                               str(tmp_dir)))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline = datetime.datetime.now() + datetime.timedelta(seconds=timeout)
-    try:
-        for p in procs:
-            p.join(max(0.0, (deadline - datetime.datetime.now()).total_seconds()))
-    finally:
-        hung = [p for p in procs if p.is_alive()]
-        for p in hung:
-            p.terminate()
-            p.join(10)
-    if hung:
-        raise TimeoutError(f"{len(hung)} of {world} ranks outlived {timeout} s")
-    codes = [p.exitcode for p in procs]
-    if any(codes):
-        raise RuntimeError(f"ranks exited with codes {codes}")
-    out = []
-    for r in range(world):
-        with open(tmp_dir / f"rank{r}.pkl", "rb") as f:
-            out.append(pickle.load(f))
-    return out
+def run_world(n_data: int, n_samp: int, jobs: dict, timeout: float = 600.0):
+    """Runs ``jobs`` on an (n_data, n_samp) mesh of gloo ranks
+    (``betacores_tpu_torch.parallel.run_world``); returns one result dict
+    per rank, in rank order. Raises if a rank fails or outlives ``timeout``
+    seconds (it is then terminated)."""
+    from betacores_tpu_torch.parallel import run_world as world
+
+    return world(_rank_jobs, n_data * n_samp, "gloo", (n_data, n_samp, copy.deepcopy(jobs)),
+                 timeout=timeout)
