@@ -22,7 +22,8 @@ Each iteration runs
 
 ``learn_beta`` refines beta with the weights: one projected Adam over
 x = [w, beta], beta clamped to [1e-3, ``beta_cap``], the beta-gradient from
-the model's ``beta_gradient`` (reference incremental.py:507-535). It always
+the model's ``beta_gradient`` (each family's closed form; reference
+incremental.py:507-535, which takes a forward-mode derivative). It always
 takes the composed route (or the full-data one), never K1, and refits the
 posterior every step, as the reference's learn_beta branch does.
 
@@ -49,6 +50,8 @@ draws' generator state is copied before the pass and from which it is
 copied back after, so the stream is the one drawing from the draws'
 generator would give; on a CUDA device the pass is captured like the
 composed route, with that generator registered with each graph.
+``DeviceDraws`` draws from the default generator of the data's device
+instead, as an exported build does (utils/export.py).
 
 Where the reference's build is one jitted program, a subsampled refinement
 pass here is a device-resident program too: the builder keeps static
@@ -188,7 +191,18 @@ class ContextBuffers(Mapping):
         return len(self._bufs or {})
 
 
-def _generator_of(draws) -> torch.Generator:
+class DeviceDraws:
+    """The per-step-draw route's draws from the default generator of the
+    data's device (``generator`` None), which the caller seeds with
+    ``torch.manual_seed``: those an exported per-step-draw build makes
+    (utils/export.py), since a program can take no ``torch.Generator``."""
+
+    generator = None
+
+
+def _generator_of(draws) -> Optional[torch.Generator]:
+    if isinstance(draws, DeviceDraws):
+        return None
     gen = getattr(draws, "generator", None)
     if gen is None:
         raise ValueError("a sampler without a noise split draws inside each step: pass "
@@ -321,10 +335,7 @@ class _ComposedPass:
         # before the pass, only while those T copies fit JOINT_MAX_BYTES; a
         # larger buffer (a group build's, up to every row) projects on its
         # own at each step
-        self.joint = (not self.learn_beta and not self.full
-                      and builder._joint_rows_identical(n_opt + M_buf)
-                      and (z_all is None or T * M_buf * D * st.pts.element_size()
-                           <= JOINT_MAX_BYTES))
+        self.joint = builder._joint_pass(T, st.pts, pre_drawn=z_all is not None)
         self.gen = None
         self.rows_all = self.z_all = self.u_all = None
         if z_all is None:
@@ -550,6 +561,18 @@ class IncrementalBuilder:
                  else "fused_ll_projection")
         return getattr(self.model, field, None) is None or not maybe_fused(n_rows_joint)
 
+    def _joint_pass(self, n_steps: int, pts, pre_drawn: bool) -> bool:
+        """Whether a composed pass of ``n_steps`` steps projects each step's
+        rows and the buffer ``pts`` as one block: never under learn_beta or
+        full-data refinement, only where the routing is the same
+        (``_joint_rows_identical``), and on pre-drawn rows only while the
+        buffer's ``n_steps`` copies take at most JOINT_MAX_BYTES."""
+        M_buf, D = pts.shape
+        return (not self.config.learn_beta and self.n_opt is not None
+                and self._joint_rows_identical(self.n_opt + M_buf)
+                and (not pre_drawn or n_steps * M_buf * D * pts.element_size()
+                     <= JOINT_MAX_BYTES))
+
     def _tangent(self, rows, st: CoresetState, samples, joint: bool):
         """(vecs, corevecs): the centred projections of ``rows`` and of the
         coreset buffer, padding slots zeroed. With ``joint``, ``rows`` ends
@@ -597,7 +620,8 @@ class IncrementalBuilder:
         if self.per_step:
             gen = _generator_of(draws)
             samples, aux = self.sampler(gen, S, st.wts, st.pts, st.sampler_aux)
-            sub_idcs = None if n_sel is None else draw_subsample(gen, data.shape[0], n_sel)[0]
+            sub_idcs = (None if n_sel is None
+                        else draw_subsample(gen, data.shape[0], n_sel, data.device)[0])
         else:
             z, sub_idcs = draws.select(it, st)
             samples, aux = self.sampler.from_noise(z, st.wts, st.pts, st.sampler_aux)

@@ -10,7 +10,7 @@ _NAMES = {
             "run_chains_sharded", "run_chains_weighted_logreg", "run_chains_weighted_poisson",
             "weighted_logreg_logprob",),
     "laplace": ("LaplaceApprox", "newton_laplace", "newton_laplace_diag",
-                "sample_laplace_from_noise",),
+                "sample_laplace", "sample_laplace_from_noise",),
     "nuts": ("NUTSConfig", "NUTSDraws", "NUTSPhaseDraws", "draw_nuts", "make_weighted_nuts",
              "nuts_sample", "run_chains_nuts", "run_chains_weighted_logreg_nuts",),
     "samplers": ("FixedSampler", "GaussianConjugateSampler", "LinregConjugateSampler",
@@ -34,7 +34,8 @@ __all__ = ["hmc", "HMCConfig", "HMCDraws", "HMCPhaseDraws", "draw_hmc", "hmc_sam
            "default_nuts_config", "diagnostics_failed", "run_with_escalation", "SHFConfig",
            "SHFDraws", "SHFParams", "beta_log_joint", "draw_shf", "gaussian_log_joint",
            "init_shf_params", "make_sharded_shf_trainer", "make_shf_trainer", "shf_sample",
-           "LaplaceApprox", "newton_laplace", "newton_laplace_diag", "sample_laplace_from_noise",
+           "LaplaceApprox", "newton_laplace", "newton_laplace_diag", "sample_laplace",
+           "sample_laplace_from_noise",
            "FixedSampler", "fixed_sampler", "GaussianConjugateSampler",
            "gaussian_conjugate_sampler", "LinregConjugateSampler", "linreg_conjugate_sampler",
            "LogregLaplaceSampler", "LogregDiagLaplaceSampler", "logreg_laplace_sampler",

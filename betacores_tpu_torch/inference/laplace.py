@@ -154,3 +154,13 @@ def sample_laplace_from_noise(lap: LaplaceApprox, z: torch.Tensor) -> torch.Tens
     L^-T L^-1 = (-H)^-1."""
     return lap.mu + torch.linalg.solve_triangular(
         lap.prec_chol.T, z.T, upper=True).T
+
+
+def sample_laplace(generator: torch.Generator, lap: LaplaceApprox,
+                   n_samples: int) -> torch.Tensor:
+    """(n, d) draws theta = mu + L^-T z, z ~ N(0, I) drawn from
+    ``generator`` (None: the default generator of the fit's device) in the
+    fit's dtype: covariance (-H)^-1."""
+    z = torch.randn((n_samples, lap.mu.shape[0]), generator=generator, dtype=lap.mu.dtype,
+                    device=lap.mu.device)
+    return sample_laplace_from_noise(lap, z)

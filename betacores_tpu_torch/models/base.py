@@ -9,7 +9,11 @@ A model family is a ``ModelFns`` bundle of functions over
 ``log_likelihood(pts, thetas)[n, s]`` = log p(pts[n] | thetas[s]);
 ``beta_likelihood`` is the beta-divergence surrogate in the positive
 convention (beta+1)/beta * p^beta - integral p^(beta+1); ``beta_gradient``
-is its d/d(beta), by forward-mode autodiff (``beta_gradient_from_autodiff``).
+is its d/d(beta). Each family's bundle gives it in closed form, as plain
+tensor code that a program can trace inside a loop; the forward-mode
+derivative (``beta_gradient_from_autodiff``, the reference's ``jax.jvp``)
+is its plain twin, which the tests hold every closed form against, and the
+default for a model that brings only a ``beta_likelihood``.
 """
 
 from __future__ import annotations
@@ -59,7 +63,8 @@ class ModelFns(NamedTuple):
     log_likelihood: Callable
     # (N, D), (S, d), beta -> (N, S)
     beta_likelihood: Optional[Callable] = None
-    # (N, D), (S, d), beta -> (N, S): d/d(beta) of beta_likelihood
+    # (N, D), (S, d), beta -> (N, S): d/d(beta) of beta_likelihood, in
+    # closed form in every family's bundle
     beta_gradient: Optional[Callable] = None
     # (N, D), (S, d) -> (N, S, D): gradient w.r.t. the data row
     grad_z_log_likelihood: Optional[Callable] = None
@@ -81,18 +86,33 @@ class ModelFns(NamedTuple):
     fused_beta_shard_partials: Optional[Callable] = None
 
 
+def as_beta(beta, pts: torch.Tensor) -> torch.Tensor:
+    """``beta`` (a float or a 0-d tensor) as a tensor in the rows' dtype and
+    on their device. A tensor already there is used as it is, so the call
+    makes no host-to-device copy and can be captured in a CUDA graph."""
+    return torch.as_tensor(beta, dtype=pts.dtype, device=pts.device)
+
+
+def power_gradient(beta: torch.Tensor, ll: torch.Tensor) -> torch.Tensor:
+    """d/d(beta) of (beta+1)/beta * exp(beta ll), the first term of every
+    family's beta-likelihood: exp(beta ll) ((beta+1)/beta ll - 1/beta^2)."""
+    return torch.exp(beta * ll) * ((beta + 1.0) / beta * ll - 1.0 / (beta * beta))
+
+
 def beta_gradient_from_autodiff(beta_likelihood: Callable) -> Callable:
     """Exact d/d(beta) of a beta-likelihood by forward-mode autodiff: beta
     is one scalar and the output the whole (N, S) block, so one JVP gives
     the whole gradient. Pass the plain ``beta_likelihood``, never a kernel
-    wrapper (a kernel has no forward-mode rule). A tensor ``beta`` already
-    on the rows' device and dtype is used as it is, so the call makes no
-    host-to-device copy and can be captured in a CUDA graph."""
+    wrapper (a kernel has no forward-mode rule). The function returned is
+    marked ``forward_mode = True``: ``torch.export`` does not trace a JVP
+    inside a loop body, so an exported ``learn_beta`` build refuses it
+    (utils/export.py::build_program) and needs the closed form instead."""
 
     def beta_gradient(pts, thetas, beta):
-        beta = torch.as_tensor(beta, dtype=pts.dtype, device=pts.device)
+        beta = as_beta(beta, pts)
         _, tangent = torch.func.jvp(lambda b: beta_likelihood(pts, thetas, b),
                                     (beta,), (torch.ones_like(beta),))
         return tangent
 
+    beta_gradient.forward_mode = True
     return beta_gradient

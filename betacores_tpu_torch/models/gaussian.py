@@ -22,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from .base import ModelFns, beta_gradient_from_autodiff, identity
+from .base import ModelFns, as_beta, identity
 
 _LOG2PI = math.log(2.0 * math.pi)
 
@@ -57,10 +57,22 @@ def beta_likelihood(x, th, beta, Siginv, logdetSig):
     return (1.0 / beta) * torch.exp(-0.5 * beta * d2) - (1.0 + beta) ** (-0.5 * d - 1.0)
 
 
+def beta_gradient(x, th, beta, Siginv, logdetSig):
+    """(N, S) d/d(beta) of ``beta_likelihood`` (the dropped-constant form)
+    in closed form: -(1/beta^2 + d2/(2 beta)) exp(-beta/2 d2)
+    + (d/2 + 1) (1+beta)^(-d/2-2)."""
+    del logdetSig
+    beta = as_beta(beta, x)
+    d = x.shape[-1]
+    d2 = pairwise_mahalanobis_sq(x, th, Siginv)
+    return (-(1.0 / (beta * beta) + 0.5 * d2 / beta) * torch.exp(-0.5 * beta * d2)
+            + (0.5 * d + 1.0) * (1.0 + beta) ** (-0.5 * d - 2.0))
+
+
 def beta_gradient_reference(x, th, beta, Siginv, logdetSig):
     """The reference's hand-derived d/d(beta), kept for parity checks. It
     includes normaliser terms its own ``beta_likelihood`` drops, so it is
-    not that function's derivative; ``bundle`` takes the autodiff one."""
+    not that function's derivative; ``bundle`` takes ``beta_gradient``."""
     d = float(x.shape[-1])
     d2 = pairwise_mahalanobis_sq(x, th, Siginv)
     logcnst = -0.5 * d * _LOG2PI - 0.5 * logdetSig
@@ -147,12 +159,11 @@ def bundle(Siginv, logdetSig, fused: bool | None = None) -> ModelFns:
     projection is one matmul, an elementwise transform and a centring)."""
     del fused
 
-    def _blik(pts, thetas, beta):
-        return beta_likelihood(pts, thetas, beta, Siginv, logdetSig)
-
     return ModelFns(
         log_likelihood=lambda pts, thetas: log_likelihood(pts, thetas, Siginv, logdetSig),
-        beta_likelihood=_blik,
-        beta_gradient=beta_gradient_from_autodiff(_blik),
+        beta_likelihood=lambda pts, thetas, beta: beta_likelihood(pts, thetas, beta, Siginv,
+                                                                  logdetSig),
+        beta_gradient=lambda pts, thetas, beta: beta_gradient(pts, thetas, beta, Siginv,
+                                                              logdetSig),
         grad_z_log_likelihood=lambda pts, thetas: grad_x_log_likelihood(pts, thetas, Siginv),
     )

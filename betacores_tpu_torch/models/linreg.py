@@ -17,7 +17,7 @@ import math
 
 import torch
 
-from .base import ModelFns, beta_gradient_from_autodiff
+from .base import ModelFns, as_beta
 from .gaussian import GaussianPosterior, posterior_from_precision
 
 
@@ -48,6 +48,22 @@ def beta_likelihood(z, th, beta, sigsq):
                    - 1.0 / (1.0 + beta) ** 0.5)
 
 
+def beta_gradient(z, th, beta, sigsq):
+    """(N, S) d/d(beta) of ``beta_likelihood`` in closed form: with
+    c = (2 pi sigsq)^(-beta/2), e = exp(-beta r2 / (2 sigsq)) and
+    g = (beta+1)/beta e - (1+beta)^(-1/2), it is
+    c [e (-1/beta^2 - (beta+1)/beta r2/(2 sigsq)) + (1+beta)^(-3/2) / 2
+       - log(2 pi sigsq) g / 2]."""
+    beta = as_beta(beta, z)
+    cnst = (2.0 * math.pi * sigsq) ** (-0.5 * beta)
+    r2 = _resid_sq(z, th)
+    e = torch.exp(-beta / (2.0 * sigsq) * r2)
+    g = (beta + 1.0) / beta * e - 1.0 / (1.0 + beta) ** 0.5
+    dg = (e * (-1.0 / (beta * beta) - (beta + 1.0) / beta * (r2 / (2.0 * sigsq)))
+          + 0.5 * (1.0 + beta) ** -1.5)
+    return cnst * (dg - 0.5 * math.log(2.0 * math.pi * sigsq) * g)
+
+
 def grad_z_log_likelihood(z, th, sigsq):
     """(N, S, D) gradient w.r.t. the whole row z = [x, y]:
     d/dx = (y - x.th)/sigsq * th and d/dy = -(y - x.th)/sigsq (the true
@@ -68,12 +84,9 @@ def weighted_post(th0, Sig0inv, sigsq, z, w) -> GaussianPosterior:
 
 
 def bundle(sigsq) -> ModelFns:
-    def _blik(pts, thetas, beta):
-        return beta_likelihood(pts, thetas, beta, sigsq)
-
     return ModelFns(
         log_likelihood=lambda pts, thetas: log_likelihood(pts, thetas, sigsq),
-        beta_likelihood=_blik,
-        beta_gradient=beta_gradient_from_autodiff(_blik),
+        beta_likelihood=lambda pts, thetas, beta: beta_likelihood(pts, thetas, beta, sigsq),
+        beta_gradient=lambda pts, thetas, beta: beta_gradient(pts, thetas, beta, sigsq),
         grad_z_log_likelihood=lambda pts, thetas: grad_z_log_likelihood(pts, thetas, sigsq),
     )

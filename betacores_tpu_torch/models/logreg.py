@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from .base import ModelFns, beta_gradient_from_autodiff, identity
+from .base import ModelFns, as_beta, identity, power_gradient
 
 _LOG2PI = math.log(2.0 * math.pi)
 
@@ -46,6 +46,20 @@ def beta_likelihood(z, th, beta):
     return ((beta + 1.0) / beta * torch.exp(-beta * sp_pos)
             - torch.exp(-(beta + 1.0) * sp_pos)
             - torch.exp(-(beta + 1.0) * sp_neg))
+
+
+def beta_gradient(z, th, beta):
+    """(N, S) d/d(beta) of ``beta_likelihood`` in closed form, with
+    sp+- = softplus(+-m):
+    e^(-beta sp+) (-1/beta^2 - (beta+1)/beta sp+) + sp+ e^(-(beta+1) sp+)
+    + sp- e^(-(beta+1) sp-)."""
+    beta = as_beta(beta, z)
+    m = -(z @ th.T)
+    sp_pos = softplus(m)
+    sp_neg = softplus(-m)
+    return (power_gradient(beta, -sp_pos)
+            + sp_pos * torch.exp(-(beta + 1.0) * sp_pos)
+            + sp_neg * torch.exp(-(beta + 1.0) * sp_neg))
 
 
 def grad_z_log_likelihood(z, th):
@@ -107,9 +121,9 @@ def predictive_loglik(Zt, thetas):
 
 def bundle() -> ModelFns:
     """The logistic-regression bundle: the likelihoods, the beta-gradient
-    (forward-mode autodiff of the plain ``beta_likelihood``) and the data
-    gradient, with the fused refinement step
-    (ops/kernels.py::logreg_adam_step) and the sharded step's partials
+    (``beta_gradient``, in closed form) and the data gradient, with the
+    fused refinement step (ops/kernels.py::logreg_adam_step) and the
+    sharded step's partials
     (ops/kernels.py::logreg_shard_step_partials) attached."""
     from ..ops.kernels import logreg_adam_step, logreg_shard_step_partials
 
@@ -131,7 +145,7 @@ def bundle() -> ModelFns:
 
     return ModelFns(log_likelihood=log_likelihood,
                     beta_likelihood=beta_likelihood,
-                    beta_gradient=beta_gradient_from_autodiff(beta_likelihood),
+                    beta_gradient=beta_gradient,
                     grad_z_log_likelihood=grad_z_log_likelihood,
                     fused_ll_grad_step=fused_ll_step,
                     fused_beta_grad_step=fused_beta_step,

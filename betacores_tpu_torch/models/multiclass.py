@@ -21,7 +21,7 @@ import math
 
 import torch
 
-from .base import ModelFns, beta_gradient_from_autodiff, identity
+from .base import ModelFns, as_beta, identity, power_gradient
 
 _LOG2PI = math.log(2.0 * math.pi)
 
@@ -65,6 +65,22 @@ def make_beta_likelihood(n_classes: int):
         return (beta + 1.0) / beta * torch.exp(beta * lp_y) - mass
 
     return beta_likelihood
+
+
+def make_beta_gradient(n_classes: int):
+    def beta_gradient(z, th, beta):
+        """(N, S) d/d(beta) of the beta-likelihood in closed form: the first
+        term's as for logreg, less mass * sum_k softmax_k((1+beta) lp) lp_k
+        for the mass term exp(logsumexp_k (1+beta) lp_k)."""
+        beta = as_beta(beta, z)
+        x, y = _split(z)
+        lp = _log_probs(x, th, n_classes)               # (N, S, K)
+        a = (1.0 + beta) * lp
+        mass = torch.exp(torch.logsumexp(a, dim=2))
+        return (power_gradient(beta, _pick(lp, y))
+                - mass * torch.sum(torch.softmax(a, dim=2) * lp, dim=2))
+
+    return beta_gradient
 
 
 def make_grad_z_log_likelihood(n_classes: int):
@@ -162,8 +178,8 @@ def bundle(n_classes: int, fused: bool | None = None) -> ModelFns:
     plain version on the CPU), which the projection engine takes for row
     blocks of at least FUSED_MIN_ROWS. ``fused=False`` leaves it off, so
     every projection is the plain composition. ``beta_gradient`` is the
-    forward-mode derivative of the plain ``beta_likelihood``, never of
-    the kernel."""
+    closed-form derivative of the plain ``beta_likelihood``
+    (``make_beta_gradient``), never of the kernel."""
     if n_classes < 2:
         raise ValueError("n_classes must be >= 2")
     fused_ll = fused_beta = None
@@ -184,10 +200,9 @@ def bundle(n_classes: int, fused: bool | None = None) -> ModelFns:
             return multiclass_projection(pts.to(f32), th.to(f32), n_classes, beta,
                                          use_beta=True).to(pts.dtype)
 
-    beta_likelihood = make_beta_likelihood(n_classes)
     return ModelFns(log_likelihood=make_log_likelihood(n_classes),
-                    beta_likelihood=beta_likelihood,
-                    beta_gradient=beta_gradient_from_autodiff(beta_likelihood),
+                    beta_likelihood=make_beta_likelihood(n_classes),
+                    beta_gradient=make_beta_gradient(n_classes),
                     grad_z_log_likelihood=make_grad_z_log_likelihood(n_classes),
                     fused_ll_projection=fused_ll,
                     fused_beta_projection=fused_beta)

@@ -23,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from .base import ModelFns, Prior, beta_gradient_from_autodiff, identity
+from .base import ModelFns, Prior, as_beta, identity, power_gradient
 
 _LOG2PI = math.log(2.0 * math.pi)
 
@@ -70,6 +70,19 @@ def beta_likelihood(z, thetas, beta):
     log1p_beta = torch.log1p(beta) if isinstance(beta, torch.Tensor) else math.log1p(beta)
     log_mass = beta * (_half_logdet(L) - 0.5 * d * _LOG2PI) - 0.5 * d * log1p_beta
     return (beta + 1.0) / beta * torch.exp(beta * ll) - torch.exp(log_mass)[None, :]
+
+
+def beta_gradient(z, thetas, beta):
+    """(N, S) d/d(beta) of ``beta_likelihood`` in closed form: with
+    h = log |Lambda|^(1/2) - d/2 log 2 pi, p^beta ((beta+1)/beta log p -
+    1/beta^2) - exp(beta h - d/2 log(1+beta)) (h - d / (2 (1+beta)))."""
+    beta = as_beta(beta, z)
+    d = z.shape[1]
+    _, L = unpack(thetas, d)
+    h = _half_logdet(L) - 0.5 * d * _LOG2PI
+    mass = torch.exp(beta * h - 0.5 * d * torch.log1p(beta))
+    dmass = mass * (h - 0.5 * d / (1.0 + beta))
+    return power_gradient(beta, log_likelihood(z, thetas)) - dmass[None, :]
 
 
 def grad_z_log_likelihood(z, thetas):
@@ -235,6 +248,6 @@ def bundle(d: int) -> ModelFns:
     return ModelFns(
         log_likelihood=log_likelihood,
         beta_likelihood=beta_likelihood,
-        beta_gradient=beta_gradient_from_autodiff(beta_likelihood),
+        beta_gradient=beta_gradient,
         grad_z_log_likelihood=grad_z_log_likelihood,
     )

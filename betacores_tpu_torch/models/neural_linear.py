@@ -49,7 +49,7 @@ from torch import nn
 from ..inference.samplers import LinregConjugateSampler
 from ..utils.device import resolve_device
 from . import linreg
-from .base import ModelFns, beta_gradient_from_autodiff
+from .base import ModelFns
 
 EPS = 1e-5                 # flax BatchNorm's epsilon
 MOMENTUM = 0.9             # flax's: running = 0.9 running + 0.1 batch (torch's momentum=0.1)
@@ -417,13 +417,12 @@ def neural_linear_model_factory(module: Encoder, sigsq: float):
     enc = encoded_z_fn(module)
 
     def factory(ctx) -> ModelFns:
-        def blik(pts, th, beta):
-            return linreg.beta_likelihood(enc(ctx, pts), th, beta, sigsq)
-
         return ModelFns(
             log_likelihood=lambda pts, th: linreg.log_likelihood(enc(ctx, pts), th, sigsq),
-            beta_likelihood=blik,
-            beta_gradient=beta_gradient_from_autodiff(blik))
+            beta_likelihood=lambda pts, th, beta: linreg.beta_likelihood(enc(ctx, pts), th,
+                                                                         beta, sigsq),
+            beta_gradient=lambda pts, th, beta: linreg.beta_gradient(enc(ctx, pts), th, beta,
+                                                                     sigsq))
 
     return factory
 

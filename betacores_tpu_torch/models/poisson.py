@@ -26,7 +26,7 @@ import math
 
 import torch
 
-from .base import ModelFns, beta_gradient_from_autodiff, identity
+from .base import ModelFns, as_beta, identity, power_gradient
 from .logreg import softplus
 
 _LOG2PI = math.log(2.0 * math.pi)
@@ -69,18 +69,37 @@ def log_likelihood(z, th):
     return _ll_rows(y[:, None], x @ th.T)
 
 
-def _exact_mass(logf, f, beta, k_max: int):
-    """sum_{k=0..k_max} p(k|f)^(beta+1) for (n, S) rates, as
-    exp(logsumexp_k (beta+1) log p(k|f)), in row chunks."""
+def _mass_chunks(logf, f, k_max: int, term):
+    """``term(ll_k)`` of the (rows, S, k_max+1) log-pmf block
+    ll_k = k log f - f - lgamma(k+1), for (n, S) rates, in row chunks of at
+    most MASS_CHUNK_ELEMENTS elements, concatenated."""
     ks = torch.arange(k_max + 1, dtype=logf.dtype, device=logf.device)
     lgk = torch.lgamma(ks + 1.0)
     rows = max(1, MASS_CHUNK_ELEMENTS // max(1, logf.shape[1] * (k_max + 1)))
     out = []
     for lo in range(0, logf.shape[0], rows):
         lf, fc = logf[lo:lo + rows, :, None], f[lo:lo + rows, :, None]
-        ll_k = ks * lf - fc - lgk                                # (rows, S, K+1)
-        out.append(torch.exp(torch.logsumexp((beta + 1.0) * ll_k, dim=-1)))
+        out.append(term(ks * lf - fc - lgk))
     return out[0] if len(out) == 1 else torch.cat(out)
+
+
+def _exact_mass(logf, f, beta, k_max: int):
+    """sum_{k=0..k_max} p(k|f)^(beta+1) for (n, S) rates, as
+    exp(logsumexp_k (beta+1) log p(k|f)), in row chunks."""
+    return _mass_chunks(logf, f, k_max,
+                        lambda ll_k: torch.exp(torch.logsumexp((beta + 1.0) * ll_k, dim=-1)))
+
+
+def _exact_mass_gradient(logf, f, beta, k_max: int):
+    """d/d(beta) of ``_exact_mass``, sum_k log p(k|f) p(k|f)^(beta+1), as
+    mass * sum_k softmax_k((beta+1) ll_k) ll_k, in the same row chunks."""
+
+    def term(ll_k):
+        a = (beta + 1.0) * ll_k
+        mass = torch.exp(torch.logsumexp(a, dim=-1))
+        return mass * torch.sum(torch.softmax(a, dim=-1) * ll_k, dim=-1)
+
+    return _mass_chunks(logf, f, k_max, term)
 
 
 def beta_likelihood(z, th, beta, k_max: int = 64, gaussian_mass: bool = False):
@@ -100,6 +119,25 @@ def beta_likelihood(z, th, beta, k_max: int = 64, gaussian_mass: bool = False):
     else:
         mass = _exact_mass(logf, f, beta, k_max)
     return (beta + 1.0) / beta * torch.exp(beta * ll) - mass
+
+
+def beta_gradient(z, th, beta, k_max: int = 64, gaussian_mass: bool = False):
+    """(N, S) d/d(beta) of ``beta_likelihood`` in closed form:
+    p^beta ((beta+1)/beta log p - 1/beta^2) less the mass term's, the
+    exact sum_k log p_k p_k^(beta+1) over the same row chunks, or with
+    ``gaussian_mass`` mass * (-(log 2 pi + log f)/2 - 1/(2 (1+beta)))."""
+    beta = as_beta(beta, z)
+    x, y = _split(z)
+    eta = x @ th.T
+    f = softplus(eta)
+    logf = _log_softplus(eta)
+    ll = y[:, None] * logf - f - torch.lgamma(y + 1.0)[:, None]
+    if gaussian_mass:
+        mass = torch.exp(-0.5 * beta * (_LOG2PI + logf) - 0.5 * torch.log1p(beta))
+        dmass = mass * (-0.5 * (_LOG2PI + logf) - 0.5 / (1.0 + beta))
+    else:
+        dmass = _exact_mass_gradient(logf, f, beta, k_max)
+    return power_gradient(beta, ll) - dmass
 
 
 def grad_z_log_likelihood(z, th):
@@ -171,9 +209,12 @@ def bundle(k_max: int = 64, gaussian_mass: bool = False,
     def blik(z, th, b):
         return beta_likelihood(z, th, b, k_max=k_max, gaussian_mass=gaussian_mass)
 
+    def bgrad(z, th, b):
+        return beta_gradient(z, th, b, k_max=k_max, gaussian_mass=gaussian_mass)
+
     return ModelFns(
         log_likelihood=log_likelihood,
         beta_likelihood=blik,
-        beta_gradient=beta_gradient_from_autodiff(blik),
+        beta_gradient=bgrad,
         grad_z_log_likelihood=grad_z_log_likelihood,
     )

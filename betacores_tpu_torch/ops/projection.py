@@ -55,12 +55,14 @@ def project_beta_with_grad(model, pts, samples, beta):
             center(model.beta_gradient(pts, samples, beta)))
 
 
-def draw_subsample(generator: torch.Generator, n_total: int,
-                   n_subsample: int) -> Tuple[torch.Tensor, float]:
+def draw_subsample(generator: Optional[torch.Generator], n_total: int,
+                   n_subsample: int, device=None) -> Tuple[torch.Tensor, float]:
     """Uniform with-replacement subsample indices on the generator's device,
-    and the importance rescale sum_scaling = N / n."""
+    and the importance rescale sum_scaling = N / n. ``generator`` None
+    draws from the default generator of ``device``, as an exported program
+    does (utils/export.py)."""
     idcs = torch.randint(0, n_total, (n_subsample,), generator=generator,
-                         device=generator.device)
+                         device=device if generator is None else generator.device)
     return idcs, n_total / n_subsample
 
 

@@ -18,13 +18,32 @@ builder (coresets/incremental.py) over a traced ``itrs``: an outer
 ``while_loop`` over selections, and within each the select pass, the
 refinement as an inner ``while_loop`` over its T steps (K1's op for each
 step on the fused route) and the Newton refits, which are fixed-count
-loops already (inference/laplace.py). A program cannot take a
-``torch.Generator``, so where the reference takes a key the artifact takes
-its draws as an operand: ``BuildDraws``, the select and refinement draws of
-``capacity`` selections stacked, made by ``stack_draws`` in the order
-``GeneratorDraws`` draws them, so that ``FixedDraws`` of the same stack
-(``fixed_draws``) replays the live build. Shapes are static: the artifact
-serves the traced shapes, every ``itrs`` up to the stack's selections.
+loops already (inference/laplace.py). Shapes are static: the artifact
+serves the traced shapes. Which builders export:
+
+- a builder whose sampler has a noise split (the Laplace, conjugate, fixed
+  and prior samplers), on every select and refinement route, weighted or
+  not, with ``learn_beta`` too. A program cannot take a
+  ``torch.Generator``, so where the reference takes a key the artifact
+  takes its draws as an operand: ``BuildDraws``, the select and refinement
+  draws of ``capacity`` selections stacked, made by ``stack_draws`` in the
+  order ``GeneratorDraws`` draws them, so that ``FixedDraws`` of the same
+  stack (``fixed_draws``) replays the live build. Signature ``(data,
+  [data_weights,] draws, state, itrs) -> state``, every ``itrs`` up to the
+  stack's selections. ``learn_beta`` needs the model's beta-gradient in
+  closed form (every family's bundle has it; the forward-mode derivative
+  of ``models.base.beta_gradient_from_autodiff`` is not traced inside a
+  loop body, and raises NotImplementedError);
+- a per-step-draw builder (a sampler without a noise split, such as the
+  NIW sampler, whose gamma shapes follow the weights): the program draws
+  inside itself, from the default generator of its device, in the live
+  route's order. Signature ``(data, [data_weights,] state, itrs) ->
+  state``, seeded by the caller with ``torch.manual_seed`` (or
+  ``torch.cuda.manual_seed``), where the reference's artifact takes a key.
+
+A contextual builder raises NotImplementedError: the program would bake its
+context in as constants. The group and sharded builders are not exported,
+as the reference exports only the single-device point builder.
 """
 
 from __future__ import annotations
@@ -242,13 +261,17 @@ def _composed_pass(b, N: int, sclr_all, st, z_all, idx_all):
     """The composed and full-data routes (``_ComposedPass``,
     ``_optimize_full``) as a program: per step the sampler's draw (a refit,
     or every k-th step with ``refit_every``), the gradient and the
-    projected-Adam update."""
+    projected-Adam update; under ``learn_beta`` over x = [w, beta], beta
+    clamped inside the gradient and at the end. On the per-step-draw route
+    (``z_all`` None) each step calls the sampler and then draws its
+    subsample, from the default generator of the device."""
+    from ..ops.projection import draw_subsample
     from ..utils.opt import adam_update
 
-    cfg, smp = b.config, b.sampler
-    T, M_buf = z_all.shape[0], st.wts.shape[0]
-    full, learn_beta = b.n_opt is None, cfg.learn_beta
-    lagged = cfg.refit_every > 1 and not learn_beta and not full
+    cfg, smp, S = b.config, b.sampler, b.config.projection_dim
+    T, M_buf = sclr_all.shape[0], st.wts.shape[0]
+    full, learn_beta, per_step = b.n_opt is None, cfg.learn_beta, z_all is None
+    lagged = cfg.refit_every > 1 and not learn_beta and not full and not per_step
     k = cfg.refit_every
     dt, dev = st.wts.dtype, st.wts.device
     joint, rows_all, u_all, fit0 = False, None, None, None
@@ -256,9 +279,10 @@ def _composed_pass(b, N: int, sclr_all, st, z_all, idx_all):
         scaling = 1.0
     else:
         scaling = N / b.n_opt
+        joint = b._joint_pass(T, st.pts, pre_drawn=not per_step)
+    if not full and not per_step:
         rows_all = b.data[idx_all]
         u_all = None if b.u is None else b.u[idx_all]
-        joint = not learn_beta and b._joint_rows_identical(b.n_opt + M_buf)
         if joint:
             rows_all = torch.cat([rows_all, st.pts.expand(T, *st.pts.shape)], dim=1)
     x0 = torch.cat([st.wts, st.beta.reshape(1)]) if learn_beta else st.wts.clone()
@@ -280,18 +304,27 @@ def _composed_pass(b, N: int, sclr_all, st, z_all, idx_all):
 
     def body(i, x, m1, m2, *carry):
         w = x[:M_buf]
-        z = _pick(z_all, i)
-        if lagged:
+        if per_step:
+            samples, aux = smp(None, S, w, st.pts, carry[0])
+            carry = (aux,)
+        elif lagged:
+            z = _pick(z_all, i)
             fit = smp.fit(w, st.pts, smp.fit_aux(as_fit(carry)))
             new = tuple(t for t in fit if t is not None)
             now = (i % k == 0) & (i > 0)
             carry = tuple(torch.where(now, n, o) for n, o in zip(new, carry))
             samples = smp.from_fit(as_fit(carry), z)
         else:
-            samples, aux = smp.from_noise(z, w, st.pts, carry[0])
+            samples, aux = smp.from_noise(_pick(z_all, i), w, st.pts, carry[0])
             carry = (aux,)
         if full:
             rows, usub = b.data, b.u
+        elif per_step:
+            idx, _ = draw_subsample(None, N, b.n_opt, dev)
+            rows = b.data.index_select(0, idx)
+            if joint:
+                rows = torch.cat([rows, st.pts])
+            usub = None if b.u is None else b.u.index_select(0, idx)
         else:
             rows, usub = _pick(rows_all, i), _pick(u_all, i)
         g = b._composed_grad(x, st, samples, rows, usub, scaling, joint)
@@ -312,20 +345,23 @@ def build_program(builder, weighted: Optional[bool] = None):
     """fn(data, [data_weights,] draws, state, itrs) -> state: ``itrs``
     selections of ``builder`` over the operands, as ``export_program``
     traces it (``weighted``: take data weights; default whether the builder
-    has its own). Raises NotImplementedError for a builder the program
-    cannot express."""
+    has its own). A per-step-draw builder (a sampler without a noise split,
+    such as the NIW sampler) gives fn(data, [data_weights,] state, itrs) ->
+    state, which draws from the default generator of its device (see
+    ``export_incremental_build``). Raises NotImplementedError for a builder
+    the program cannot express: a contextual builder, or a ``learn_beta``
+    builder whose model's beta-gradient is the forward-mode derivative."""
+    from ..coresets.incremental import DeviceDraws
     from ..coresets.state import CoresetState
     from ..utils.opt import adam_bias_corrections
 
-    if builder.per_step:
+    if builder.config.learn_beta and getattr(builder.model.beta_gradient, "forward_mode",
+                                             False):
         raise NotImplementedError(
-            "export: a sampler without a noise split draws inside each step (the NIW "
-            "sampler's gamma shapes follow the weights), which a program with its draws "
-            "as an operand cannot replay (ROADMAP Queue A item 13, export)")
-    if builder.config.learn_beta:
-        raise NotImplementedError(
-            "export: learn_beta's beta-gradient is a forward-mode derivative, which "
-            "torch.export does not trace (ROADMAP Queue A item 13, export)")
+            "export: learn_beta needs the model's beta_gradient in closed form, as every "
+            "family's bundle gives it (e.g. models/logreg.py::beta_gradient); this model's "
+            "is the forward-mode derivative (beta_gradient_from_autodiff), which "
+            "torch.export does not trace inside the refinement loop")
     if builder.ctx is not None:
         raise NotImplementedError(
             "export: a contextual builder reads its context from buffers the program "
@@ -344,20 +380,25 @@ def build_program(builder, weighted: Optional[bool] = None):
                               adam_bias_corrections(builder.step_sizes.shape[0], dt, dev)],
                              dim=1)
 
-    def program(data, u, draws: BuildDraws, state, itrs):
+    def program(data, u, draws: Optional[BuildDraws], state, itrs):
         mine = (builder.data, builder.u)
         builder.data, builder.u = data, u
         try:
-            src = _ProgramDraws(draws)
-            n_max = draws.z_sel.shape[0]
-            torch._assert_async(itrs <= n_max, "itrs exceeds the selections of the draws")
+            if draws is None:
+                src = DeviceDraws()
+            else:
+                src = _ProgramDraws(draws)
+                n_max = draws.z_sel.shape[0]
+                torch._assert_async(itrs <= n_max, "itrs exceeds the selections of the draws")
 
             def cond(it, *st):
                 return it < itrs
 
             def body(it, *st):
                 st = builder.select(CoresetState(*st), src, it)
-                z_all, idx_all = src.optimize(it, st)
+                z_all = idx_all = None
+                if draws is not None:
+                    z_all, idx_all = src.optimize(it, st)
                 if builder.fstep is not None:
                     st = _fused_pass(builder, N, st, z_all, idx_all)
                 else:
@@ -370,7 +411,12 @@ def build_program(builder, weighted: Optional[bool] = None):
         finally:
             builder.data, builder.u = mine
 
-    if builder.u is not None if weighted is None else weighted:
+    weighted = builder.u is not None if weighted is None else weighted
+    if builder.per_step:
+        if weighted:
+            return lambda data, u, state, itrs: program(data, u, None, state, itrs)
+        return lambda data, state, itrs: program(data, None, None, state, itrs)
+    if weighted:
         return program
     return lambda data, draws, state, itrs: program(data, None, draws, state, itrs)
 
@@ -390,9 +436,25 @@ def export_incremental_build(builder, data_spec, state, data_weights_spec=None,
     was made with ``data_weights`` (the spec defaults to the builder's own
     weights, so the artifact never drops them) or ``data_weights_spec`` is
     given, with ``itrs`` a 0-d int64 operand: one artifact serves every
-    build size up to the draws' selections. A builder the program cannot
-    express (the per-step-draw route, learn_beta, a contextual builder)
-    raises NotImplementedError (``build_program``).
+    build size up to the draws' selections. ``learn_beta`` builds export
+    (the beta-gradient is each family's closed form); under ``learn_beta``
+    a model whose beta-gradient is the forward-mode derivative
+    (``models.base.beta_gradient_from_autodiff``, e.g. the object API's
+    for a bare ``beta_likelihood``) raises NotImplementedError, and so does
+    a contextual builder (``build_program``).
+
+    A per-step-draw builder (a sampler without a noise split, such as the
+    NIW sampler, whose gamma shapes follow the weights) draws inside the
+    program instead: the sampler's draws, the select subsample and each
+    step's subsample, in the live route's order, from the default generator
+    of the device the artifact runs on. Its signature is
+    ``(data, state, itrs) -> state`` or ``(data, data_weights, state,
+    itrs) -> state``: no draws operand (``draws_spec`` is not taken) and no
+    bound on ``itrs``. The caller seeds it as the JAX artifact's caller
+    passes a key: ``torch.manual_seed(s)`` (every device) or
+    ``torch.cuda.manual_seed(s)`` before the call, and the same seed gives
+    the same state. It cannot replay a live build's draws, which come from
+    the builder's own generator.
 
     An ``itrs`` past the draws' selections is refused by an assert inside
     the program. On the CPU the call raises ``RuntimeError("itrs exceeds
@@ -408,10 +470,13 @@ def export_incremental_build(builder, data_spec, state, data_weights_spec=None,
         data_weights_spec = builder.u
     weighted = data_weights_spec is not None
     fn = build_program(builder, weighted)
-    if draws_spec is None:
-        gen = torch.Generator(device=state.wts.device).manual_seed(0)
-        draws_spec = stack_draws(builder, gen, state, state.wts.shape[0])
     itrs = torch.zeros((), dtype=torch.int64, device=state.wts.device)
-    if weighted:
-        return export_program(fn, data_spec, data_weights_spec, draws_spec, state, itrs)
-    return export_program(fn, data_spec, draws_spec, state, itrs)
+    if builder.per_step:
+        drawn = ()
+    else:
+        if draws_spec is None:
+            gen = torch.Generator(device=state.wts.device).manual_seed(0)
+            draws_spec = stack_draws(builder, gen, state, state.wts.shape[0])
+        drawn = (draws_spec,)
+    weights = (data_weights_spec,) if weighted else ()
+    return export_program(fn, data_spec, *weights, *drawn, state, itrs)

@@ -214,7 +214,18 @@ toolkit. Phases, each of which raises on failure:
      once through its ``main()`` at its defaults cut in depth (EX_CUTS),
      each pickle carrying the JAX driver's keys (EX_KEYS) with finite
      numbers, ``run_sweep`` at one grid point and ``plot_results`` (skipped,
-     and said, without matplotlib).
+     and said, without matplotlib); (d) each family's closed-form
+     beta-gradient (models/*.py::beta_gradient) at its phase 13 widths
+     against its forward-mode derivative, both timed, and each form's first
+     call in a fresh process; (e) the logistic learn_beta build at the
+     headline widths and the multiclass one at phase 6's exported, loaded
+     by a fresh process and run at LBX_ITRS selections against the live
+     captured build on the same draws (indices, m, weights, beta within
+     rtol 1e-5; K2's op once a select), and the NIW build of
+     examples/mvn_unknown_cov.py, which draws inside the program, run for
+     NIWX_ITRS selections from each seed of NIWX_SEEDS and held to the live
+     build's quality (the median KL to the clean-data NIW within a factor
+     NIWX_KL_FACTOR).
  21. the rest of the ported drivers and the entry points
      (``phase_drivers``), each through its ``main(argv)``: (a) dp_bpsvi at
      its defaults, every finite-eps row's reverse KL below a tenth of the
@@ -250,6 +261,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 import torch
@@ -372,6 +384,12 @@ PAR_GB_SELECTIONS, PAR_GC_SELECTIONS, PAR_SHF_STEPS, PAR_V_SELECTIONS = 2, 1, 50
 # (the headline's M) and run at each of EXP_ITRS selections from that one artifact; the
 # multiclass build of phase 6 exported and run at MCX_ITRS selections
 EXP_STACK, EXP_ITRS, MCX_ITRS = 100, (2, 3), 2
+# phase 20 (d): the rows of each family's beta-gradient block (at its phase 13 widths)
+# and the timed calls of each form; (e) the selections of the exported learn_beta builds
+# (their draws stacked for as many), the NIW artifact's selections and seeds, and the
+# factor within which its median KL to the clean-data NIW must lie of the live build's
+BG_ROWS, BG_REPS, LBX_ITRS = 1 << 16, 10, 2
+NIWX_ITRS, NIWX_SEEDS, NIWX_KL_FACTOR = 3, (0, 1, 2), 2.0
 # and the ported drivers, each once at its defaults cut in depth: fewer selections (--M),
 # evaluated sizes and MCMC draws, flow steps and samples (the cuts are printed)
 EX_CUTS = {
@@ -867,6 +885,15 @@ def check_same_build(what: str, got, ref) -> str:
     if err > tol:
         raise AssertionError(f"{what}: weights differ by {err:.3e} > {tol:.3e}")
     return f"m={m1}, same indices, max |dw| {err:.2e} <= {tol:.2e}"
+
+
+def check_same_beta(what: str, got, ref, rtol: float = 1e-5) -> str:
+    """Raises unless two learn_beta builds end at the same beta within
+    ``rtol``; returns a summary."""
+    b1, b0 = float(got.beta), float(ref.beta)
+    if not abs(b1 - b0) <= rtol * abs(b0):
+        raise AssertionError(f"{what}: beta {b1!r} against {b0!r} (rtol {rtol:g})")
+    return f"beta {b1:.7g} against {b0:.7g} (|rel| {abs(b1 - b0) / abs(b0):.1e} <= {rtol:g})"
 
 
 def check_graph_equals_eager(what: str, got, ref) -> str:
@@ -1490,14 +1517,13 @@ def phase_api(seed: int, n: int, selections: int, dev: str = "cuda") -> dict:
     check_state(svi.state)
     accuracy("SVI", svi)
 
-    # learn_beta: captured, then eager from the same seed; never K1. The
-    # first forward-mode derivative in a process loads torch's Python
-    # dispatch machinery (seconds of host time), so it is taken, and
-    # timed, before the builds
+    # learn_beta: captured, then eager from the same seed; never K1. Its
+    # beta-gradient is the closed form (models/logreg.py::beta_gradient);
+    # its first call is timed before the builds
     t0 = time.perf_counter()
     model.beta_gradient(Z[:8], Z[:4], torch.tensor(BETA, device=dev))
     torch.cuda.synchronize()
-    log(f"api learn_beta: the process's first forward-mode derivative took "
+    log(f"api learn_beta: the first closed-form beta-gradient took "
         f"{time.perf_counter() - t0:.2f} s (host clock)")
     lb = {}
     for mode, graph in (("captured", None), ("eager", False)):
@@ -3687,6 +3713,8 @@ from betacores_tpu_torch.ops import kernels
 art, ops, out, runs, dev = sys.argv[1:6]
 sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
 call = load_program_file(art, device=dev)
+# a run is "itrs", or "itrs@seed" for a build that draws inside the program from the
+# device's default generator, seeded first
 loaded = sorted(m for m in sys.modules if m.startswith("betacores_tpu_torch."))
 builders = [m for m in loaded if m.startswith(("betacores_tpu_torch.coresets.incremental",
                                                "betacores_tpu_torch.coresets.api"))
@@ -3696,14 +3724,17 @@ if builders:
 from betacores_tpu_torch.coresets.state import CoresetState
 o = torch.load(ops)
 res = {"modules": len(loaded), "runs": {}}
-for itrs in (int(r) for r in runs.split(",")):
+draws = () if o["draws"] is None else (BuildDraws(*o["draws"]),)
+for run in runs.split(","):
+    itrs, _, seed = run.partition("@")
+    if seed:
+        torch.manual_seed(int(seed))
     k1, k2 = kernels.logreg_adam_step.launches, kernels.multiclass_projection.launches
     sync()
     t0 = time.perf_counter()
-    st = call(o["data"], BuildDraws(*o["draws"]), CoresetState(*o["state"]),
-              torch.tensor(itrs, device=dev))
+    st = call(o["data"], *draws, CoresetState(*o["state"]), torch.tensor(int(itrs), device=dev))
     sync()
-    res["runs"][itrs] = {"s": time.perf_counter() - t0,
+    res["runs"][run] = {"s": time.perf_counter() - t0,
                          "state": tuple(t.cpu() for t in st),
                          "K1": kernels.logreg_adam_step.launches - k1,
                          "K2": kernels.multiclass_projection.launches - k2}
@@ -3712,7 +3743,18 @@ torch.save(res, out)
 
 
 def _nbytes(tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+    return sum(t.numel() * t.element_size() for t in tensors or () if t is not None)
+
+
+def _child_env() -> dict:
+    """This environment, with the checkout first on PYTHONPATH: a fresh
+    process imports the port from it."""
+    import os
+
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (here, env.get("PYTHONPATH")) if p)
+    return env
 
 
 class _ExportRun:
@@ -3740,43 +3782,50 @@ class _ExportRun:
         self.t_export, self.mib = time.perf_counter() - t0, len(blob) / 2**20
         with open(self.art, "wb") as fh:
             fh.write(blob)
-        torch.save({"data": self.data, "draws": tuple(self.draws), "state": tuple(self.st0)},
-                   self.ops)
+        torch.save({"data": self.data, "draws": None if self.draws is None else tuple(self.draws),
+                    "state": tuple(self.st0)}, self.ops)
         return self
 
     def launch(self) -> "_ExportRun":
-        import os
-
-        env = dict(os.environ)
-        here = os.path.dirname(os.path.abspath(__file__))
-        env["PYTHONPATH"] = os.pathsep.join(p for p in (here, env.get("PYTHONPATH")) if p)
         self.t_launch = time.perf_counter()
         self.proc = subprocess.Popen(
             [sys.executable, "-c", EXPORT_CHILD, self.art, self.ops, self.out,
-             ",".join(map(str, self.runs)), self.dev], env=env, stdout=subprocess.PIPE,
+             ",".join(map(str, self.runs)), self.dev], env=_child_env(), stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True)
         return self
 
-    def finish(self) -> dict:
-        from betacores_tpu_torch.coresets.state import CoresetState
-        from betacores_tpu_torch.ops import kernels
-        from betacores_tpu_torch.utils.export import fixed_draws
-
-        tag, dev = self.tag, self.dev
-        sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    def wait(self, card: str = "") -> dict:
+        """The loading process's results (raises if it failed); ``card``: the
+        card's name and power limit, for the printed times."""
         try:
             _, err = self.proc.communicate(timeout=900)
         finally:
             if self.proc.poll() is None:
                 self.proc.kill()
                 self.proc.wait()
-        t_child = time.perf_counter() - self.t_launch
+        self.t_child = time.perf_counter() - self.t_launch
         if self.proc.returncode != 0:
-            raise RuntimeError(f"export {tag}: the loading process failed:\n{err[-4000:]}")
+            raise RuntimeError(f"export {self.tag}: the loading process failed:\n{err[-4000:]}")
         res = torch.load(self.out)
+        log(f"export {self.tag}: exported in {self.t_export:.2f} s ({self.mib:.1f} MiB "
+            f"artifact, draws operand {_nbytes(self.draws) / 2**20:.1f} MiB), loaded and run "
+            f"in a fresh process importing {res['modules']} modules of the port and no "
+            f"builder or model family ({self.t_child:.1f} s with its start); {card}")
+        return res
+
+    def finish(self, res: Optional[dict] = None, card: str = "") -> dict:
+        """``res``: the loading process's results, if already waited for;
+        ``card``: the card's name and power limit, for the printed times."""
+        from betacores_tpu_torch.coresets.state import CoresetState
+        from betacores_tpu_torch.ops import kernels
+        from betacores_tpu_torch.utils.export import fixed_draws
+
+        tag, dev = self.tag, self.dev
+        sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+        res = self.wait(card) if res is None else res
         lines, k1, k2, live_k2 = [], 0, 0, 0
         for itrs in self.runs:
-            r = res["runs"][itrs]
+            r = res["runs"][str(itrs)]
             got = CoresetState(*(t.to(dev) for t in r["state"]))
             k2_0 = kernels.multiclass_projection.launches
             sync()
@@ -3787,21 +3836,19 @@ class _ExportRun:
             live_k2 += kernels.multiclass_projection.launches - k2_0
             check_state(got)
             summary = check_same_build(f"export {tag}, itrs={itrs}", got, live)
+            if self.builder.config.learn_beta:
+                summary += ", " + check_same_beta(f"export {tag}, itrs={itrs}", got, live)
             same = all(torch.equal(a, b) for a, b in zip(got, live))
             first = ", its first build capturing" if itrs == self.runs[0] else ""
             lines.append(f"itrs={itrs}: {summary}, bit-identical {same}; "
                          f"{r['s'] / itrs:.3f} s a selection (artifact) against "
                          f"{r['live_s'] / itrs:.3f} s (live, captured{first}); "
-                         f"launches in the artifact K1 {r['K1']}, K2 {r['K2']}")
+                         f"launches in the artifact K1 {r['K1']}, K2 {r['K2']}; {card}")
             k1, k2 = k1 + r["K1"], k2 + r["K2"]
-        log(f"export {tag}: exported in {self.t_export:.2f} s ({self.mib:.1f} MiB artifact, "
-            f"draws operand {_nbytes(self.draws) / 2**20:.1f} MiB), loaded and run in a fresh "
-            f"process importing {res['modules']} modules of the port and no builder or model "
-            f"family ({t_child:.1f} s with its start)")
         for line in lines:
             log(f"export {tag}, {line}")
-        last = res["runs"][self.runs[-1]]
-        return {"K1": k1, "K2": k2, "live_K2": live_k2,
+        last = res["runs"][str(self.runs[-1])]
+        return {"K1": k1, "K2": k2, "live_K2": live_k2, "beta": float(got.beta),
                 "art_s": last["s"] / self.runs[-1], "live_s": last["live_s"] / self.runs[-1]}
 
 
@@ -3819,6 +3866,276 @@ def _finite(what: str, value) -> None:
         a = np.asarray(value)
         if a.dtype.kind in "fiu" and not np.isfinite(a).all():
             raise AssertionError(f"{what} is not finite: {value}")
+
+
+# the child that times the first beta-gradient call of each form in a fresh process:
+# the closed form first, then the forward-mode derivative, each after the card's context
+# and a first product are up
+BETA_GRAD_FIRST_CHILD = """
+import json, sys, time, torch
+from betacores_tpu_torch.models import logreg
+from betacores_tpu_torch.models.base import beta_gradient_from_autodiff
+rows, d, s = (int(a) for a in sys.argv[1:4])
+beta, dev = float(sys.argv[4]), sys.argv[5]
+sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+g = torch.Generator(device=dev).manual_seed(0)
+z = torch.randn((rows, d), generator=g, device=dev)
+th = torch.randn((s, d), generator=g, device=dev)
+beta = torch.tensor(beta, device=dev)
+(z @ th.T).sum().item()
+res = {}
+for tag, fn in (("closed form", logreg.beta_gradient),
+                ("forward mode", beta_gradient_from_autodiff(logreg.beta_likelihood))):
+    sync()
+    t0 = time.perf_counter()
+    fn(z, th, beta)
+    sync()
+    res[tag] = time.perf_counter() - t0
+print(json.dumps(res))
+"""
+
+
+def beta_gradient_families(seed: int, dev: str, rows: int = BG_ROWS) -> dict:
+    """name -> (model bundle, rows (rows, D), samples (S, theta_dim), beta) at
+    each family's phase 13 widths (logistic and multiclass at phases 4 and 6's),
+    made on ``dev`` from ``seed``, in float32."""
+    from betacores_tpu_torch.models import (gaussian, linreg, logreg, multiclass, mvn,
+                                            neural_linear, poisson)
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 200)
+    rn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    out = {"logreg": (logreg.bundle(), rn(rows, N_FEAT), rn(S, N_FEAT), BETA)}
+    labels = torch.randint(0, MC_K, (rows, 1), generator=gen, device=dev).float()
+    out["multiclass"] = (multiclass.bundle(MC_K, fused=False),
+                         torch.cat([rn(rows, MC_D), labels], 1), rn(S, MC_K * MC_D), MC_BETA)
+    A = rn(G_D, G_D) / G_D ** 0.5
+    Siginv = A @ A.T + torch.eye(G_D, device=dev)
+    out["gaussian"] = (gaussian.bundle(Siginv, -float(torch.linalg.slogdet(Siginv)[1])),
+                       0.3 * rn(rows, G_D), 0.3 * rn(G_S, G_D), G_BETA)
+    out["linreg"] = (linreg.bundle(1.0), rn(rows, L_D + 1), 0.3 * rn(L_S, L_D), L_BETA)
+    nl = neural_linear.NeuralLinear(np.random.default_rng(seed).normal(size=(NL_INIT, NL_D + 1)),
+                                    out_features=NL_F, seed=seed, device=dev)
+    out["neural_linear"] = (neural_linear.neural_linear_model_factory(nl.module, 1.0)(
+        nl.variables), rn(rows, NL_D + 1), 0.3 * rn(NL_S, NL_F), NL_BETA)
+    counts = torch.poisson(torch.full((rows, 1), 3.0, device=dev), generator=gen)
+    for tag, gm in (("poisson exact mass", False), ("poisson gaussian mass", True)):
+        out[tag] = (poisson.bundle(k_max=64, gaussian_mass=gm),
+                    torch.cat([0.5 * rn(rows, P_D), counts], 1), 0.5 * rn(P_S, P_D), P_BETA)
+    L = torch.tril(0.2 * rn(V_S, V_D, V_D), -1) + torch.diag_embed(1.0 + 0.2 * rn(V_S, V_D).abs())
+    out["mvn"] = (mvn.bundle(V_D), rn(rows, V_D), torch.cat([rn(V_S, V_D), L.reshape(V_S, -1)], 1),
+                  V_BETA)
+    return out
+
+
+def phase_beta_gradients(seed: int, card: str, dev: str = "cuda") -> list:
+    """Phase 20 (d): each family's closed-form beta-gradient on the card
+    against its forward-mode derivative (``beta_gradient_from_autodiff``),
+    at BG_ROWS rows of the family's widths: within rtol 1e-5 elementwise
+    with a floor of ten float32 ulps of the block's largest value (the CPU
+    tests' float32 bound). Times both (CUDA events, the mean of BG_REPS
+    calls after one), and each form's first call in a fresh process (host
+    clock). Returns the summary lines."""
+    from betacores_tpu_torch.models.base import beta_gradient_from_autodiff
+
+    child = subprocess.Popen([sys.executable, "-c", BETA_GRAD_FIRST_CHILD, str(N_SEL),
+                              str(N_FEAT), str(S), str(BETA), dev], env=_child_env(),
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    lines = []
+    floor = 10 * float(torch.finfo(torch.float32).eps)
+    for name, (model, z, th, beta) in beta_gradient_families(seed, dev).items():
+        b = torch.tensor(beta, device=dev)
+        jvp = beta_gradient_from_autodiff(model.beta_likelihood)
+        ms = {}
+        for tag, fn in (("closed", model.beta_gradient), ("jvp", jvp)):
+            fn(z, th, b)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(BG_REPS):
+                fn(z, th, b)
+            end.record()
+            end.synchronize()
+            ms[tag] = start.elapsed_time(end) / BG_REPS
+        got, want = model.beta_gradient(z, th, b), jvp(z, th, b)
+        scale = float(want.abs().max())
+        excess = float(((got - want).abs() - 1e-5 * want.abs()).max())
+        err = float((got - want).abs().max())
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()) \
+                or not excess <= floor * scale:
+            raise AssertionError(f"beta-gradient {name}: the closed form is off the forward-mode "
+                                 f"derivative by {err:.3e} (max |g| {scale:.3e})")
+        line = (f"beta-gradient {name} ({tuple(z.shape)} rows, {tuple(th.shape)} samples, "
+                f"beta {beta:g}): closed form {ms['closed']:.4f} ms, forward mode "
+                f"{ms['jvp']:.4f} ms (CUDA events, mean of {BG_REPS}), max |diff| {err:.3e} "
+                f"of max |g| {scale:.3e}")
+        log(line + f"; {card}")
+        lines.append(f"{name} {ms['closed']:.3f}/{ms['jvp']:.3f} ms")
+        del z, th, got, want
+    try:
+        out, err = child.communicate(timeout=300)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if child.returncode != 0:
+        raise RuntimeError(f"beta-gradient first calls: the child failed:\n{err[-3000:]}")
+    first = json.loads(out.strip().splitlines()[-1])
+    log(f"beta-gradient first calls in a fresh process (logistic, {N_SEL} x {S}, host clock): "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in first.items()) + f"; {card}")
+    return lines + ["first call " + ", ".join(f"{k} {v:.2f} s" for k, v in first.items())]
+
+
+def export_learn_beta_niw(seed: int, tmp: str, dev: str = "cuda", n: int = N_ROWS,
+                          mc_n: int = MC_ROWS, niw_n: int = FAM_ROWS) -> dict:
+    """Phase 20 (e), its first half: the three builds below exported at
+    full width one after another, each saved and its loading process
+    started as its export ends (``_ExportRun``). Returns the runs and what
+    ``check_learn_beta_niw`` holds them to:
+
+    - the logistic learn_beta build at the headline widths and the
+      multiclass one at phase 6's (full select, K2's op at every select
+      with a tensor beta), their draws stacked for LBX_ITRS selections and
+      run at LBX_ITRS, each held against the live, graph-captured build on
+      the same draws: the same indices and m, weights within
+      5e-3 max(1, max|w|), beta within rtol 1e-5 and moved off its start
+      inside its clamps; K2 launched once a select in the multiclass
+      artifact and in its live build;
+    - the NIW build at examples/mvn_unknown_cov.py's widths over niw_n rows
+      and 10 % outliers, which draws inside the program: run for NIWX_ITRS
+      selections after ``torch.manual_seed(s)`` for each seed of
+      NIWX_SEEDS, against the live build drawn from a generator of that
+      seed. The criterion, fixed before any run: the median over the seeds
+      of KL(coreset NIW || clean-data NIW) of the artifact is finite and
+      within a factor NIWX_KL_FACTOR of the live build's."""
+    from betacores_tpu_torch import (IncrementalConfig, flip_labels, gen_synthetic_logreg,
+                                     gen_synthetic_multiclass, init_state, logreg,
+                                     logreg_laplace_sampler, make_incremental_builder,
+                                     multiclass, multiclass_laplace_sampler, perturb_logreg)
+    from betacores_tpu_torch.models import mvn
+    from betacores_tpu_torch.utils.export import stack_draws
+
+    # the logistic build at the headline widths; i0 keeps beta off its clamps
+    # for LBX_ITRS selections of 500 steps
+    gen = torch.Generator(device=dev).manual_seed(seed + 22)
+    X, y, _ = gen_synthetic_logreg(gen, n, d=N_FEAT)
+    X, y, Z, _ = perturb_logreg(gen, X, y, f_rate=0.1)
+    del X, y
+    cfg = IncrementalConfig(projection_dim=S, n_subsample_select=N_SEL, n_subsample_opt=N_OPT,
+                            opt_itrs=OPT_ITRS, i0=0.002, use_beta=True, learn_beta=True)
+    builder = make_incremental_builder(Z, logreg.bundle(), logreg_laplace_sampler(), cfg)
+    st0 = init_state(M_BUF, N_FEAT, beta=BETA, device=dev)
+    a = _ExportRun("learn_beta logistic", builder, Z, st0,
+                   stack_draws(builder, gen, st0, LBX_ITRS), (LBX_ITRS,), tmp, dev)
+    a.export().launch()
+
+    # the multiclass build of phase 6
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+    _, _, Zm = gen_synthetic_multiclass(gen, mc_n, d=MC_D, n_classes=MC_K)
+    Zm, _ = flip_labels(gen, Zm, MC_K, MC_F_RATE)
+    cfg = IncrementalConfig(projection_dim=S, n_subsample_select=None,
+                            n_subsample_opt=MC_N_OPT, opt_itrs=MC_OPT_ITRS, i0=0.01,
+                            use_beta=True, learn_beta=True)
+    builder = make_incremental_builder(Zm, multiclass.bundle(MC_K),
+                                       multiclass_laplace_sampler(MC_K), cfg)
+    st0 = init_state(MC_M, MC_D + 1, beta=MC_BETA, device=dev,
+                     sampler_aux=torch.zeros(MC_K * MC_D, device=dev))
+    b = _ExportRun("learn_beta multiclass", builder, Zm, st0,
+                   stack_draws(builder, gen, st0, LBX_ITRS), (LBX_ITRS,), tmp, dev)
+    b.export().launch()
+
+    # the NIW build of phase 13 (examples/mvn_unknown_cov.py's widths)
+    gen = torch.Generator(device=dev).manual_seed(seed + 24)
+    d = V_D
+    A = 0.3 * torch.randn((d, d), generator=gen, device=dev)
+    L_true = torch.linalg.cholesky(A @ A.T + torch.eye(d, device=dev))
+    Xv = 2.0 + torch.randn((niw_n, d), generator=gen, device=dev) @ L_true.T
+    Xout = V_SHIFT + 0.5 * torch.randn((int(V_F_RATE * niw_n), d), generator=gen, device=dev)
+    Xc = torch.cat([Xv, Xout])
+    prior = (torch.zeros(d, device=dev), 1.0, 2.0 * torch.eye(d, device=dev), d + 4.0)
+    cfg = IncrementalConfig(projection_dim=V_S, n_subsample_select=V_N_SEL,
+                            n_subsample_opt=V_N_OPT, opt_itrs=V_ITRS, i0=V_I0, use_beta=True)
+    builder = make_incremental_builder(Xc, mvn.bundle(d), mvn.mvn_niw_sampler(*prior), cfg)
+    if not builder.per_step:
+        raise AssertionError("the NIW builder did not take the per-step-draw route")
+    st0 = init_state(V_M, d, beta=V_BETA, device=dev,
+                     sampler_aux=torch.zeros(d + d * d, device=dev))
+    c = _ExportRun("NIW", builder, Xc, st0, None, tuple(f"{NIWX_ITRS}@{s}" for s in NIWX_SEEDS),
+                   tmp, dev).export().launch()
+    return {"runs": (a, b, c), "Xv": Xv, "prior": prior}
+
+
+def check_learn_beta_niw(e: dict, done: dict, card: str, dev: str = "cuda") -> dict:
+    """Phase 20 (e), its second half: each run of ``export_learn_beta_niw``
+    held against its live build (``done``: the loading processes' results
+    by tag). Returns K2's launches (artifact and live) and the summary
+    lines."""
+    from betacores_tpu_torch.models import mvn
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    a, b, c = e["runs"]
+    builder, st0, Xc, Xv, prior = c.builder, c.st0, c.data, e["Xv"], e["prior"]
+    niw_n = Xv.shape[0]
+    summary = []
+    lb = {}
+    for run in (a, b):
+        lb[run.tag] = got = run.finish(done[run.tag], card)
+        beta0, beta = float(run.st0.beta), got["beta"]
+        cap = run.builder.config.beta_cap
+        if not (1e-3 < beta < cap and beta != beta0):
+            raise AssertionError(f"export {run.tag}: beta {beta0} -> {beta}, not moved inside "
+                                 f"its clamps (1e-3, {cap:g})")
+        summary.append(f"{run.tag} {got['art_s']:.2f} s/sel exported, {got['live_s']:.3f} live")
+    if lb["learn_beta logistic"]["K1"] or lb["learn_beta logistic"]["K2"]:
+        raise AssertionError(f"export learn_beta logistic launched a kernel: "
+                             f"{lb['learn_beta logistic']}")
+    mc = lb["learn_beta multiclass"]
+    want = LBX_ITRS if dev == "cuda" else 0
+    if mc["K2"] != want or mc["live_K2"] != want:
+        raise AssertionError(f"export learn_beta multiclass: K2 launched {mc['K2']} times in "
+                             f"the artifact and {mc['live_K2']} in the live build, want "
+                             f"{want} each (one a select)")
+
+    prior64 = (prior[0].double(), 1.0, prior[2].double(), float(prior[3]))
+    post = lambda pts, wts: mvn.weighted_post(*prior64, pts.double(), wts.double())
+    clean = post(Xv, torch.ones(niw_n, device=dev))
+    kl_all = float(mvn.niw_kl(post(Xc, torch.ones(len(Xc), device=dev)), clean))
+    kl = {"artifact": [], "live": []}
+    secs = {"artifact": [], "live": []}
+    same = []
+    for s, run in zip(NIWX_SEEDS, c.runs):
+        r = done[c.tag]["runs"][run]
+        got = type(st0)(*(t.to(dev) for t in r["state"]))
+        sync()
+        t0 = time.perf_counter()
+        live = builder.build(st0, NIWX_ITRS,
+                             builder.generator_draws(torch.Generator(device=dev).manual_seed(s)))
+        sync()
+        secs["live"].append((time.perf_counter() - t0) / NIWX_ITRS)
+        secs["artifact"].append(r["s"] / NIWX_ITRS)
+        for tag, st in (("artifact", got), ("live", live)):
+            check_state(st)
+            if int(st.m) != NIWX_ITRS:
+                raise AssertionError(f"export NIW, seed {s}: {tag} m={int(st.m)}, want "
+                                     f"{NIWX_ITRS}")
+            kl[tag].append(float(mvn.niw_kl(post(st.pts, st.wts), clean)))
+        same.append(all(torch.equal(u, v) for u, v in zip(got, live)))
+    med = {k: float(np.median(v)) for k, v in kl.items()}
+    log(f"export NIW: KL(coreset NIW || clean-data NIW) over seeds {list(NIWX_SEEDS)}, "
+        f"{NIWX_ITRS} selections: artifact {[f'{v:.6g}' for v in kl['artifact']]} (median "
+        f"{med['artifact']:.6g}), live {[f'{v:.6g}' for v in kl['live']]} (median "
+        f"{med['live']:.6g}); all rows {kl_all:.6g}; the artifact bit-identical to the live "
+        f"build of the same seed: {same}")
+    log(f"export NIW: s a selection, artifact {[f'{v:.3f}' for v in secs['artifact']]} "
+        f"(op by op), live {[f'{v:.3f}' for v in secs['live']]} (captured, the first with "
+        f"its capture); {card}")
+    ratio = med["artifact"] / med["live"]
+    if not (np.isfinite(med["artifact"]) and 1.0 / NIWX_KL_FACTOR <= ratio <= NIWX_KL_FACTOR):
+        raise AssertionError(f"export NIW: the artifact's median KL {med['artifact']:.6g} is "
+                             f"not within a factor {NIWX_KL_FACTOR:g} of the live build's "
+                             f"{med['live']:.6g}")
+    summary.append(f"NIW {np.median(secs['artifact']):.2f} s/sel exported, "
+                   f"{np.median(secs['live']):.3f} live, median KL {med['artifact']:.4g} / "
+                   f"{med['live']:.4g}")
+    return {"K2": mc["K2"] + mc["live_K2"], "lines": summary}
 
 
 def phase_export(seed: int, card: str, dev: str = "cuda", n: int = N_ROWS,
@@ -3842,7 +4159,17 @@ def phase_export(seed: int, card: str, dev: str = "cuda", n: int = N_ROWS,
         defaults cut in depth (EX_CUTS); each pickle must carry the JAX
         driver's keys (EX_KEYS) with finite numbers; ``run_sweep`` runs one
         grid point with ``--index`` and ``plot_results`` plots the Gaussian
-        pickles (skipped, and said, without matplotlib).
+        pickles (skipped, and said, without matplotlib);
+    (d) each family's closed-form beta-gradient against its forward-mode
+        derivative, timed, and each form's first call in a fresh process
+        (``phase_beta_gradients``);
+    (e) the logistic and multiclass learn_beta builds and the NIW build
+        exported at full width and run from a fresh process
+        (``export_learn_beta_niw``, ``check_learn_beta_niw``).
+    In that order but for the exports: (d) first, on a quiet card; then
+    (a), (b) and (e) exported in turn, each loading process started as its
+    export ends, so that it overlaps the later exports and the other
+    processes, and the live builds run after all of them ended; then (c).
     Returns the launches of K1 and K2 in the phase and one summary line."""
     import importlib
     import importlib.util
@@ -3861,28 +4188,27 @@ def phase_export(seed: int, card: str, dev: str = "cuda", n: int = N_ROWS,
     summary = []
     sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
     with tempfile.TemporaryDirectory() as tmp:
-        # --- (a) the headline logistic build ---
+        # --- (d) the closed-form beta-gradients, timed on a quiet card ---
+        t0 = time.perf_counter()
+        bg = phase_beta_gradients(seed, card, dev)
+        t_d = time.perf_counter() - t0
+
+        # --- (a), (b), (e): each build exported in turn, its loading process
+        # started as its export ends (so the processes overlap the later
+        # exports and one another); the live builds after every one ended ---
+        t0 = time.perf_counter()
         gen = torch.Generator(device=dev).manual_seed(seed + 20)
         X, y, _ = gen_synthetic_logreg(gen, n, d=N_FEAT)
         X, y, Z, _ = perturb_logreg(gen, X, y, f_rate=0.1)
+        del X, y
         cfg = IncrementalConfig(projection_dim=S, n_subsample_select=N_SEL,
                                 n_subsample_opt=N_OPT, opt_itrs=OPT_ITRS, i0=1.0,
                                 use_beta=True)
         builder = make_incremental_builder(Z, logreg.bundle(), logreg_laplace_sampler(), cfg)
         st0 = init_state(M_BUF, N_FEAT, beta=BETA, device=dev)
-        draws = stack_draws(builder, gen, st0, stack)
-        k1_0 = kernels.logreg_adam_step.launches
-        a = _ExportRun("headline", builder, Z, st0, draws, EXP_ITRS, tmp, dev).export().launch()
-        a = a.finish()
-        k1_live = kernels.logreg_adam_step.launches - k1_0
-        want = sum(EXP_ITRS) * OPT_ITRS if dev == "cuda" else 0
-        if a["K1"] != want or k1_live != want:
-            raise AssertionError(f"export headline: K1 launched {a['K1']} times in the "
-                                 f"artifact and {k1_live} in the live builds, want {want} each")
-        summary.append(f"headline {a['art_s']:.2f} s/sel exported, {a['live_s']:.3f} live")
-        del X, y, Z, builder, draws
+        a = _ExportRun("headline", builder, Z, st0, stack_draws(builder, gen, st0, stack),
+                       EXP_ITRS, tmp, dev).export().launch()
 
-        # --- (b) the multiclass build, full select ---
         K, d = MC_K, MC_D
         gen = torch.Generator(device=dev).manual_seed(seed + 21)
         _, _, Zm = gen_synthetic_multiclass(gen, mc_n, d=d, n_classes=K)
@@ -3894,16 +4220,31 @@ def phase_export(seed: int, card: str, dev: str = "cuda", n: int = N_ROWS,
                                            multiclass_laplace_sampler(K), cfg)
         st0 = init_state(MC_M, d + 1, beta=MC_BETA, device=dev,
                          sampler_aux=torch.zeros(K * d, device=dev))
-        draws = stack_draws(builder, gen, st0, MCX_ITRS)
-        b = _ExportRun("multiclass", builder, Zm, st0, draws, (MCX_ITRS,), tmp, dev)
-        b = b.export().launch().finish()
+        b = _ExportRun("multiclass", builder, Zm, st0, stack_draws(builder, gen, st0, MCX_ITRS),
+                       (MCX_ITRS,), tmp, dev).export().launch()
+        del Z, Zm, builder
+        e = export_learn_beta_niw(seed, tmp, dev)
+        done = {run.tag: run.wait(card) for run in (a, b, *e["runs"])}
+
+        k1_0 = kernels.logreg_adam_step.launches
+        a = a.finish(done[a.tag], card)
+        k1_live = kernels.logreg_adam_step.launches - k1_0
+        want = sum(EXP_ITRS) * OPT_ITRS if dev == "cuda" else 0
+        if a["K1"] != want or k1_live != want:
+            raise AssertionError(f"export headline: K1 launched {a['K1']} times in the "
+                                 f"artifact and {k1_live} in the live builds, want {want} each")
+        summary.append(f"headline {a['art_s']:.2f} s/sel exported, {a['live_s']:.3f} live")
+        b = b.finish(done[b.tag], card)
         want = MCX_ITRS if dev == "cuda" else 0
         if b["K2"] != want or b["live_K2"] != want:
             raise AssertionError(f"export multiclass: K2 launched {b['K2']} times in the "
                                  f"artifact and {b['live_K2']} in the live build, want "
                                  f"{want} each (one a select)")
         summary.append(f"multiclass {b['art_s']:.2f} s/sel exported, {b['live_s']:.3f} live")
-        del Zm, builder, draws
+        e = check_learn_beta_niw(e, done, card, dev)
+        summary.append("beta-gradient closed/forward " + ", ".join(bg))
+        summary.extend(e["lines"])
+        log(f"export: (d) in {t_d:.1f} s, (a), (b) and (e) in {time.perf_counter() - t0:.1f} s")
         if dev == "cuda":
             torch.cuda.empty_cache()
 
@@ -3959,12 +4300,12 @@ def phase_export(seed: int, card: str, dev: str = "cuda", n: int = N_ROWS,
             log(f"driver plot_results: --kind gaussian in {secs['plot_results']:.1f} s")
         k1_d = kernels.logreg_adam_step.launches - k1_0
         k2_d = kernels.multiclass_projection.launches - k2_0
-    log(f"drivers: seconds {', '.join(f'{k} {v:.1f}' for k, v in secs.items())}; K1 "
-        f"{k1_d} and K2 {k2_d} launches in them; {card}")
-    summary.append(f"drivers {sum(secs.values()):.0f} s")
+        log(f"drivers: seconds {', '.join(f'{k} {v:.1f}' for k, v in secs.items())}; K1 "
+            f"{k1_d} and K2 {k2_d} launches in them; {card}")
+        summary.append(f"drivers {sum(secs.values()):.0f} s")
     t = time.perf_counter() - t_phase
     log(f"export: phase 20 in {t:.1f} s")
-    return {"K1": a["K1"] + k1_live + k1_d, "K2": b["K2"] + b["live_K2"] + k2_d,
+    return {"K1": a["K1"] + k1_live + k1_d, "K2": b["K2"] + b["live_K2"] + k2_d + e["K2"],
             "line": f"export (phase 20, {t:.1f} s): " + ", ".join(summary)}
 
 

@@ -246,29 +246,27 @@ def test_artifact_matches_the_jax_artifact_under_its_draws():
     np.testing.assert_allclose(got.wts.numpy(), w0, atol=5e-3 * max(1.0, np.abs(w0).max()))
 
 
-@pytest.mark.parametrize("why", ["per_step", "learn_beta", "contextual"])
+@pytest.mark.parametrize("why", ["learn_beta", "contextual"])
 def test_builders_the_program_cannot_express_raise(why):
-    from betacores_tpu_torch.models import mvn
+    """A learn_beta build whose model's beta-gradient is the forward-mode
+    derivative (a model made from a bare beta-likelihood) raises, naming
+    the closed form; so does a contextual builder."""
+    from betacores_tpu_torch.models.base import beta_gradient_from_autodiff
 
     d = 3
-    X = torch.randn(60, d, generator=torch.Generator().manual_seed(0))
-    st0 = init_state(4, d, beta=0.4, device="cpu")
-    if why == "per_step":
-        b = make_incremental_builder(
-            X, mvn.bundle(d), mvn.mvn_niw_sampler(torch.zeros(d), 1.0, torch.eye(d), d + 4.0),
-            IncrementalConfig(projection_dim=8, n_subsample_select=16, n_subsample_opt=12,
-                              opt_itrs=3, use_beta=True))
-        st0 = init_state(4, d, beta=0.4, sampler_aux=torch.zeros(d + d * d), device="cpu")
-    elif why == "learn_beta":
-        b, X, _, st0 = _gaussian()
-        b = make_incremental_builder(X, b.model, b.sampler,
+    b, X, _, st0 = _gaussian()
+    if why == "learn_beta":
+        jvp = beta_gradient_from_autodiff(b.model.beta_likelihood)
+        model = b.model._replace(beta_gradient=jvp)
+        b = make_incremental_builder(X, model, b.sampler,
                                      IncrementalConfig(projection_dim=8, n_subsample_select=16,
                                                        n_subsample_opt=12, opt_itrs=3,
                                                        use_beta=True, learn_beta=True))
+        match = "closed form"
     else:
-        b, X, _, st0 = _gaussian()
         b.ctx = object()
-    with pytest.raises(NotImplementedError, match="item 13"):
+        match = "item 13"
+    with pytest.raises(NotImplementedError, match=match):
         export_incremental_build(b, X, st0, draws_spec=BuildDraws(
             torch.zeros(1, 8, d), None, torch.zeros(1, 3, 8, d), None))
 
