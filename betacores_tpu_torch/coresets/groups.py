@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..ops.projection import Groups, draw_subsample
+from ..utils import profiling
 from ..utils.opt import step_schedule
 from .incremental import (ContextBuffers, GeneratorDraws, IncrementalBuilder,
                           IncrementalConfig, _generator_of, laplace_family,
@@ -211,6 +212,7 @@ class GroupIncrementalBuilder(IncrementalBuilder):
         selected = gst.selected | ((self._all_groups == f) & add)
         return gst._replace(core=core, selected=selected)
 
+    @profiling.spanned("refine")
     def optimize(self, gst: GroupCoresetState, draws, it: int = 0,
                  ctx=None) -> GroupCoresetState:
         """Point-level refinement of the appended members: the composed

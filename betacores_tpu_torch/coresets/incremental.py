@@ -67,6 +67,10 @@ this builder's full-data refinement (one (N, S) projection per step) stay
 eager; the group builder (coresets/groups.py) runs its full-data pass
 through ``_ComposedPass`` and so captures it too.
 
+``optimize`` is the program's ``refine`` span (utils/profiling.py), the
+parent of the refits' ``newton`` spans: free while the recorder is off, a
+record while a profiler runs or under ``profiling.recording()``.
+
 A contextual builder (``contextual=True``: the model and sampler are
 factories ``ctx -> ModelFns`` and ``ctx -> sampler``, e.g. over the
 neural-linear encoder of models/neural_linear.py) resolves the factories
@@ -87,6 +91,7 @@ import torch
 from ..ops.kernels import FusedPass, adam_sclr_stack, maybe_fused
 from ..ops.projection import (draw_subsample, project_beta, project_beta_with_grad,
                               project_ll)
+from ..utils import profiling
 from ..utils.graphs import PassRunner, capture_stats, resolve_graph, signature
 from ..utils.opt import adam_bias_corrections, adam_update, nn_adam, step_schedule
 from .state import CoresetState
@@ -678,6 +683,7 @@ class IncrementalBuilder:
             m=st.m + add.to(torch.int32),
             sampler_aux=aux)
 
+    @profiling.spanned("refine")
     def optimize(self, st: CoresetState, draws: Draws, it: int = 0,
                  ctx: Optional[Mapping] = None) -> CoresetState:
         """Reference bcores.py:126-150 on pre-drawn noise and subsample rows:

@@ -16,6 +16,11 @@ reference's NaN factor on the device (no host read of ``info``), so the
 Newton direction is NaN, every line-search candidate scores -inf and the
 step is rejected, as in the reference.
 
+While the program's recorder is on (utils/profiling.py), each call is a
+``newton`` span and counts ``newton.iters_run`` (``n_iters``, on the host)
+and ``newton.iters_needed`` (the iterations entered with ``done`` false,
+counted on the device): how much of the fixed-count loop does work.
+
 ``newton_laplace_diag`` is the diagonal-Hessian variant (the reference's
 ``graddiag``), a fixed-count loop as the reference's scan is.
 """
@@ -28,6 +33,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..models.base import identity
+from ..utils import profiling
 
 # Backtracking grid: candidate step sizes tried per Newton iteration.
 _TS = (1.0, 0.5, 0.25, 0.125, 0.0625, 0.03125, 0.015625, 0.0078125)
@@ -70,6 +76,21 @@ def newton_laplace(
     of candidates. ``with_inverse=True`` computes the Newton direction
     through the explicit L^-1 and returns it in ``prec_chol_inv``; otherwise
     through two triangular solves (``cho_solve``)."""
+    if not profiling.active():
+        return _newton(log_joint, grad, hess, mu0, n_iters, with_inverse, False)[0]
+    with profiling.annotate("newton"):
+        fit, needed = _newton(log_joint, grad, hess, mu0, n_iters, with_inverse, True)
+    # counted outside the span, so that every call launches the same
+    # operations inside it (a device counter's first count creates it)
+    profiling.count("newton.iters_run", n_iters)
+    if needed is not None:
+        profiling.count("newton.iters_needed", needed)
+    return fit
+
+
+def _newton(log_joint, grad, hess, mu0, n_iters: int, with_inverse: bool, counted: bool):
+    """``newton_laplace`` and, ``counted``, the iterations entered with
+    ``done`` false (a device scalar; None without iterations)."""
     d = mu0.shape[-1]
 
     def eval_at(mu):
@@ -98,8 +119,11 @@ def newton_laplace(
     tol = 1e-7 if mu.dtype == torch.float64 else 1e-5
     done = lam2 <= tol * (1.0 + torch.abs(f))
     ts = _ts(mu.dtype, mu.device)
+    entered = []        # done at each iteration's entry, when counted
 
     for _ in range(n_iters):
+        if counted:
+            entered.append(done)
         cands = mu[None, :] + ts[:, None] * p[None, :]
         vals = log_joint(cands)
         vals = torch.where(torch.isfinite(vals), vals, float("-inf"))
@@ -117,8 +141,9 @@ def newton_laplace(
         linv = torch.where(done, linv, linv_new)
         p = torch.where(done, p, p_new)
         done = done | done_new
+    needed = (~torch.stack(entered)).sum() if entered else None
     return LaplaceApprox(mu=mu, prec_chol=L,
-                         prec_chol_inv=linv if with_inverse else None)
+                         prec_chol_inv=linv if with_inverse else None), needed
 
 
 def newton_laplace_diag(

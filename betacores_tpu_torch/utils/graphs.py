@@ -28,8 +28,20 @@ each capture registers it with its graph, so every replay advances it as
 the eager step would and draws what the eager step would draw.
 
 A captured kernel launch runs no Python, so the wrappers' launch counts
-(``counted``) and a mesh's collective counts are taken while capturing
-(which launches nothing, so they are set back) and added at every replay.
+(``counted``), a mesh's collective counts and what the program's recorder
+counted (utils/profiling.py: span calls and host counters) are taken while
+capturing (which launches nothing, so they are set back) and added at every
+replay.
+
+While the recorder is on, a step runs under a key of its own (the step's
+key and ``"recorded"``): it is run eagerly, captured and replayed as any
+new key, with its spans' timing events and its device counts as nodes of
+its graph, and the unrecorded step's graph stays as it was. Off, keys and
+graphs are those of a runner with no recorder. A recorded replay also
+counts ``pass.replays``, and when the previous step's end event has already
+completed as the host launches (the stream ran dry) ``pass.dry_launches``
+and the nanoseconds from that event to the launch, ``pass.host_gap_ns``:
+the host-caused idle of the pass, read without a profiler.
 """
 
 from __future__ import annotations
@@ -40,6 +52,8 @@ import time
 from typing import Callable, Hashable, Optional
 
 import torch
+
+from . import profiling
 
 # the kernel wrappers whose ``launches`` a replay keeps truthful
 _COUNTED: list = []
@@ -74,12 +88,14 @@ def signature(tensors) -> tuple:
 class Captured:
     """A captured graph with what it launches: ``launches`` pairs each
     counted wrapper with its launches in the graph, ``captured_calls`` are
-    the collectives in it (added to ``calls``). ``replay`` replays the
-    graph and adds both."""
+    the collectives in it (added to ``calls``), ``recorded`` what the
+    recorder counted in it (profiling.Recorded, or None). ``replay``
+    replays the graph and adds all three."""
 
-    def __init__(self, graph, launches, calls=None, captured_calls=None):
+    def __init__(self, graph, launches, calls=None, captured_calls=None, recorded=None):
         self.graph, self.launches = graph, launches
         self.calls, self.captured_calls = calls, captured_calls
+        self.recorded = recorded
 
     def replay(self) -> None:
         self.graph.replay()
@@ -87,6 +103,8 @@ class Captured:
             wrapper.launches += n
         if self.calls is not None:
             self.calls.update(self.captured_calls)
+        if self.recorded is not None:
+            profiling.replayed(self.recorded)
 
 
 def capture(fn: Callable[[], None],
@@ -96,6 +114,7 @@ def capture(fn: Callable[[], None],
     the counts ``fn`` advanced are set back and kept for the replays."""
     before = [w.launches for w in _COUNTED]
     calls_before = None if calls is None else collections.Counter(calls)
+    mark = profiling.capture_mark()
     graph = torch.cuda.CUDAGraph()
     for gen in generators:
         graph.register_generator_state(gen)
@@ -118,7 +137,7 @@ def capture(fn: Callable[[], None],
         captured_calls = collections.Counter(calls) - calls_before
         calls.clear()
         calls.update(calls_before)
-    return Captured(graph, launches, calls, captured_calls)
+    return Captured(graph, launches, calls, captured_calls, profiling.captured_since(mark))
 
 
 def capture_stats(passes) -> tuple:
@@ -140,27 +159,53 @@ class PassRunner:
         self.generators: tuple = ()     # the steps' own generators
         self.programs: dict = {}        # key -> None (run once, eagerly) or Captured
         self.capture_seconds = 0.0      # host time spent capturing and instantiating
+        self.last_end = None            # the previous recorded replay's end event
+        self.ends: tuple = ()           # two end events, used in turn
 
     def run(self, key: Hashable, fn: Callable[[], None]) -> None:
         """``fn()``: eagerly the first time ``key`` is seen, captured the
-        second, replayed from then on."""
-        if not self.graph:
-            fn()
-            return
-        if key not in self.programs:
-            self.programs[key] = None
+        second, replayed from then on (a recording step under a key of its
+        own, module docstring)."""
+        recorded = profiling.active()
+        if recorded:
+            key = (*key, "recorded") if isinstance(key, tuple) else (key, "recorded")
+        if not self.graph or key not in self.programs:
+            if self.graph:
+                self.programs[key] = None
+            if recorded:
+                self.last_end = None
             fn()
             return
         if self.programs[key] is None:
             t0 = time.perf_counter()
             self.programs[key] = capture(fn, self.calls, self.generators)
             self.capture_seconds += time.perf_counter() - t0
-        self.programs[key].replay()
+        if recorded:
+            self._replay_recorded(self.programs[key])
+        else:
+            self.programs[key].replay()
+
+    def _replay_recorded(self, program: Captured) -> None:
+        """A replay while recording, with its dry-launch count (module
+        docstring)."""
+        if self.last_end is not None and self.last_end.query():
+            launch_ns = time.time_ns()
+            profiling.count("pass.dry_launches")
+            done_ns = profiling.device_ns(self.last_end)
+            if done_ns is not None:
+                profiling.count("pass.host_gap_ns", launch_ns - done_ns)
+        program.replay()
+        profiling.count("pass.replays")
+        if not self.ends:
+            self.ends = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+        self.last_end = self.ends[1] if self.last_end is self.ends[0] else self.ends[0]
+        self.last_end.record()
 
     def run_pass(self, n_steps: int, step: Callable[[Hashable], None],
                  step_key: Callable[[int], Hashable] = lambda i: 0) -> None:
         """``step(step_key(i))`` for i = 0..n_steps-1. The body may depend
         on i only through its key and a counter it keeps on the device."""
+        self.last_end = None
         for i in range(n_steps):
             key = step_key(i)
             self.run(("step", key), lambda: step(key))

@@ -21,6 +21,13 @@ activity is traced, but the profiler's own host cost still slows the host
 (an eager build) and the replays (a captured one), so the same window is
 also run without the profiler: ``busy_over_unprofiled_wall`` is the traced
 device time over that run's wall time.
+
+A torch profiler turns the program's recorder on (utils/profiling.py), and
+a recording pass replays steps of its own, with a span's two timing events
+and the Newton counter's operations in each refit. So before its profiled
+window each build runs its window once inside ``profiling.recording()``,
+which captures those steps: the window replays them and captures nothing,
+and its operation counts include the recorder's.
 """
 
 from __future__ import annotations
@@ -40,6 +47,12 @@ def profile(tag: str, captured: bool, kernel: str, run) -> dict:
     run()                                 # the same window without the profiler
     torch.cuda.synchronize()
     plain_us = (time.perf_counter() - t0) * 1e6
+    from betacores_tpu_torch.utils import profiling
+
+    recording = getattr(profiling, "recording", None)   # a tree without the recorder
+    if recording is not None:
+        with recording():
+            run()                         # the recorded steps' eager run and capture
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         run()
