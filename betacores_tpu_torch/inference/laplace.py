@@ -2,12 +2,26 @@
 betacores_tpu/inference/laplace.py).
 
 The reference stops adaptively in a ``lax.while_loop`` once the Newton
-decrement lambda^2 = g . (-H)^-1 g falls below ``tol * (1 + |log_joint|)``.
-Here the loop runs a fixed ``n_iters`` times and FREEZES its carry once the
-done flag is set, so it returns the same mode and factor as the while loop
-without a host read of the flag: the build's refinement loop stays free of
-device-to-host syncs (and capturable as a CUDA graph). Iterations after
-``done`` still execute; their results are discarded by ``torch.where``.
+decrement lambda^2 = g . (-H)^-1 g falls below ``tol * (1 + |log_joint|)``
+(or a step does not improve). The port stops there too, without a host
+read of the done flag, in one of two ways over one shared iteration
+(``iterate``):
+
+- captured (the stream is being captured into a CUDA graph: the build's
+  refinement steps, utils/graphs.py): each iteration is the body of a
+  CUDA-graph conditional node on the device flag ``not_done``, and
+  iteration k+1's node lies inside iteration k's body. The carry lives in
+  tensors made before the loop and a body updates it in place. A replay
+  runs the bodies while the fit is not done and stops at the first one
+  that is, as the reference's ``while_loop`` does: a refit converged at
+  entry pays one condition and no iteration.
+- eager (the CPU, an eager step, ``torch.export``): a fixed ``n_iters``
+  loop that FREEZES its carry once done is set. Iterations after ``done``
+  still execute; ``torch.where`` discards their results. An exported
+  program keeps this loop.
+
+Both return the same mode and factor bit for bit: the iterations the
+captured loop skips are those whose results the eager loop discards.
 
 Where -H is not positive definite, ``jnp.linalg.cholesky`` returns NaN in
 the factor's lower triangle; ``cholesky_ex`` returns a finite partial
@@ -17,9 +31,12 @@ Newton direction is NaN, every line-search candidate scores -inf and the
 step is rejected, as in the reference.
 
 While the program's recorder is on (utils/profiling.py), each call is a
-``newton`` span and counts ``newton.iters_run`` (``n_iters``, on the host)
-and ``newton.iters_needed`` (the iterations entered with ``done`` false,
-counted on the device): how much of the fixed-count loop does work.
+``newton`` span and counts ``newton.iters_run`` (``n_iters``, on the host),
+``newton.iters_needed`` (the iterations entered with ``done`` false,
+counted on the device) and ``newton.iters_executed`` (the iterations that
+ran: ``n_iters`` on the host when eager, one per conditional body that ran
+when captured, on the device): how much of the budget does work, and how
+much of it the card runs.
 
 ``newton_laplace_diag`` is the diagonal-Hessian variant (the reference's
 ``graddiag``), a fixed-count loop as the reference's scan is.
@@ -33,7 +50,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..models.base import identity
-from ..utils import profiling
+from ..utils import graphs, profiling
 
 # Backtracking grid: candidate step sizes tried per Newton iteration.
 _TS = (1.0, 0.5, 0.25, 0.125, 0.0625, 0.03125, 0.015625, 0.0078125)
@@ -79,18 +96,25 @@ def newton_laplace(
     if not profiling.active():
         return _newton(log_joint, grad, hess, mu0, n_iters, with_inverse, False)[0]
     with profiling.annotate("newton"):
-        fit, needed = _newton(log_joint, grad, hess, mu0, n_iters, with_inverse, True)
+        fit, needed, executed = _newton(log_joint, grad, hess, mu0, n_iters, with_inverse, True)
     # counted outside the span, so that every call launches the same
     # operations inside it (a device counter's first count creates it)
     profiling.count("newton.iters_run", n_iters)
     if needed is not None:
         profiling.count("newton.iters_needed", needed)
+    profiling.count("newton.iters_executed", executed)
+    if not isinstance(executed, torch.Tensor):
+        # a capture of this call counts on the device, into a counter that
+        # it may not make
+        profiling.reserve("newton.iters_executed", mu0.device)
     return fit
 
 
 def _newton(log_joint, grad, hess, mu0, n_iters: int, with_inverse: bool, counted: bool):
     """``newton_laplace`` and, ``counted``, the iterations entered with
-    ``done`` false (a device scalar; None without iterations)."""
+    ``done`` false (a device scalar; None without iterations) and those
+    that ran (``n_iters`` when eager; when captured, a device scalar that
+    each body that runs adds one to)."""
     d = mu0.shape[-1]
 
     def eval_at(mu):
@@ -113,17 +137,11 @@ def _newton(log_joint, grad, hess, mu0, n_iters: int, with_inverse: bool, counte
             lam2 = g @ p
         return L, linv, p, lam2
 
-    f = log_joint(mu0)
-    L, linv, p, lam2 = eval_at(mu0)
-    mu = mu0.to(torch.promote_types(mu0.dtype, p.dtype))
-    tol = 1e-7 if mu.dtype == torch.float64 else 1e-5
-    done = lam2 <= tol * (1.0 + torch.abs(f))
-    ts = _ts(mu.dtype, mu.device)
-    entered = []        # done at each iteration's entry, when counted
-
-    for _ in range(n_iters):
-        if counted:
-            entered.append(done)
+    def iterate(carry):
+        """One damped Newton step from ``carry`` = (mu, f, L, linv, p): the
+        line search over ``ts`` and the factor at the new point. Returns
+        the new carry and whether the fit is done after it."""
+        mu, f, _, _, p = carry
         cands = mu[None, :] + ts[:, None] * p[None, :]
         vals = log_joint(cands)
         vals = torch.where(torch.isfinite(vals), vals, float("-inf"))
@@ -135,15 +153,62 @@ def _newton(log_joint, grad, hess, mu0, n_iters: int, with_inverse: bool, counte
         L_new, linv_new, p_new, lam2 = eval_at(mu_new)
         # a step that does not improve exits: retrying it cannot succeed
         done_new = (lam2 <= tol * (1.0 + torch.abs(f_new))) | ~improved
-        mu = torch.where(done, mu, mu_new)
-        f = torch.where(done, f, f_new)
-        L = torch.where(done, L, L_new)
-        linv = torch.where(done, linv, linv_new)
-        p = torch.where(done, p, p_new)
-        done = done | done_new
-    needed = (~torch.stack(entered)).sum() if entered else None
-    return LaplaceApprox(mu=mu, prec_chol=L,
-                         prec_chol_inv=linv if with_inverse else None), needed
+        return (mu_new, f_new, L_new, linv_new, p_new), done_new
+
+    f = log_joint(mu0)
+    L, linv, p, lam2 = eval_at(mu0)
+    captured = graphs.can_branch(mu0)
+    # captured, mu is updated in place: a copy (mu0 may be the caller's buffer)
+    mu = mu0.to(torch.promote_types(mu0.dtype, p.dtype), copy=captured)
+    tol = 1e-7 if mu.dtype == torch.float64 else 1e-5
+    done = lam2 <= tol * (1.0 + torch.abs(f))
+    ts = _ts(mu.dtype, mu.device)
+
+    if captured:
+        # the carry in place, f in the dtype the steps give it; without the
+        # inverse, linv is L and is written once
+        carry = [mu, f.to(torch.promote_types(f.dtype, mu.dtype)), L, linv, p]
+        parts = range(5) if with_inverse else (0, 1, 2, 4)
+        not_done = ~done
+        if counted:
+            needed, executed = (torch.zeros((), dtype=torch.int64, device=mu0.device)
+                                for _ in range(2))
+        else:
+            needed = executed = None
+
+        def enter(k):
+            if counted:
+                needed.add_(not_done)
+            graphs.run_if(not_done, lambda: body(k))
+
+        def body(k):
+            # runs only while not done: the step needs no freeze
+            if counted:
+                executed.add_(1)
+            new, done_new = iterate(carry)
+            for i in parts:
+                carry[i].copy_(new[i])
+            torch.logical_not(done_new, out=not_done)
+            if k + 1 < n_iters:
+                enter(k + 1)     # nested: a converged fit skips every later one
+
+        if n_iters:
+            enter(0)
+        mu, _, L, linv, _ = carry
+    else:
+        carry = (mu, f, L, linv, p)
+        entered = []        # done at each iteration's entry, when counted
+        for _ in range(n_iters):
+            if counted:
+                entered.append(done)
+            new, done_new = iterate(carry)
+            carry = tuple(torch.where(done, old, upd) for old, upd in zip(carry, new))
+            done = done | done_new
+        mu, _, L, linv, _ = carry
+        needed = (~torch.stack(entered)).sum() if entered else None
+        executed = n_iters
+    return (LaplaceApprox(mu=mu, prec_chol=L, prec_chol_inv=linv if with_inverse else None),
+            needed, executed)
 
 
 def newton_laplace_diag(

@@ -12,12 +12,18 @@ replays it. That needs
   counter and through ``step_key(i)``, the host-side schedule (for one,
   "this step refits the posterior"): steps with equal keys replay one graph.
 
+A data-dependent loop needs no host read either: the captured Newton refit
+(inference/laplace.py) puts each iteration in a conditional node of the
+graph, so a replay stops on the device where the fit is done, as the
+reference's ``while_loop`` does; run eagerly, it runs its fixed count.
+
 ``PassRunner`` runs a pass one step per graph: a graph of one step
 instantiates in milliseconds, and the host replays far faster than the card
 runs a step, so a longer graph buys nothing (PERF.md has both measured).
 The first run of a step with a new key is eager (which also creates the
-library handles and workspaces a capture may not create), the second is
-captured, and every later one replays. With ``graph=False`` (the CPU, or a
+library handles and workspaces a capture may not create, for every
+operation a conditional body holds: the eager refit runs all of them), the
+second is captured, and every later one replays. With ``graph=False`` (the CPU, or a
 caller that asks for it) every step runs eagerly, through the same body.
 A capture or a replay that fails raises: nothing falls back to the eager
 loop. Python's garbage collector is off while a graph is captured.
@@ -47,6 +53,9 @@ the host-caused idle of the pass, read without a profiler.
 from __future__ import annotations
 
 import collections
+import contextlib
+import ctypes
+import functools
 import gc
 import time
 from typing import Callable, Hashable, Optional
@@ -57,6 +66,8 @@ from . import profiling
 
 # the kernel wrappers whose ``launches`` a replay keeps truthful
 _COUNTED: list = []
+# the stream ``capture`` is capturing on, while it routes its allocations
+_routed_stream: Optional[int] = None
 
 
 def counted(wrapper):
@@ -111,20 +122,27 @@ def capture(fn: Callable[[], None],
             calls: Optional[collections.Counter] = None, generators=()) -> Captured:
     """``fn()`` captured as one CUDA graph on the current device, with the
     ``generators`` it draws from registered. Capturing launches nothing, so
-    the counts ``fn`` advanced are set back and kept for the replays."""
+    the counts ``fn`` advanced are set back and kept for the replays. The
+    capture stream's allocations go to the graph's own pool for the whole
+    capture, so that ``fn`` may hold ``run_if`` nodes."""
     before = [w.launches for w in _COUNTED]
     calls_before = None if calls is None else collections.Counter(calls)
     mark = profiling.capture_mark()
     graph = torch.cuda.CUDAGraph()
     for gen in generators:
         graph.register_generator_state(gen)
+    pool = None
+    if torch.cuda.is_available():
+        _conditional_lib()
+        pool = torch.cuda.graph_pool_handle()
     # no garbage collection while capturing: a dead reference cycle that
     # holds an older graph, collected mid-capture, would destroy that graph
     # on the capturing device and so invalidate the capture
     collecting = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.graph(graph):
+        capturing = torch.cuda.graph(graph) if pool is None else torch.cuda.graph(graph, pool=pool)
+        with capturing, _routed(pool):
             fn()
     finally:
         if collecting:
@@ -138,6 +156,77 @@ def capture(fn: Callable[[], None],
         calls.clear()
         calls.update(calls_before)
     return Captured(graph, launches, calls, captured_calls, profiling.captured_since(mark))
+
+
+@contextlib.contextmanager
+def _routed(pool):
+    """Inside a capture into the graph's pool ``pool``, the current stream's
+    allocations go to that pool whatever its capture sequence: ``run_if``
+    restarts the sequence, and PyTorch routes by the sequence the capture
+    began with. PyTorch's route is swapped for one by the stream, which the
+    capture's end removes as it would have removed PyTorch's; the pool
+    reference the new route takes is given back at once."""
+    global _routed_stream
+    if pool is None:
+        yield
+        return
+    device = torch.cuda.current_device()
+    torch._C._cuda_endAllocateToPool(device, pool)
+    torch._C._cuda_beginAllocateCurrentStreamToPool(device, pool)
+    torch._C._cuda_releasePool(device, pool)
+    _routed_stream = torch.cuda.current_stream().cuda_stream
+    try:
+        yield
+    finally:
+        _routed_stream = None
+
+
+@functools.cache
+def _conditional_lib() -> ctypes.CDLL:
+    from ..ops._build import load
+
+    lib = load("graph_conditional")
+    vp = ctypes.c_void_p
+    lib.graph_conditional_init.argtypes = []
+    lib.graph_if_begin.argtypes = [vp, vp, ctypes.POINTER(vp), ctypes.POINTER(vp)]
+    lib.graph_if_end.argtypes = [vp, vp, vp]
+    for fn in (lib.graph_conditional_init, lib.graph_if_begin, lib.graph_if_end):
+        fn.restype = ctypes.c_int
+    _check(lib.graph_conditional_init(), "graph_conditional_init")
+    return lib
+
+
+def _check(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def can_branch(x: torch.Tensor) -> bool:
+    """Whether work on ``x`` is being captured by ``capture`` now, so that
+    ``run_if`` may put some of it in a conditional node (never while dynamo
+    traces a program)."""
+    return (_routed_stream is not None and not torch.compiler.is_compiling() and x.is_cuda
+            and torch.cuda.current_stream(x.device).cuda_stream == _routed_stream)
+
+
+def run_if(pred: torch.Tensor, body: Callable[[], None]) -> None:
+    """``body()`` captured, inside ``capture``, as the body of a conditional
+    node (csrc/graph_conditional.cu): a replay runs it only when the 1-element
+    bool ``pred`` is true on the device there. The body may launch kernels,
+    device copies and further ``run_if`` nodes; a tensor it makes is not
+    read after it, and it records no event."""
+    if pred.dtype != torch.bool or pred.numel() != 1 or not can_branch(pred):
+        raise ValueError("run_if takes a 1-element bool tensor on the device "
+                         "that capture() is capturing")
+    lib = _conditional_lib()
+    stream = ctypes.c_void_p(_routed_stream)
+    graph, node = ctypes.c_void_p(), ctypes.c_void_p()
+    _check(lib.graph_if_begin(stream, ctypes.c_void_p(pred.data_ptr()), ctypes.byref(graph),
+                              ctypes.byref(node)), "graph_if_begin")
+    try:
+        body()
+    finally:
+        _check(lib.graph_if_end(stream, graph, node), "graph_if_end")
 
 
 def capture_stats(passes) -> tuple:

@@ -356,14 +356,26 @@ def count(name: str, n=1) -> None:
     if not isinstance(n, torch.Tensor):
         R.counters[key] += n
         return
-    acc = R.device_counters.get((*key, n.device))
+    _accumulator(name, key, n.device).add_(n.to(torch.int64))
+
+
+def reserve(name: str, device) -> None:
+    """Makes counter ``name``'s accumulator of the outermost open span on
+    ``device`` while the recorder is on, for a later capture of a body that
+    counts into it but runs eagerly without a device count."""
+    if active():
+        _accumulator(name, (name, _REC.stack[0] if _REC.stack else None), torch.device(device))
+
+
+def _accumulator(name: str, key: tuple, device: torch.device) -> torch.Tensor:
+    acc = _REC.device_counters.get((*key, device))
     if acc is None:
-        if n.is_cuda and torch.cuda.is_current_stream_capturing():
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
             raise RuntimeError(f"count({name!r}): a device count first made inside a CUDA "
                                "graph capture; run the body eagerly once before capturing it")
-        acc = R.device_counters[(*key, n.device)] = torch.zeros((), dtype=torch.int64,
-                                                               device=n.device)
-    acc.add_(n.to(torch.int64))
+        acc = _REC.device_counters[(*key, device)] = torch.zeros((), dtype=torch.int64,
+                                                                device=device)
+    return acc
 
 
 def capture_mark() -> tuple:

@@ -1,9 +1,13 @@
 """The port's damped-Newton Laplace fit (betacores_tpu_torch/inference/
 laplace.py) and logistic-regression Laplace sampler against the JAX
-package's, in float64 on the same inputs. The port runs a fixed number of
-iterations and freezes its carry once the JAX while loop would have
-stopped, so mode and factors agree to atol 1e-9 (float64 round-off of
-the same Newton iterates)."""
+package's, in float64 on the same inputs. The port's eager loop runs a
+fixed number of iterations and freezes its carry once the JAX while loop
+would have stopped, so mode and factors agree to atol 1e-9 (float64
+round-off of the same Newton iterates). Its captured loop (conditional
+graph nodes, nested) runs here with a host stand-in for the node, and
+gives the eager loop's fit bit for bit on the cases of
+tests/laplace_cases.py; tests/test_torch_laplace_cuda.py replays it on
+the card."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,8 +17,10 @@ import torch
 from betacores_tpu.inference import laplace as jlaplace
 from betacores_tpu.inference.samplers import logreg_laplace_sampler as jsampler
 from betacores_tpu.models import logreg as jlogreg
+import laplace_cases as lc
 from betacores_tpu_torch.inference import laplace, logreg_laplace_sampler
 from betacores_tpu_torch.models import logreg
+from betacores_tpu_torch.utils import graphs, profiling
 
 torch.set_num_threads(1)
 ATOL = 1e-9
@@ -195,3 +201,50 @@ def test_indefinite_hessian_gives_the_reference_nan_factor(with_inverse):
         assert np.isnan(w).any()
         np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
         np.testing.assert_array_equal(g[~np.isnan(g)], w[~np.isnan(w)])
+
+
+@pytest.fixture
+def conditional_stand_in(monkeypatch):
+    """The captured loop on the CPU: ``can_branch`` says yes, and each
+    conditional body runs on the host only when its flag holds, as a replay
+    of its node would run it. Yields the flags, in the order the nodes were
+    reached."""
+    flags = []
+
+    def run_if(pred, body):
+        assert pred.dtype == torch.bool and pred.dim() == 0
+        flags.append(bool(pred))
+        if flags[-1]:
+            body()
+
+    monkeypatch.setattr(graphs, "can_branch", lambda x: True)
+    monkeypatch.setattr(graphs, "run_if", run_if)
+    yield flags
+    profiling.reset()
+
+
+@pytest.mark.parametrize("case,start", lc.CASES)
+def test_captured_loop_matches_the_fixed_count_loop(conditional_stand_in, monkeypatch, case,
+                                                    start):
+    """The in-place carry and the nested bodies give the fixed-count loop's
+    fit bit for bit, count the same iterations entered undone, execute
+    exactly those, stop at the first node whose flag is false, and leave
+    the caller's start as it was."""
+    with monkeypatch.context() as eager_loop:
+        eager_loop.setattr(graphs, "can_branch", lambda x: False)
+        refit = lc.case_refit(case, start, "cpu")
+        mu0 = refit.mu0.clone()
+        profiling.reset()
+        with profiling.recording():
+            eager = refit.fit()
+        needed, executed = lc.counts()
+    assert executed == refit.n_iters
+    lc.expect(start, needed, refit.n_iters)
+    assert not conditional_stand_in
+    profiling.reset()
+    with profiling.recording():
+        fit = refit.fit()
+    assert lc.same(fit, eager)
+    assert lc.counts() == (needed, needed)
+    assert conditional_stand_in == [True] * needed + [False] * (needed < refit.n_iters)
+    assert torch.equal(refit.mu0, mu0)
