@@ -172,3 +172,17 @@ def adam_step_bound(cfg: dict, route: dict, m: int, peaks) -> dict:
     M_pad = -(-int(route["buffer_slots"]) // 128) * 128
     R = -(-n_sub // 8) * 8 + M_pad
     return peaks.step_bound(R, d, S, M_pad, n_sub + m, m, TRANSFORM_OPS[True])
+
+
+def shard_step_bound(cfg: dict, route: dict, m: int, peaks) -> dict:
+    """K3's bound (peaks.shard_bound at the cell's shapes) on one data shard:
+    its share of the step's subsample padded to 8 rows and the buffer
+    padded to 128, its share of the S samples padded to 128 columns; live
+    rows are the share and the m live slots."""
+    d, S = int(cfg["d"]), int(cfg["projection_dim"])
+    n_data, n_samp = int(cfg["mesh"]["data"]), int(cfg["mesh"]["samp"])
+    n_sub, s_loc = route["n_opt"] // n_data, S // n_samp
+    M_pad = -(-int(route["buffer_slots"]) // 128) * 128
+    R = -(-n_sub // 8) * 8 + M_pad
+    return peaks.shard_bound(R, d, s_loc, -(-s_loc // 128) * 128, M_pad, n_sub + m, m,
+                             TRANSFORM_OPS[True])

@@ -1,19 +1,25 @@
 """Broken programs for the check's own tests and readings: the port with
-its timed path broken underneath, one fault each that a one-card cell can
-have. Each is an ``impl_factory`` of harness.run (cell, inputs, device).
+its timed path broken underneath, one fault each that a cell can have
+(``FAULTS`` on one card or several; ``MESH_FAULTS`` only over several).
+Each is an ``impl_factory`` of harness.run (cell, inputs, device).
 
 - ``unchanged``: the refinement pass returns its state unchanged.
 - ``half_batch``: half of each step's rows left out, the mean taken over
-  the rest (the second half of the rows repeats the first; on the exact
-  gradient, the first half of the rows counts twice and the rest not).
+  the rest (the second half of the rows repeats the first, in each data
+  shard's share; on the exact gradient, the first half of the rows counts
+  twice and the rest not).
 - ``altered``: the installed row (group) moved to the next one where
   select produces it.
 - ``duplicate``: select installs again the row (group) already in the
   buffer's first slots in place of its pick.
-
-The exchange between cards does not exist on one card."""
+- ``no_exchange``: over several cards, every collective of the mesh left
+  out: a sum over ranks returns this rank's own part, a gather this rank's
+  part in every rank's place. The exchange does not exist on one card.
+"""
 
 from __future__ import annotations
+
+import copy
 
 import torch
 
@@ -21,7 +27,7 @@ from . import harness
 
 
 def unchanged(cell, inputs, device):
-    port = harness.PortImpl(cell, inputs, device)
+    port = harness.system(cell)(cell, inputs, device)
     port.optimize = lambda st, it: st
     return port
 
@@ -29,9 +35,10 @@ def unchanged(cell, inputs, device):
 def half_batch(cell, inputs, device):
     if inputs.opt_idx is not None:
         idx = inputs.opt_idx.clone()
-        h = idx.shape[-1] // 2
-        idx[..., h:2 * h] = idx[..., :h]
-        return harness.PortImpl(cell, inputs._replace(opt_idx=idx), device)
+        shares = idx.view(*idx.shape[:-1], harness.data_shards(cell), -1)
+        h = shares.shape[-1] // 2
+        shares[..., h:2 * h] = shares[..., :h]
+        return harness.system(cell)(cell, inputs._replace(opt_idx=idx), device)
     port = harness.PortImpl(cell, inputs, device)
     N = inputs.data.shape[0]
     u = torch.zeros(N, dtype=inputs.data.dtype, device=inputs.data.device)
@@ -43,7 +50,7 @@ def half_batch(cell, inputs, device):
 def _reinstall(cell, inputs, device, rows_of):
     """The port whose select installs ``rows_of(core, m0, m1)`` in place of
     the rows it picked (None: its own pick)."""
-    port = harness.PortImpl(cell, inputs, device)
+    port = harness.system(cell)(cell, inputs, device)
     select, per, G = port.select, cell.route["group_rows"], cell.route["n_groups"]
 
     def select_broken(st, it):
@@ -80,4 +87,13 @@ def duplicate(cell, inputs, device):
                       lambda core, m0, m1: core.idcs[:m1 - m0].long() if m0 > 0 else None)
 
 
+def no_exchange(cell, inputs, device):
+    port = harness.system(cell)(cell, inputs, device)
+    mesh = port.builder.mesh = copy.copy(port.builder.mesh)
+    mesh.psum = lambda x, axis: x.clone(memory_format=torch.contiguous_format)
+    mesh.all_gather = lambda x, axis: torch.stack([x] * mesh.shape[axis])
+    return port
+
+
 FAULTS = {f.__name__: f for f in (unchanged, half_batch, altered, duplicate)}
+MESH_FAULTS = {**FAULTS, "no_exchange": no_exchange}

@@ -8,7 +8,9 @@ on a subsample or every row) and its limits (``limits/<cell>.json``). The
 family (``families/<family>.py``) makes the data, builds the system under
 test and gives the plain reference its model; each per-layer metric is read
 by ``metrics/<metric>.py``. Adding a cell or a metric adds such files and
-BENCHMARK.json entries; this file stays.
+BENCHMARK.json entries; this file stays. A cell over several cards
+(``chips`` above 1) runs this on every rank of a world that ranks.py
+starts, over the port's sharded builder (ranks.py::ShardedPortImpl).
 
 A run:
 
@@ -28,6 +30,12 @@ A run:
    in a span (CUDA events and a profiler range), and one whole selection,
    the window's second, is profiled.
 3. the check (compare.py), once the program is freed, and the result.
+
+Over several cards every rank makes the same data and draws and keeps its
+row block; the ranks start the window together, rank 0's clock ends it
+(the stop flag is shared at each selection boundary), the fullest card's
+peak is the run's, and rank 0 alone checks, once every rank has freed its
+program, on the whole dataset made again from the seed.
 """
 
 from __future__ import annotations
@@ -100,10 +108,12 @@ def _merge(base: dict, over: dict) -> dict:
 
 class Cell:
     """A workload of BENCHMARK.json with its files. ``overrides`` replaces
-    keys of the configuration (the CPU tests shrink it)."""
+    keys of the configuration (the CPU tests shrink it); ``bench`` and
+    ``limits`` stand in for BENCHMARK.json and the cell's limits file (a
+    cell the tests define)."""
 
     def __init__(self, name: str, bench: Optional[dict] = None,
-                 overrides: Optional[dict] = None):
+                 overrides: Optional[dict] = None, limits: Optional[dict] = None):
         bench = bench if bench is not None else load_json(REPO / "BENCHMARK.json")
         cells = {w["name"]: w for w in bench["workloads"]}
         if name not in cells:
@@ -111,9 +121,11 @@ class Cell:
         w = cells[name]
         entry = {c["name"]: c for c in bench["configs"]}[w["config"]]
         self.name, self.chips = name, int(w["chips"])
+        # this process's rank of a world over several cards (ranks.py), or None
+        self.world = None
         self.config = _merge(load_json(REPO / entry["file"]), overrides or {})
         self.traffic = load_json(HERE / "traffic" / f"{w['traffic']}.json")
-        self.limits = load_json(HERE / "limits" / f"{name}.json")
+        self.limits = limits if limits is not None else load_json(HERE / "limits" / f"{name}.json")
         self.family = import_module(f"{__package__}.families.{self.config['family']}")
         self.route = resolve_route(self.config, self.traffic)
         self.end_to_end = [m for m in bench["end_to_end"] if name in m.get("workloads", [name])]
@@ -132,12 +144,41 @@ class Inputs(NamedTuple):
     opt_idx: Optional[torch.Tensor]
 
 
+def data_shards(cell: Cell) -> int:
+    """The number of row blocks the data is split into: the mesh's data
+    axis over several cards, 1 on one."""
+    return int(cell.config["mesh"]["data"]) if cell.chips > 1 else 1
+
+
+def _generator(seed: int, device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed % (1 << 63))
+    return gen
+
+
+def make_data(cell: Cell, seed: int, device) -> torch.Tensor:
+    """The data of ``make_inputs`` alone (the first draw of its generator)."""
+    return cell.family.make_data(_generator(seed, device), cell.config)
+
+
+def _sharded_rows(cell: Cell, N: int, shape: tuple, kw: dict) -> torch.Tensor:
+    """Refinement rows over several cards: each data shard's share of every
+    step's subsample drawn as local indices into its equal row block, and
+    given as global rows, the shards' in order along the last axis."""
+    D = data_shards(cell)
+    if N % D or shape[-1] % D:
+        raise ValueError(f"{cell.name}: {N} rows and {shape[-1]} rows a step do not split "
+                         f"evenly over {D} data shards")
+    local = torch.randint(0, N // D, shape[:-1] + (D, shape[-1] // D), **kw)
+    first = (N // D) * torch.arange(D, device=local.device)[:, None]
+    return (local + first).reshape(shape)
+
+
 def make_inputs(cell: Cell, seed: int, device) -> Inputs:
     """Everything a run feeds the program, made on ``device`` from ``seed``
     in a few large calls: every seed gives the same sizes."""
     cfg, r, fam = cell.config, cell.route, cell.family
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed % (1 << 63))
+    gen = _generator(seed, device)
     data = fam.make_data(gen, cfg)
     M, T, S, p = r["selections"], r["opt_itrs"], int(cfg["projection_dim"]), fam.theta_dim(cfg)
     N = data.shape[0]
@@ -147,8 +188,18 @@ def make_inputs(cell: Cell, seed: int, device) -> Inputs:
     sel_idx = (None if r["n_select"] is None
                else torch.randint(0, n_cand, (M, r["n_select"]), **kw))
     opt_z = torch.randn((M, T, S, p), dtype=torch.float32, **kw)
-    opt_idx = None if r["n_opt"] is None else torch.randint(0, N, (M, T, r["n_opt"]), **kw)
+    if r["n_opt"] is None:
+        opt_idx = None
+    elif cell.chips > 1:
+        opt_idx = _sharded_rows(cell, N, (M, T, r["n_opt"]), kw)
+    else:
+        opt_idx = torch.randint(0, N, (M, T, r["n_opt"]), **kw)
     return Inputs(data, sel_z, sel_idx, opt_z, opt_idx)
+
+
+def fingerprint(inputs: Inputs) -> tuple:
+    """Each input's sum in float64: ranks that made the same inputs agree."""
+    return tuple(None if t is None else float(t.sum(dtype=torch.float64)) for t in inputs)
 
 
 def _draw(inputs: Inputs, it: int):
@@ -161,11 +212,29 @@ class PortImpl:
     the cell's route, fed the benchmark's draws through ``FixedDraws``."""
 
     def __init__(self, cell: Cell, inputs: Inputs, device):
-        from betacores_tpu_torch.coresets import (FixedDraws, IncrementalConfig,
-                                                  init_group_state, init_state,
+        from betacores_tpu_torch.coresets import (init_group_state,
                                                   make_group_incremental_builder,
                                                   make_incremental_builder)
         from betacores_tpu_torch.ops.projection import Groups
+
+        r = cell.route
+        ic, model, sampler, core0 = self.parts(cell, device)
+        if r["groups"]:
+            G, per = r["n_groups"], r["group_rows"]
+            groups = Groups(members=torch.arange(G * per, device=device).reshape(G, per),
+                            sizes=torch.full((G,), per, dtype=torch.int64, device=device))
+            self.builder = make_group_incremental_builder(inputs.data, groups, model, sampler, ic)
+            self.st0 = init_group_state(core0, G)
+        else:
+            self.builder = make_incremental_builder(inputs.data, model, sampler, ic)
+            self.st0 = core0
+        self.draws = self.replay(inputs, r["selections"])
+
+    @staticmethod
+    def parts(cell: Cell, device) -> tuple:
+        """(IncrementalConfig of the cell's route, model, sampler, the empty
+        point state) of the port."""
+        from betacores_tpu_torch.coresets import IncrementalConfig, init_state
 
         cfg, r, fam = cell.config, cell.route, cell.family
         ic = IncrementalConfig(projection_dim=int(cfg["projection_dim"]),
@@ -176,18 +245,15 @@ class PortImpl:
         core0 = init_state(r["buffer_slots"], fam.row_dim(cfg), beta=float(cfg["beta"]),
                            sampler_aux=torch.zeros(fam.theta_dim(cfg), device=device),
                            device=device)
-        if r["groups"]:
-            G, per = r["n_groups"], r["group_rows"]
-            groups = Groups(members=torch.arange(G * per, device=device).reshape(G, per),
-                            sizes=torch.full((G,), per, dtype=torch.int64, device=device))
-            self.builder = make_group_incremental_builder(inputs.data, groups, model, sampler, ic)
-            self.st0 = init_group_state(core0, G)
-        else:
-            self.builder = make_incremental_builder(inputs.data, model, sampler, ic)
-            self.st0 = core0
-        M = r["selections"]
+        return ic, model, sampler, core0
+
+    @staticmethod
+    def replay(inputs: Inputs, M: int):
+        """``FixedDraws`` of the build's M selections."""
+        from betacores_tpu_torch.coresets import FixedDraws
+
         pairs = [_draw(inputs, i) for i in range(M)]
-        self.draws = FixedDraws([s for s, _ in pairs], [o for _, o in pairs])
+        return FixedDraws([s for s, _ in pairs], [o for _, o in pairs])
 
     def select(self, st, it: int):
         return self.builder.select(st, self.draws, it)
@@ -200,6 +266,15 @@ class PortImpl:
 
     def close(self) -> None:
         self.builder = self.draws = self.st0 = None
+
+
+def system(cell: Cell):
+    """The class of the system under test of ``cell``: the sharded builder
+    over several cards, PortImpl on one."""
+    if cell.chips > 1:
+        from .ranks import ShardedPortImpl
+        return ShardedPortImpl
+    return PortImpl
 
 
 def make_reference(cell: Cell, data, dtype) -> Reference:
@@ -274,8 +349,10 @@ class Window(NamedTuple):
 
 
 def drive(cell: Cell, impl, seconds: float, device, traced: bool, seed: int,
-          min_selections: int = 1) -> Window:
-    """The measured window (module docstring)."""
+          min_selections: int = 1, agree=None) -> Window:
+    """The measured window (module docstring). ``agree`` (over several
+    cards) turns this rank's decision to stop at a selection boundary into
+    the world's: rank 0's."""
     M = cell.route["selections"]
     on_card = device.type == "cuda"
     prof = tracing.Profiled(device) if traced else None
@@ -315,7 +392,10 @@ def drive(cell: Cell, impl, seconds: float, device, traced: bool, seed: int,
         if it == M:
             st, it = impl.st0, 0
         tracing_open = prof is not None and n <= PROFILED
-        if time.perf_counter() >= deadline and n >= min_selections and not tracing_open:
+        stop = time.perf_counter() >= deadline and n >= min_selections and not tracing_open
+        if agree is not None:
+            stop = agree(stop)
+        if stop:
             break
     _sync(device)
     t1 = time.perf_counter()
@@ -329,6 +409,7 @@ class RunData:
 
     def __init__(self, cell: Cell, window: Window, capture: tuple):
         self.config, self.route, self.family = cell.config, cell.route, cell.family
+        self.chips = cell.chips
         self.window, self.capture, self.live = window, capture, window.live
         self.window_s = window.seconds
         self.trace = window.trace
@@ -414,20 +495,28 @@ def card_line() -> str:
 
 
 def run(cell: Cell, seed: int, seconds: float, traced: bool, t_start: float,
-        device="cuda", impl_factory=None, log=None, witness: bool = False) -> dict:
+        device="cuda", impl_factory=None, log=None, witness: bool = False) -> Optional[dict]:
     """One run of ``cell``; returns the result line's object. ``impl_factory``
     (cell, inputs, device) puts another implementation in the program's
-    place (the control; a test's broken program)."""
+    place (the control; a test's broken program). Over several cards
+    (``cell.world``) every rank calls this at once; rank 0 returns the
+    result, the others None."""
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
     device = torch.device(device)
     on_card = device.type == "cuda"
+    world = cell.world
     torch.set_float32_matmul_precision("highest")      # float32, TF32 off
     torch.manual_seed(seed % (1 << 63))
     marks = [("start", t_start), ("imports", time.perf_counter())]
     inputs = make_inputs(cell, seed, device)
+    if world is not None:
+        made = fingerprint(inputs)
+        world.same(made)                                # every rank made the same inputs
     _sync(device)
     marks.append(("inputs", time.perf_counter()))
-    impl = (impl_factory or PortImpl)(cell, inputs, device)
+    impl = (impl_factory or system(cell))(cell, inputs, device)
+    if world is not None:
+        inputs = inputs._replace(data=None)             # a rank keeps its row block only
     _sync(device)
     marks.append(("builder", time.perf_counter()))
     warm = impl.select(impl.st0, 0)                     # builds, buffers, the graph capture
@@ -440,10 +529,34 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, t_start: float,
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     setup_s = time.perf_counter() - t_start
+    if world is not None:
+        world.window_opens(seconds)
     window = drive(cell, impl, seconds, device, traced, seed,
-                   min_selections=int(cell.traffic["compare_selections"]))
+                   min_selections=int(cell.traffic["compare_selections"]),
+                   agree=None if world is None else world.agree)
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     run_data = RunData(cell, window, capture)
+    count, per_rank = 1, None
+    traced_s = None if window.trace is None else (run_data.busy_s, window.trace.wall_s)
+    if world is not None:
+        # each rank's trace is its own card's: busy and traced time are averaged
+        ends = world.gather((window.n, peak, traced_s, forbidden_modules()))
+        n_by_rank = [e[0] for e in ends]
+        if len(set(n_by_rank)) != 1:
+            raise RuntimeError(f"the ranks ran {n_by_rank} selections in the window")
+        count, peak = world.size, max(e[1] for e in ends)
+        if traced_s is not None:
+            traced_s = tuple(sum(e[2][k] for e in ends) / world.size for k in (0, 1))
+        per_rank = {"selections": n_by_rank, "memory_peak_bytes": [e[1] for e in ends],
+                    "forbidden": [e[3] for e in ends]}
+        if not world.root:
+            impl.close()
+            del impl, run_data
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+            world.program_freed()
+            return None
     e2e = {"selection_ms": 1e3 * window.seconds / window.n,
            "peak_mem_gib": peak / 2 ** 30, "setup_s": setup_s}
     log("set-up: " + ", ".join(f"{name} {b - a:.3f} s" for (_, a), (name, b)
@@ -466,12 +579,11 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, t_start: float,
                    for m in cell.end_to_end}
     device_rec = {"platform": "gpu" if on_card else device.type,
                   "kind": torch.cuda.get_device_name(device) if on_card else "cpu",
-                  "count": 1, "memory_peak_bytes": int(peak)}
+                  "count": count, "memory_peak_bytes": int(peak)}
     result = {"correct": False, "attempted": window.n, "failed": 0, "metrics": metrics,
               "device": device_rec}
     if traced and window.trace is not None:
-        device_rec["busy_s"] = run_data.busy_s
-        device_rec["window_s"] = window.trace.wall_s
+        device_rec["busy_s"], device_rec["window_s"] = traced_s
         result["breakdown"] = tracing.breakdown(window.trace)
     if on_card:
         log(f"card: {card_line()}")
@@ -482,6 +594,11 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, t_start: float,
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
+    if world is not None:
+        world.program_freed()
+        inputs = inputs._replace(data=make_data(cell, seed, device))
+        if float(inputs.data.sum(dtype=torch.float64)) != made[0]:
+            raise RuntimeError("the data made again for the check differs from the run's")
     t_check = time.perf_counter()
     checks, read, compared, failed = check(cell, inputs, window, log, witness)
     log(f"check of {compared} selections took {time.perf_counter() - t_check:.3f} s")
@@ -489,5 +606,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, t_start: float,
         math.isfinite(v) and v <= lim for v, lim in checks.values())
     result["failed"] = failed
     result["readings"] = read
+    if per_rank is not None:
+        result["ranks"] = per_rank
     result["checks"] = {k: {"value": v, "limit": lim} for k, (v, lim) in checks.items()}
     return result

@@ -12,6 +12,9 @@ ReferenceImpl), the precision below the configuration's; the name of a
 fault of faults.py runs the program broken by it. A run is as
 ``run.py`` makes it, window and check included; the set-up is shorter
 after the first seed, whose imports and kernel loads the others share.
+A cell over several cards runs the program and its faults on one world of
+ranks (ranks.py) for all the seeds, and the control, which is the
+single-device reference, in this process on one card.
 """
 
 import argparse
@@ -44,22 +47,43 @@ def main(argv=None) -> int:
     seconds = args.seconds
     if seconds is None:
         seconds = harness.load_json(harness.REPO / "BENCHMARK.json")["run_seconds"]
-    factories = {"port": None, "control": harness.ReferenceImpl, **faults.FAULTS}
+    factories = {"port": None, "control": harness.ReferenceImpl, **faults.MESH_FAULTS}
     if args.impl not in factories:
         print(f"readings.py: no implementation {args.impl!r}: {sorted(factories)}",
               file=sys.stderr)
         return 2
     factory = factories[args.impl]
-    for seed in (int(s) for s in args.seeds.split(",")):
-        cell = harness.Cell(args.workload)
-        t0 = time.perf_counter()
-        res = harness.run(cell, seed, seconds, False, t0, impl_factory=factory,
-                          witness=args.witness)
-        print(json.dumps({"workload": cell.name, "impl": args.impl, "seed": seed,
+    seeds = [int(s) for s in args.seeds.split(",")]
+    t0 = time.perf_counter()
+
+    def report(seed, impl, res):
+        nonlocal t0
+        print(json.dumps({"workload": args.workload, "impl": args.impl, "seed": seed,
                           "correct": res["correct"], "readings": res["readings"],
                           "checks": res["checks"], "attempted": res["attempted"],
                           "metrics": {k: v["value"] for k, v in res["metrics"].items()},
                           "seconds": time.perf_counter() - t0}), flush=True)
+        t0 = time.perf_counter()
+
+    cell = harness.Cell(args.workload)
+    if cell.chips > 1 and args.impl != "control":
+        from benchmark import ranks
+
+        if torch.cuda.device_count() < cell.chips:
+            print(f"readings.py: {cell.name} needs {cell.chips} CUDA devices", file=sys.stderr)
+            return 2
+        job = ranks.Job({"name": cell.name}, [(seed, factory) for seed in seeds], seconds,
+                        False, witness=args.witness)
+        ranks.serve(job, t0, on_result=report)
+        return 0
+    if args.impl in faults.MESH_FAULTS and args.impl not in faults.FAULTS:
+        print(f"readings.py: {args.impl} needs a cell over several cards", file=sys.stderr)
+        return 2
+    for seed in seeds:
+        cell = harness.Cell(args.workload)
+        res = harness.run(cell, seed, seconds, False, t0, impl_factory=factory,
+                          witness=args.witness)
+        report(seed, factory, res)
         torch.cuda.empty_cache()
     return 0
 

@@ -38,6 +38,10 @@ import torch
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 LINE_SEARCH = tuple(0.5 ** k for k in range(8))
+# a select over every row holds its candidates' (N, S) projections whole up
+# to this many bytes; beyond it, it makes them twice, block by block (their
+# sum, then each row's score)
+WHOLE_BYTES = 8 << 30
 # the Newton stopping tolerance of the configuration's dtype (the decrement
 # g . (-H)^-1 g against tol * (1 + |log joint|))
 NEWTON_TOL = {"float32": 1e-5, "float64": 1e-7}
@@ -200,12 +204,19 @@ class Reference:
         m, M_max, S = st.m, st.wts.shape[0], self.S
         core = self.project(st.pts[:m], th, st.beta)
         w = st.wts[:m]
+        vecs = None
         if self.groups is not None:
             G, per = self.groups
             gvecs = self.group_sums(th, st.beta)
             cand = torch.arange(G, device=gvecs.device) if idx is None else idx
             vecs = gvecs if idx is None else gvecs[idx]
             scaling = 1.0 if idx is None else G / idx.shape[0]
+        elif idx is None and self.data.shape[0] * S * self.data.element_size() > WHOLE_BYTES:
+            cand = torch.arange(self.data.shape[0], device=self.data.device)
+            resid = self.project_sum(th, st.beta) - w @ core
+            scores = torch.cat([self._scores(center(self.fam.beta_likelihood(
+                self.data[i:i + self.block], th, st.beta)), resid)
+                for i in range(0, self.data.shape[0], self.block)])
         elif idx is None:
             cand = torch.arange(self.data.shape[0], device=self.data.device)
             vecs, scaling = self.project(self.data, th, st.beta), 1.0
@@ -213,9 +224,9 @@ class Reference:
             cand = idx
             vecs = self.project(self.data[idx], th, st.beta)
             scaling = self.data.shape[0] / idx.shape[0]
-        resid = scaling * vecs.sum(0) - w @ core
-        vn = torch.sqrt((vecs * vecs).sum(1))
-        scores = (vecs @ resid) / torch.where(vn > 0, vn, torch.inf) / S
+        if vecs is not None:
+            resid = scaling * vecs.sum(0) - w @ core
+            scores = self._scores(vecs, resid)
         size = 1 if self.groups is None else self.groups[1]
         if self.groups is not None:
             # groups that do not fit the remaining room never win
@@ -237,6 +248,11 @@ class Reference:
         new = new._replace(aux=lap.mu)
         return SelectOutcome(cand, scores, f, add, take_new, fits and not already and m > 0,
                              core_max, new)
+
+    def _scores(self, vecs, resid) -> torch.Tensor:
+        """Each candidate's correlation with the residual."""
+        vn = torch.sqrt((vecs * vecs).sum(1))
+        return (vecs @ resid) / torch.where(vn > 0, vn, torch.inf) / self.S
 
     def _install(self, st: RefState, f: int, size: int) -> RefState:
         m = st.m

@@ -3,15 +3,19 @@
     python3 benchmark/run.py --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
 Run from the root of a checkout that holds the port (betacores_tpu_torch).
-It measures the port on one NVIDIA card and imports neither JAX nor the
-JAX package. Without a card (or with fewer than the cell asks for) it exits
-2 and prints no result. The last line of standard output is one JSON
-object: ``correct``, ``attempted`` (selections in the window), ``failed``
-(compared selections that failed), ``metrics`` (the cell's end-to-end
-metrics, or with ``--trace 1`` its per-layer ones), ``device``, with
-``--trace 1`` ``breakdown``, and last ``checks``: each number compared
-with its limit, which also close standard error. harness.py describes a
-run, compare.py the check.
+It measures the port on the NVIDIA cards the cell asks for (over several,
+this process is rank 0 of a world it starts: ranks.py) and imports neither
+JAX nor the JAX package, in any rank. Without a card (or with fewer than
+the cell asks for) it exits 2 and prints no result; when another rank
+fails it exits non-zero (ranks.FAILED) and prints no result. The last line
+of standard output is one JSON object: ``correct``, ``attempted``
+(selections in the window), ``failed`` (compared selections that failed),
+``metrics`` (the cell's end-to-end metrics, or with ``--trace 1`` its
+per-layer ones), ``device``, with ``--trace 1`` ``breakdown``, over
+several cards ``ranks`` (each rank's selections, peak memory and loaded
+forbidden modules), and last ``checks``: each number compared with its
+limit, which also close standard error. harness.py describes a run,
+compare.py the check.
 """
 
 import time
@@ -51,8 +55,16 @@ def main(argv=None) -> int:
               f"torch.cuda.is_available() is {torch.cuda.is_available()}, "
               f"device_count() is {torch.cuda.device_count()}", file=sys.stderr)
         return 2
-    result = harness.run(cell, args.seed, args.seconds, bool(args.trace), T_START)
-    bad = harness.forbidden_modules()
+    if cell.chips > 1:
+        from benchmark import ranks
+
+        job = ranks.Job({"name": cell.name}, [(args.seed, None)], args.seconds,
+                        bool(args.trace))
+        result = ranks.serve(job, T_START)[0]
+    else:
+        result = harness.run(cell, args.seed, args.seconds, bool(args.trace), T_START)
+    bad = sorted(set(harness.forbidden_modules()).union(
+        *result.get("ranks", {}).get("forbidden", [])))
     if bad:
         print(f"run.py: modules loaded that the benchmark may not load: {bad}", file=sys.stderr)
         return 3

@@ -60,3 +60,38 @@ def test_busy_union_and_breakdown():
     assert got["device_ops"][0] == ["b", pytest.approx(15e-9)]
     assert got["idle_gaps"][:2] == [["total.select", pytest.approx(10e-9)],
                                    ["total.refine", pytest.approx(1e-9)]]
+
+
+def test_shard_bound_at_k3_shape():
+    # the headline's K3 launch: 200 subsample rows + a 128-slot buffer, S = 100
+    # in 128 columns, d = 10, 60 live slots
+    got = peaks.shard_bound(328, 10, 100, 128, 128, 260, 60, 17)
+    assert got["flops"] == 20_000 + 260 * 100 * 39 + 60 * 400 == 1_058_000
+    # (rows, noise, mu, L^-1) + (w, beta in; colsum, wcore, core, corerow out)
+    assert got["bytes"] == (4 * (328 * 11 + 1000 + 10 + 100)
+                            + 4 * (128 + 1 + 2 * 128 + 128 * 128 + 128)) == 86_460
+    assert got["bound_by"] == "bytes"
+    assert got["bound_ms"] == pytest.approx(86_460 / 3.35e12 * 1e3)
+
+
+def test_k3_bound_at_the_sharded_configuration():
+    cfg = harness.load_json(harness.REPO / "benchmark/configs/logreg_n67m_d10_mesh4x1.json")
+    traffic = harness.load_json(harness.HERE / "traffic" / "full_select.json")
+    route = harness.resolve_route(cfg, traffic)
+    # 50 rows a shard padded to 56, the 128-slot buffer, 40 live slots
+    got = logreg.shard_step_bound(cfg, route, 40, peaks)
+    assert got == peaks.shard_bound(184, 10, 100, 128, 128, 90, 40, 17)
+
+
+def test_collective_time_is_the_union_of_the_nccl_kernels():
+    from types import SimpleNamespace
+
+    from benchmark.metrics import collective_ms
+
+    ops = [("ncclDevKernel_AllReduce_Sum_f32_RING_LL(x)", 0, 4_000_000),
+           ("ncclDevKernel_AllGather_RING_LL(x)", 2_000_000, 5_000_000),
+           ("void logreg_shard_partials_kernel<10>", 5_000_000, 9_000_000)]
+    run = SimpleNamespace(trace=trace.TraceData(ops, [], 1e-2), profiled=[(3, 4)])
+    assert collective_ms.read(run) == pytest.approx(5.0)
+    run.trace = trace.TraceData(ops[2:], [], 1e-2)
+    assert collective_ms.read(run) is None

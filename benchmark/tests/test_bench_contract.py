@@ -104,6 +104,9 @@ def test_workloads():
         assert NAME.match(w["traffic"])
         cell = harness.Cell(w["name"], bench=BENCH)
         assert set(cell.limits) <= set(harness.NUMBERS) and "select_gap" in cell.limits
+        if w["chips"] > 1:     # one rank a card
+            mesh = cell.config["mesh"]
+            assert mesh["data"] * mesh["samp"] == w["chips"]
 
 
 def _reported(metric: dict) -> set:
