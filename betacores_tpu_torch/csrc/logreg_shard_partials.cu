@@ -3,15 +3,22 @@
 //
 // Replaces the TPU kernel
 //   betacores_tpu/ops/pallas_kernels.py::_logreg_shard_partials_kernel
-// (wrapper logreg_shard_step_partials). Same function, not the same
-// blocking:
+// (wrapper logreg_shard_step_partials). The same step, not the same
+// blocking, and each row shifted:
 //   1. theta = z @ L^-1 + mu for this shard's S sample columns
 //   2. margins m = -x . theta over the packed rows [local subsample;
-//      coreset buffer], the (beta-)log-likelihood transform and the row
+//      coreset buffer], the (beta-)log-likelihood transform, less the
+//      row's own value at the mode mu (margin -x . mu), times the row
 //      mask; NO centring (the mean is over the whole sample axis, which is
 //      split across ranks)
 //   3. colsum = column sums of the subsample rows, core = the buffer block,
 //      corerow = the row sums of core, wcore = w . core
+// The shift is a constant per row, so it drops out of the centred values
+// and the builder's uncentred identity is exact with it; without it the
+// sums carry every row's common level, which the builder scales by N / n
+// (3.4e5 at 2^26 rows and 50 a card a step), and float32 would keep too
+// few digits of the spread over samples, the gradient's signal. The TPU
+// kernel sums the raw values.
 // The collectives and the Adam epilogue run outside, in
 // betacores_tpu_torch/parallel/sharded.py.
 //
@@ -37,7 +44,7 @@
 // Layout (all float32, row-major, contiguous):
 //   xin   (R, d+1)   rows [x | mask]: R = n_sub_pad + M_pad, subsample first
 //   z     (s_pad, d) noise columns; rows from S on are ignored
-//   mu    (d)        Laplace mode;  linv (d, d) = L^-1
+//   mu    (d)        Laplace mode (the shift's point);  linv (d, d) = L^-1
 //   w     (M_pad)    coreset weights
 //   sc    (1)        [beta], read by the kernel, never on the host
 // Outputs: colsum (s_pad), core (M_pad, s_pad), corerow (M_pad),
@@ -55,10 +62,19 @@ using namespace bcores;
 
 size_t smem_floats(int R, int d, int S, int M_pad, int C) {
   // thT + per-warp subsample column sums + per-warp w . core partials
-  // + a batch of the CTA's rows + the w of its slots
+  // + a batch of the CTA's rows + the w of its slots + mu
   const int n_core = ceil_div(M_pad, C);
   const int n_rows = std::min(kStageRows, ceil_div(R - M_pad, C) + n_core);
-  return (size_t)d * S + 2 * (size_t)kWarps * S + (size_t)n_rows * (d + 1) + n_core;
+  return (size_t)d * S + 2 * (size_t)kWarps * S + (size_t)n_rows * (d + 1) + n_core + d;
+}
+
+// The row's (beta-)log-likelihood at the mode, ll(-x . mu): every lane of
+// the warp forms the same value (mu in shared memory, read as a broadcast).
+__device__ __forceinline__ float mode_value(const float* xr, const float* mus, int d,
+                                            const Likelihood& ll) {
+  float dot = 0.f;
+  for (int j = 0; j < d; ++j) dot = fmaf(xr[j], mus[j], dot);
+  return ll(-dot);
 }
 
 template <int D>
@@ -88,6 +104,7 @@ logreg_shard_partials_kernel(const float* __restrict__ xin,
   float* pw = pc + kWarps * S;         // (kWarps, S): w . core partials
   float* xs = pw + kWarps * S;         // (<= kStageRows, d+1): a batch of rows
   float* ws = xs + min(kStageRows, ceil_div(n_sub_pad, C) + ceil_div(M_pad, C)) * D1;
+  float* mus = ws + ceil_div(M_pad, C);  // (d): mu
   // after the row pass: the CTA's partials, read by its peers, in place
   float* csum = pc;                    // (S): subsample column sums
   float* wsum = pw;                    // (S): w . core
@@ -99,6 +116,7 @@ logreg_shard_partials_kernel(const float* __restrict__ xin,
   const Likelihood ll(sc[0], use_beta);
   stage_theta<D>(z, mu, linv, d, S, thT);
   for (int e = tid; e < 2 * kWarps * S; e += kThreads) pc[e] = 0.f;  // pc and pw
+  for (int j = tid; j < d; j += kThreads) mus[j] = mu[j];
   cp_async_wait_all();
   __syncthreads();
   Theta<D> th;
@@ -113,11 +131,12 @@ logreg_shard_partials_kernel(const float* __restrict__ xin,
     const int m = is_core ? sp.slot(i - sp.n_sub) : 0;
     float* cr = core + (size_t)m * s_pad;
     if (msk != 0.f) {  // warp-uniform branch
+      const float v0 = mode_value(xr, mus, d, ll);
       if (is_core) {
         const float wm = ws[i - sp.n_sub];
         float rs = 0.f;
         row_values<D>(xr, th, thT, d, S, ll, lane, [&](int s, float v) {
-          v *= msk;
+          v = (v - v0) * msk;
           cr[s] = v;
           rs += v;
           pww[s] = fmaf(wm, v, pww[s]);
@@ -126,7 +145,7 @@ logreg_shard_partials_kernel(const float* __restrict__ xin,
         if (lane == 0) corerow[m] = rs;
       } else {
         row_values<D>(xr, th, thT, d, S, ll, lane,
-                      [&](int s, float v) { pcw[s] += v * msk; });
+                      [&](int s, float v) { pcw[s] += (v - v0) * msk; });
       }
     } else if (is_core) {
       for (int s = lane; s < S; s += 32) cr[s] = 0.f;

@@ -18,7 +18,8 @@ captured in a CUDA graph is counted at every replay (utils/graphs.py).
   plan (theta in registers or in shared memory, live threads, rows per
   tile) is mirrored by ``mc_plan``, its walk over a tile by ``mc_work``.
 - ``logreg_shard_step_partials`` (K3): the shard-local, uncentred half of
-  one sharded refinement step in one launch of one thread-block cluster
+  one sharded refinement step (each row's values shifted by its value at
+  the Laplace mode) in one launch of one thread-block cluster
   (CUDA C++, csrc/logreg_shard_partials.cu); plain version
   ``logreg_shard_step_partials_plain``. The sharded builder
   (parallel/sharded.py) combines its partials across ranks.
@@ -449,9 +450,9 @@ counted(multiclass_projection)
 def logreg_shard_step_partials_plain(xin, z, mu, linv, w_row, sc, s_true: int,
                                      use_beta: bool = False):
     """(colsum, core, corerow, wcore) of ``logreg_shard_step_partials`` in
-    plain PyTorch: theta = z[:s_true] @ L^-1 + mu, the uncentred
-    (beta-)log-likelihoods of the packed rows times the row mask, the
-    sample columns from s_true to z's row count zero."""
+    plain PyTorch: theta = z[:s_true] @ L^-1 + mu, the (beta-)log-likelihoods
+    of the packed rows less each row's own at the mode mu, times the row
+    mask, the sample columns from s_true to z's row count zero."""
     from ..models import logreg
 
     d = xin.shape[1] - 1
@@ -459,9 +460,9 @@ def logreg_shard_step_partials_plain(xin, z, mu, linv, w_row, sc, s_true: int,
     n_sub_pad = xin.shape[0] - M_pad
     th = z[:s_true] @ linv + mu                                   # (s_true, d)
     x, msk = xin[:, :d], xin[:, d:]
-    ll = (logreg.beta_likelihood(x, th, sc[0]) if use_beta
-          else logreg.log_likelihood(x, th))
-    vals = F.pad(ll * msk, (0, z.shape[0] - s_true))              # (R, s_pad)
+    lik = ((lambda t: logreg.beta_likelihood(x, t, sc[0])) if use_beta
+           else (lambda t: logreg.log_likelihood(x, t)))
+    vals = F.pad((lik(th) - lik(mu)) * msk, (0, z.shape[0] - s_true))   # (R, s_pad)
     sub, core = vals[:n_sub_pad], vals[n_sub_pad:]
     return (sub.sum(dim=0, keepdim=True), core, core.sum(dim=1)[None, :],
             w_row @ core)
@@ -501,9 +502,14 @@ def logreg_shard_step_partials(xin, z, mu, linv, w_row, sc, s_true: int,
     d+1) rows [x | mask], subsample rows first; z (s_pad >= s_true, d) this
     shard's pre-drawn noise columns (rows from s_true on are ignored);
     mu (1, d) and linv (d, d) of the current Laplace fit; w_row (1, M_pad);
-    sc = [beta]. colsum sums the subsample rows, core is the uncentred
-    buffer block, corerow its row sums and wcore = w_row @ core; columns
-    from s_true on are 0."""
+    sc = [beta]. Each row's value is its (beta-)log-likelihood less that
+    row's own at mu: a constant per row, which drops out of the values
+    centred over the sample axis, so the sharded builder's uncentred
+    identity holds exactly, while the sums no longer carry the rows' common
+    level (N / n times a row's likelihood once scaled), whose float32
+    rounding would swamp the spread over samples. colsum sums the subsample
+    rows, core is the buffer block, corerow its row sums and wcore =
+    w_row @ core; columns from s_true on are 0."""
     if xin.device.type == "cpu":
         return logreg_shard_step_partials_plain(xin, z, mu, linv, w_row, sc,
                                                 s_true, use_beta)

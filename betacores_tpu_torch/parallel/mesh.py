@@ -17,6 +17,12 @@ mesh, both axes at once, in rank order (the lane split of the reference's
 Shapley permutations). The collectives go through ``torch.distributed``
 even on an axis of size 1; a backend that cannot serve a tensor's device
 raises instead of copying through the host.
+
+While the program's recorder is on (utils/profiling.py), each collective
+also counts ``mesh.collectives`` (one a call) and ``mesh.bytes`` (the
+bytes this rank contributes: the summed tensor, or its own part of a
+gather). A collective captured in a CUDA graph is counted at each replay,
+as ``calls`` is (utils/graphs.py).
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from ..utils import profiling
 
 DATA_AXIS = "data"
 SAMP_AXIS = "samp"
@@ -79,6 +87,7 @@ class Mesh:
         out = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, group=self._group(axis, x))
         self.calls["psum"] += 1
+        _count(out)
         return out
 
     def all_gather(self, x: torch.Tensor, axis) -> torch.Tensor:
@@ -90,7 +99,14 @@ class Mesh:
         parts = [torch.empty_like(x) for _ in range(self.shape[axis])]
         dist.all_gather(parts, x, group=group)
         self.calls["all_gather"] += 1
+        _count(x)
         return torch.stack(parts)
+
+
+def _count(x: torch.Tensor) -> None:
+    """One collective to which this rank gave ``x``, on the recorder."""
+    profiling.count("mesh.collectives")
+    profiling.count("mesh.bytes", x.numel() * x.element_size())
 
 
 def require_axes(mesh) -> Tuple[int, int]:

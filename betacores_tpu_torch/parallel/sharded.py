@@ -21,8 +21,9 @@ The refinement takes one of three routes, as in the reference:
   * fused: a model with shard partials (logistic regression, K3:
     ops/kernels.py::logreg_shard_step_partials) on an unweighted build with
     a Laplace-family sampler runs each Adam step as one Newton refit, one
-    K3 launch, a psum over ``data`` of the column sums, one packed psum over
-    ``samp`` and an O(M) Adam epilogue;
+    K3 launch (each row's likelihoods less its own at the refit's mode), a
+    psum over ``data`` of the column sums, one packed psum over ``samp``
+    and an O(M) Adam epilogue;
   * composed: any other model, or a weighted build, through
     utils/opt.py::nn_adam on pre-drawn noise and rows;
   * per step: full-data refinement (``n_subsample_opt=None``) projects
@@ -55,8 +56,13 @@ single-device builder (coresets/incremental.py): static buffers
 all-reduces included, captured as a CUDA graph and replayed
 (utils/graphs.py; ``graph=None`` captures on a CUDA device, ``False`` runs
 the same body eagerly, ``True`` off a CUDA device raises). A replay adds
-the collectives its graph holds to ``mesh.calls``. The composed and
+the collectives its graph holds to ``mesh.calls`` (and, while the
+program's recorder is on, to its ``mesh.*`` counters). The composed and
 per-step routes and select stay eager.
+
+``optimize`` is the program's ``refine`` span (utils/profiling.py), as
+the single-device builder's is: the refits' ``newton`` spans and counters
+and the step's collective counters sit under it.
 """
 
 from __future__ import annotations
@@ -70,6 +76,7 @@ from ..coresets.incremental import (BETA_FLOOR, Draws, IncrementalConfig, laplac
                                    noise_split, require_lagged_fit)
 from ..coresets.state import CoresetState
 from ..ops.kernels import ADAM_B1, ADAM_B2, ADAM_EPS, FusedPass, adam_sclr_stack
+from ..utils import profiling
 from ..utils.graphs import PassRunner, capture_stats, resolve_graph
 from ..utils.opt import adam_bias_corrections, adam_update, nn_adam, step_schedule
 from .mesh import DATA_AXIS, SAMP_AXIS, Mesh, require_axes
@@ -289,6 +296,7 @@ class ShardedIncrementalBuilder:
 
     # ---- optimize ----
 
+    @profiling.spanned("refine")
     def optimize(self, st: CoresetState, draws: Draws, it: int = 0) -> CoresetState:
         """Reference sharded.py:242-451 on pre-drawn draws."""
         if self.route == "fused":
@@ -302,8 +310,11 @@ class ShardedIncrementalBuilder:
     def _optimize_fused(self, st: CoresetState, draws: Draws, it: int) -> CoresetState:
         """One Newton refit, one K3 launch, two psums and the Adam epilogue
         per step, on the pass's static buffers. K3 skips the centring (the
-        mean is over the sharded S axis); the gradient uses the exact
-        uncentred identity g = -(a - (r / S) * b) / S."""
+        mean is over the sharded S axis) and gives each row's values less
+        its own at the refit's mode, a constant per row that the centred
+        values do not hold: the gradient uses the exact uncentred identity
+        g = -(a - (r / S) * b) / S, whose operands then keep float32's
+        digits whatever the target's scale N / n."""
         mesh, data, S, S_loc = self.mesh, self.data, self.S, self.S_loc
         f32 = torch.float32
         z_all, idx_all = draws.optimize(it, st)

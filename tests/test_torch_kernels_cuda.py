@@ -21,7 +21,8 @@ magnitude (atol = rtol = 2e-4 relative to it), as chip_smoke.py holds them.
 
 ``step_operands`` builds the padded operands of tests/test_pallas_kernels.py
 and is shared with test_torch_kernels.py; ``shard_operands`` those of K3,
-shared with test_torch_shard_kernel.py.
+and ``shard_step_at_scale`` one K3 step of a build over 2^26 rows with its
+float64 centred gradient, shared with test_torch_shard_kernel.py.
 
 K1 and K3 run as one thread-block cluster of C CTAs (C from
 ops/kernels.py::cluster_size); ``CLUSTER_EDGES`` are the shapes at the
@@ -35,7 +36,9 @@ import numpy as np
 import pytest
 import torch
 
+from betacores_tpu_torch.models import logreg
 from betacores_tpu_torch.ops import kernels
+from betacores_tpu_torch.ops.projection import center
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 ADAM_B1, ADAM_B2 = 0.9, 0.999
@@ -254,6 +257,61 @@ def test_cuda_shard_partials_match_plain(cuda_device, use_beta, shape):
     n_live = shape["n_live"]
     assert (core[:, S:] == 0).all() and (colsum[:, S:] == 0).all() and (wcore[:, S:] == 0).all()
     assert (core[n_live:] == 0).all() and (corerow[0, n_live:] == 0).all()
+
+
+def assemble_shard_gradient(partials, scaling, S):
+    """The sharded builder's gradient from one shard's partials, in
+    float32 (parallel/sharded.py::_optimize_fused on a (1, 1) mesh)."""
+    colsum, core, corerow, wcore = (o.cpu() if isinstance(o, torch.Tensor)
+                                    else torch.from_numpy(np.array(o)) for o in partials)
+    r_unc = torch.tensor(scaling, dtype=torch.float32) * colsum - wcore
+    a, b = r_unc @ core.T, r_unc.sum(dim=1, keepdim=True)
+    return (-(a - (corerow / S) * b) / S)[0].double().numpy()
+
+
+def shard_step_at_scale(seed, use_beta):
+    """One step of a build over 2^26 rows on four cards: 50 subsample rows
+    a card scaled by 2^24 / 50, 60 live slots of weights summing to about
+    2^26, a posterior of width 0.01 about a mode near theta = 1. Returns
+    (K3's operands, S, the scaling, the centred gradient in float64)."""
+    rng = np.random.default_rng(seed)
+    d, S, n_sub, M, n_live = 10, 100, 56, 128, 60
+    scaling = 2.0 ** 24 / 50
+    sign = np.where(rng.uniform(size=(n_sub + M, 1)) < 0.8, 1.0, -1.0)
+    rows = (sign * (1.0 + rng.normal(size=(n_sub + M, d)))).astype(np.float32)
+    mu = (0.9 + 0.1 * rng.normal(size=(1, d))).astype(np.float32)
+    linv = (0.01 * np.eye(d) + 0.001 * np.tril(rng.normal(size=(d, d)))).astype(np.float32)
+    z = rng.normal(size=(128, d)).astype(np.float32)
+    w = np.zeros((1, M), np.float32)
+    w[0, :n_live] = rng.uniform(size=n_live) * 2 * 2 ** 26 / n_live
+    xin = np.zeros((n_sub + M, d + 1), np.float32)
+    xin[:, :d] = rows
+    xin[:n_sub + n_live, d] = 1.0
+    sc = np.asarray([0.1], np.float32)
+    t = lambda a: torch.from_numpy(a).double()
+    th = t(z[:S]) @ t(linv) + t(mu)
+    lik = (logreg.beta_likelihood(t(rows), th, 0.1) if use_beta
+           else logreg.log_likelihood(t(rows), th))
+    v = center(lik).numpy() * xin[:, d:]
+    resid = scaling * v[:n_sub].sum(0) - w[0].astype(np.float64) @ v[n_sub:]
+    return (xin, z, mu, linv, w, sc), S, scaling, -(v[n_sub:] @ resid) / S
+
+
+def rel_err(g, g_ref):
+    return float(np.abs(g - g_ref).max() / np.abs(g_ref).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_beta", [True, False])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cuda_shifted_partials_keep_the_gradient_at_scale(cuda_device, seed, use_beta):
+    """K3 on the card at the scale of a sharded build over 2^26 rows: the
+    gradient its partials give is within the plain version's 1e-4 of the
+    float64 centred one (test_torch_shard_kernel.py)."""
+    ops, S, scaling, g_ref = shard_step_at_scale(seed, use_beta)
+    got = kernels.logreg_shard_step_partials(*_torch(ops, cuda_device), S, use_beta=use_beta)
+    torch.cuda.synchronize()
+    assert rel_err(assemble_shard_gradient(got, scaling, S), g_ref) <= 1e-4
 
 
 def _step_launch(kernel, device, shape):

@@ -2,9 +2,11 @@
 (betacores_tpu_torch/ops/kernels.py::logreg_shard_step_partials): its plain
 version against the JAX package's Pallas kernel
 ``logreg_shard_step_partials`` (interpret mode on the CPU), the
-partials-to-gradient identity the sharded builder relies on, the packers'
-shard mask, the refit's fallback, and the build cache's hash. The CUDA
-kernel against its plain version is in test_torch_kernels_cuda.py.
+partials-to-gradient identity the sharded builder relies on, the
+gradient's precision at the scale of a sharded build over 2^26 rows (K3's
+rows shifted by their values at the mode; on the card in
+test_torch_kernels_cuda.py), the packers' shard mask, the refit's fallback, and the build cache's hash. The
+CUDA kernel against its plain version is in test_torch_kernels_cuda.py.
 
 Tolerances are the JAX package's own (tests/test_pallas_kernels.py): the
 partials within atol = rtol = 2e-4 in float32, the assembled gradient
@@ -22,7 +24,8 @@ from betacores_tpu_torch.inference import logreg_laplace_sampler
 from betacores_tpu_torch.models import logreg
 from betacores_tpu_torch.ops import _build, kernels
 from betacores_tpu_torch.ops.projection import center
-from test_torch_kernels_cuda import shard_operands
+from test_torch_kernels_cuda import (assemble_shard_gradient, rel_err, shard_operands,
+                                     shard_step_at_scale)
 
 torch.set_num_threads(1)
 TOL = dict(atol=2e-4, rtol=2e-4)
@@ -39,16 +42,27 @@ def _torch(ops, device="cpu"):
     return [torch.from_numpy(a).to(device) for a in ops]
 
 
+def _pallas_shifted(ops, S, use_beta):
+    """The Pallas kernel's partials of the raw values less its partials at
+    zero noise (every sample at mu: each row's value at the mode), in
+    float64: what the port's shifted partials are."""
+    run = lambda z: [np.asarray(o, np.float64) for o in jk.logreg_shard_step_partials(
+        jnp.asarray(ops[0]), jnp.asarray(z), *(jnp.asarray(a) for a in ops[2:]), S,
+        use_beta=use_beta)]
+    return [a - b for a, b in zip(run(ops[1]), run(np.zeros_like(ops[1])))]
+
+
 @pytest.mark.parametrize("use_beta", [True, False])
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_plain_matches_pallas_kernel(rng, shape, use_beta):
+    """The port's partials are the Pallas kernel's with each row shifted by
+    its value at the mode: the raw partials less those at zero noise."""
     ops, S = shard_operands(rng, **SHAPES[shape])
-    want = jk.logreg_shard_step_partials(*(jnp.asarray(a) for a in ops), S,
-                                         use_beta=use_beta)
+    want = _pallas_shifted(ops, S, use_beta)
     got = kernels.logreg_shard_step_partials(*_torch(ops), S, use_beta=use_beta)
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == torch.float32
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+        np.testing.assert_allclose(g.numpy(), w, **TOL)
     colsum, core, corerow, wcore = got
     n_live = SHAPES[shape]["n_live"]
     # padding is exactly zero: sample columns past S, masked buffer rows
@@ -108,6 +122,22 @@ def test_partials_give_the_centred_gradient(rng, use_beta):
     g = -(a[0, :M] - (r[0, :M] / S) * b) / S
     np.testing.assert_allclose(g, g_ref, atol=3e-4, rtol=3e-4)
     assert (a[0, M:] == 0.0).all() and (r[0, M:] == 0.0).all()
+
+
+@pytest.mark.parametrize("use_beta", [True, False])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_shifted_partials_keep_the_gradientshard_step_at_scale(seed, use_beta):
+    """At the scale of 2^26 rows the gradient from the port's partials is
+    within 1e-4 of the float64 centred one (measured: 2e-6 to 1.4e-5),
+    where the raw partials the Pallas kernel sums give 4e-3 to 0.6: their
+    common level, scaled by 3.4e5, leaves float32 too few digits for the
+    spread over samples. 1e-4 lies 7 times above the first and 38 times
+    below the second."""
+    ops, S, scaling, g_ref = shard_step_at_scale(seed, use_beta)
+    got = kernels.logreg_shard_step_partials(*_torch(ops), S, use_beta=use_beta)
+    assert rel_err(assemble_shard_gradient(got, scaling, S), g_ref) <= 1e-4
+    raw = jk.logreg_shard_step_partials(*(jnp.asarray(a) for a in ops), S, use_beta=use_beta)
+    assert rel_err(assemble_shard_gradient(raw, scaling, S), g_ref) > 1e-3
 
 
 def test_wrapper_counts_only_card_launches(rng):

@@ -19,10 +19,12 @@ A job is a dict of plain data:
   given per data shard (a list indexed by ax_d, or None), or
   ``generator_seed`` for the builder's own ``generator_draws`` (with
   ``one_generator`` its replicated generator serves the local draws too);
-  with ``trace=True`` the job runs ``build_trace`` in place of ``build``.
+  with ``trace=True`` the job runs ``build_trace`` in place of ``build``,
+  with ``stages=True`` its select and optimize calls one by one.
 Each rank returns, per job: the built state as numpy arrays, the
-refinement route, the collective counts of the build, and with ``trace``
-the per-iteration (wts, idcs, beta) as numpy arrays. A job with
+refinement route, the collective counts of the build, with ``trace``
+the per-iteration (wts, idcs, beta) as numpy arrays, and with ``stages``
+each iteration's (state after select, state after optimize). A job with
 ``kind="mesh"`` instead reports the rank's mesh bookkeeping: its axes,
 psums and all_gathers of its rank over both axes, and its blocks of
 ``data`` and ``weights``; one with ``kind="hilbert"`` runs a
@@ -348,6 +350,12 @@ def run_job(job, mesh):
     if job.get("trace"):
         st, trace = builder.build_trace(st0, job["itrs"], draws)
         out["trace"] = [t.numpy() for t in trace]
+    elif job.get("stages"):
+        st, out["stages"] = st0, []
+        for it in range(job["itrs"]):
+            st_sel = builder.select(st, draws, it)
+            st = builder.optimize(st_sel, draws, it)
+            out["stages"].append((state_to_numpy(st_sel), state_to_numpy(st)))
     else:
         st = builder.build(st0, job["itrs"], draws)
     return dict(out, state=state_to_numpy(st), calls=dict(mesh.calls))
